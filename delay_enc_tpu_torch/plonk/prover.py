@@ -1,0 +1,368 @@
+"""create_proof: the proving pipeline on the card.
+
+Counterpart of `delay_enc_tpu/plonk/prover.py`, fused 8n quotient path.
+Protocol (transcript order is the spec; the verifier mirrors it exactly):
+
+ 1. commit the 5 advice columns (blinding rows randomized),
+ 2. theta; per wire-lookup: build compressed input A = tag + theta*tag*adv
+    and table S = table_tag + theta*table_tag*table_value, commit the
+    permuted (A', S') pair (halo2 2021 lookup argument),
+ 3. beta, gamma; commit the permutation grand product Z_perm and the four
+    lookup grand products Z_l,
+ 4. commit a random masking polynomial,
+ 5. y; build the quotient h = (sum_i y^i expr_i) / (X^n - 1) on the 8n
+    extended coset, split into 7 size-n pieces, commit each,
+ 6. x; batch-evaluate every opened polynomial at x / omega*x / omega^-1*x,
+ 7. v; GWC multiopen: one witness commitment per point, W = (Q - Q(z))/(X-z).
+
+`rng` is drawn from in exactly the JAX package's order (advice blinding,
+lookup pads, grand-product blinds, the random poly), so the same circuit,
+SRS and seed give the same proof bytes.
+"""
+
+from __future__ import annotations
+
+import time as _time
+
+import numpy as np
+import torch
+
+from ..cs.builder import Builder, NUM_ADVICE
+from ..cs.range import build_table
+from ..fields.bn254 import FR
+from ..ops import limbs as L
+from ..ops.ntt import powers
+from ..utils.device import resolve, synchronize
+from ..utils.timers import GLOBAL_METRICS
+from .domain import QUOTIENT_PIECES
+from .keygen import ALL_FIXED, LOOKUPS, ProvingKey
+from .kernels import (
+    _canon_batch,
+    _coeff,
+    _compress,
+    _eval_stack,
+    _evals_batch,
+    _ext,
+    _gp_finish,
+    _gp_partials,
+    _gwc_witness,
+    _lookup_fracs,
+    _perm_fracs,
+    _quotient,
+    msm_commit_batch,
+)
+from .transcript import Transcript
+
+WIRE_COL = {"a": 0, "b": 1, "c": 2, "d": 3}
+CTX = L.FR_CTX
+SCAN = "block"  # the scan every grand product names (ops/poly.py)
+
+
+def _rand_fr(rng) -> int:
+    return FR.from_uniform_bytes(bytes(rng.integers(0, 256, 64, dtype="uint8")))
+
+
+def _rand_fr_mont_bulk(rng, count: int) -> np.ndarray:
+    """count wide-reduced random Fr as (count, 8) Montgomery words, through
+    the copied C wide reduction (Python fallback)."""
+    raw = rng.integers(0, 256, (count, 64), dtype="uint8")
+    from ..native.ec import uniform_to_fr_mont
+
+    out = uniform_to_fr_mont(raw)
+    if out is not None:
+        return L.limbs_to_words_np(out)
+    return CTX.to_mont_np([FR.from_uniform_bytes(bytes(raw[i])) for i in range(count)])
+
+
+def _table_keys(tbl_tags, tbl_vals, usable: int, theta: int):
+    """Lookup permutation support: the range table's rows as u32 pair keys
+    (tag << 16 | value) padded with zeros to `usable` rows, plus the
+    compressed value tag + theta*tag*value of every key as Montgomery
+    words.  Pair keys stand for the 254-bit compressed values: every
+    looked-up (tag, value) pair is small (cs/range.py build_table), equal
+    keys give equal compressed values, and distinct keys distinct ones
+    except with negligible probability over theta."""
+    assert all(int(t) < (1 << 16) and int(v) < (1 << 16) for t, v in zip(tbl_tags, tbl_vals)), \
+        "u32 pair keys require 16-bit tags and values (cs/range.py widths <= 16)"
+    keys = [(int(t) << 16) | int(v) for t, v in zip(tbl_tags, tbl_vals)]
+    tkeys = np.asarray(keys, dtype=np.uint32)
+    assert np.all(np.diff(tkeys.astype(np.int64)) >= 0), "table keys must be sorted"
+    tkeys_padded = np.concatenate([np.zeros(usable - len(keys), np.uint32), tkeys])
+    return tkeys_padded, _fvals_mont(tkeys_padded, theta)
+
+
+def _fvals_mont(keys: np.ndarray, theta: int) -> np.ndarray:
+    """(len(keys), 8) Montgomery words of tag + theta*tag*value for every
+    u32 pair key (key 0 maps to 0), through the copied C lookup_fvals."""
+    from ..native import get_lib
+
+    keys = np.ascontiguousarray(keys, dtype=np.uint32)
+    lib = get_lib()
+    if lib is not None and hasattr(lib, "lookup_fvals"):
+        out = np.empty((len(keys), L.NLIMB), dtype=np.uint32)
+        pw, r2w, n0 = CTX._native_consts()
+        lib.lookup_fvals(
+            keys.ctypes.data, len(keys), theta.to_bytes(32, "little"),
+            pw.ctypes.data, r2w.ctypes.data, n0, out.ctypes.data,
+        )
+        return L.limbs_to_words_np(out)
+    p = FR.p
+    vals = [(int(k >> 16) + theta * int(k >> 16) % p * int(k & 0xFFFF)) % p for k in keys]
+    return CTX.to_mont_np(vals)
+
+
+def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire):
+    """halo2's lookup permutation (lookup/prover.rs permute_expression_pair):
+    A' = A sorted (grouped by value), S' = the matching table value at each
+    first occurrence, the remaining table rows filling the rest.  Computed
+    in key space with numpy; returns (usable, 8) Montgomery word arrays
+    gathered from `fvals`."""
+    rows = len(tag_col)
+    keys = np.zeros(usable, dtype=np.uint32)
+    t = np.fromiter((int(x) for x in tag_col), dtype=np.uint32, count=rows)
+
+    # tagged rows must hold sub-2^16 values (cs/range.py table widths); a
+    # wider value is a buggy witness or gadget: raise here rather than
+    # truncate into a possibly valid key
+    def masked():
+        for i, (tv, av) in enumerate(zip(tag_col, adv_col[:rows])):
+            av = int(av)
+            if av >= (1 << 16) and int(tv) != 0:
+                raise ValueError(
+                    f"lookup failure: tagged advice value >= 2^16 at row {i} "
+                    f"(wire {wire}, tag={int(tv)}) — buggy witness/gadget"
+                )
+            yield av & 0xFFFF
+
+    a = np.fromiter(masked(), dtype=np.uint32, count=rows)
+    keys[:rows] = np.where(t != 0, (t << 16) | a, 0)
+
+    ks = np.sort(keys)
+    is_first = np.empty(usable, dtype=bool)
+    is_first[0] = True
+    is_first[1:] = ks[1:] != ks[:-1]
+    firsts = ks[is_first]
+    pos = np.searchsorted(tkeys_padded, firsts, side="left")
+    ok = (pos < usable) & (tkeys_padded[np.minimum(pos, usable - 1)] == firsts)
+    if not ok.all():
+        bad = firsts[~ok][0]
+        raise ValueError(
+            f"lookup failure: (tag={bad >> 16}, value={bad & 0xFFFF}) not in table (wire {wire})"
+        )
+    used = np.zeros(usable, dtype=bool)
+    used[pos] = True
+    leftovers = tkeys_padded[~used]
+    sp_keys = np.empty(usable, dtype=np.uint32)
+    sp_keys[is_first] = firsts
+    sp_keys[~is_first] = leftovers[: usable - len(firsts)]
+
+    # key -> word row by one searchsorted gather per column (the zero pad
+    # keys land on index 0, whose fvals row is 0 by the compression formula)
+    ap = fvals[np.searchsorted(tkeys_padded, ks, side="left")]
+    sp = fvals[np.searchsorted(tkeys_padded, sp_keys, side="left")]
+    return ap, sp
+
+
+def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda") -> bytes:
+    device = resolve(device)
+    if pk.device != device or srs.device != device:
+        raise ValueError(f"keys on {pk.device} and SRS on {srs.device}, proof asked for {device}")
+    _t = [_time.time()]
+
+    def _phase(name):
+        synchronize(device)
+        now = _time.time()
+        GLOBAL_METRICS.spans[f"prove/{name}"] = (
+            GLOBAL_METRICS.spans.get(f"prove/{name}", 0.0) + now - _t[0]
+        )
+        _t[0] = now
+
+    if rng is None:
+        rng = np.random.default_rng()
+    ctx = CTX
+    domain = pk.vk.domain
+    n, usable = domain.n, domain.usable_rows
+    srs = srs.truncated(domain.k)
+    plan, plan_ext = domain.plan(device), domain.plan_ext(device)
+
+    def mont1(x: int) -> torch.Tensor:
+        return L.to_device_mont(ctx, [x], device)  # (1, 8)
+
+    def dev(words: np.ndarray) -> torch.Tensor:
+        return L.to_tensor(words, device)
+
+    delta_ms = [mont1(d) for d in pk.delta_powers]
+
+    tr = Transcript()
+    # vk.hash_into(transcript): the vk's transcript_repr comes first
+    tr.common_scalar(pk.vk.transcript_repr)
+    # bind the public inputs (instance column values)
+    for v in builder.instance:
+        tr.common_scalar(v)
+
+    pair_tables = srs.pair_tables()
+
+    def commit_many(coeffs):
+        stack = coeffs if isinstance(coeffs, torch.Tensor) else torch.stack(coeffs)
+        return msm_commit_batch(pair_tables, _canon_batch(stack))
+
+    # ---- 1. advice columns -------------------------------------------
+    advice_host = []
+    for c in range(NUM_ADVICE):
+        col = list(builder.advice[c]) + [0] * (n - builder.rows)
+        for r in range(usable, n):
+            col[r] = _rand_fr(rng)
+        advice_host.append(col)
+    # instance column: public values padded with zeros, not blinded
+    instance_col = list(builder.instance) + [0] * (n - len(builder.instance))
+    raw6 = dev(np.stack([ctx.to_mont_np(col) for col in advice_host + [instance_col]]))
+    advice_raw = [raw6[c] for c in range(NUM_ADVICE)]
+    instance_raw = raw6[NUM_ADVICE]
+    coeffs6 = _coeff(raw6, plan)
+    advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
+    instance_coeff = coeffs6[NUM_ADVICE]
+    for pt in commit_many(coeffs6[:NUM_ADVICE]):
+        tr.write_point(pt)
+    _phase("advice commit")
+
+    # ---- 2. lookups ---------------------------------------------------
+    theta = tr.challenge()
+    theta_m = mont1(theta)
+
+    s_raw = _compress(pk.fixed_raw["table_tag"], pk.fixed_raw["table_value"], theta_m)
+    tbl_tags, tbl_vals = build_table(builder.lookup_widths)
+    tkeys_padded, fvals = _table_keys(tbl_tags, tbl_vals, usable, theta)
+    a_raw, ap_host, sp_host = {}, {}, {}
+    for l in LOOKUPS:
+        a_raw[l] = _compress(pk.fixed_raw[f"tag_{l}"], advice_raw[WIRE_COL[l]], theta_m)
+        ap, sp = _permuted_columns(
+            builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
+            usable, tkeys_padded, fvals, l,
+        )
+        pad = ctx.to_mont_np([_rand_fr(rng) for _ in range(n - usable)])
+        ap_host[l] = np.concatenate([ap, pad])
+        sp_host[l] = np.concatenate([sp, pad])
+    lk_raw = dev(np.stack([ap_host[l] for l in LOOKUPS] + [sp_host[l] for l in LOOKUPS]))
+    ap_raw = {l: lk_raw[i] for i, l in enumerate(LOOKUPS)}
+    sp_raw = {l: lk_raw[4 + i] for i, l in enumerate(LOOKUPS)}
+    lk8 = _coeff(lk_raw, plan)
+    ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
+    sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
+    for pt in commit_many([c for l in LOOKUPS for c in (ap_coeff[l], sp_coeff[l])]):
+        tr.write_point(pt)
+    _phase("lookup permuted")
+
+    # ---- 3. grand products -------------------------------------------
+    beta = tr.challenge()
+    gamma = tr.challenge()
+    beta_m, gamma_m = mont1(beta), mont1(gamma)
+    active = torch.arange(n, device=device) < usable
+
+    omega_dev = powers(ctx, domain.omega, n, device)
+    sigma_raw = _evals_batch(torch.stack(pk.sigma_coeff), plan)
+    sigma_raw = [sigma_raw[c] for c in range(len(pk.sigma_coeff))]
+    # all 5 grand products (permutation + 4 lookups) batched
+    num_p, den_p = _perm_fracs(advice_raw + [instance_raw], sigma_raw, omega_dev,
+                               beta_m, gamma_m, delta_ms)
+    nums, dens = [num_p], [den_p]
+    for l in LOOKUPS:
+        numl, denl = _lookup_fracs(a_raw[l], s_raw, ap_raw[l], sp_raw[l], beta_m, gamma_m)
+        nums.append(numl)
+        dens.append(denl)
+    num_a, pre, suf, totals = _gp_partials(torch.stack(nums), torch.stack(dens), active, SCAN)
+    total_ints = L.from_device_mont(ctx, totals)
+    if any(t == 0 for t in total_ints):
+        raise ValueError("grand product denominator vanished")
+    total_inv_m = L.to_device_mont(ctx, [pow(t, -1, FR.p) for t in total_ints], device)
+    blind = dev(ctx.to_mont_np([_rand_fr(rng) for _ in range(5 * (n - usable - 1))])
+                ).reshape(5, n - usable - 1, L.NW)
+    z5 = _gp_finish(num_a, pre, suf, total_inv_m, blind, SCAN)
+    z5_coeff = _coeff(z5, plan)
+    z_perm_coeff = z5_coeff[0]
+    z_lookup_coeff = {l: z5_coeff[1 + i] for i, l in enumerate(LOOKUPS)}
+    for pt in commit_many(z5_coeff):
+        tr.write_point(pt)
+    _phase("grand products")
+
+    # ---- 4. random poly ----------------------------------------------
+    random_coeff = dev(_rand_fr_mont_bulk(rng, n))
+    tr.write_point(commit_many([random_coeff])[0])
+
+    # ---- 5. quotient ---------------------------------------------------
+    y = tr.challenge()
+    n_exprs = 4 + 5 * len(LOOKUPS)
+    y_pows_rev = L.to_device_mont(ctx, [pow(y, n_exprs - 1 - i, FR.p) for i in range(n_exprs)],
+                                  device)
+
+    witness_coeffs = (
+        advice_coeff
+        + [instance_coeff, z_perm_coeff]
+        + [z_lookup_coeff[l] for l in LOOKUPS]
+        + [ap_coeff[l] for l in LOOKUPS]
+        + [sp_coeff[l] for l in LOOKUPS]
+    )
+    # one batched extended-coset NTT for every opened witness polynomial
+    ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_ext)
+    advice_ext = [ext_stack[c] for c in range(NUM_ADVICE)]
+    off = NUM_ADVICE + 2
+    h_coeff = _quotient(
+        advice_ext, ext_stack[NUM_ADVICE], ext_stack[NUM_ADVICE + 1],
+        {l: ext_stack[off + i] for i, l in enumerate(LOOKUPS)},
+        {l: ext_stack[off + 4 + i] for i, l in enumerate(LOOKUPS)},
+        {l: ext_stack[off + 8 + i] for i, l in enumerate(LOOKUPS)},
+        pk.fixed_ext, pk.sigma_ext,
+        (pk.l0_ext, pk.l_last_ext, pk.l_blind_ext, pk.x_ext),
+        (theta_m, beta_m, gamma_m), delta_ms, pk.zh_inv_ext, pk.zeta_inv_powers,
+        y_pows_rev, plan_ext,
+    )
+    # the extended-domain arrays are not needed by the openings
+    del advice_ext, ext_stack
+    del a_raw, ap_raw, sp_raw, s_raw, lk_raw, num_a, pre, suf, omega_dev, sigma_raw
+    h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]
+    for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW)):
+        tr.write_point(pt)
+    _phase("quotient")
+
+    # ---- 6. evaluations ------------------------------------------------
+    x = tr.challenge()
+    x_w = x * domain.omega % FR.p
+    x_winv = x * domain.omega_inv % FR.p
+
+    opens_x = (
+        [advice_coeff[c] for c in range(NUM_ADVICE)]
+        + [pk.fixed_coeff[name] for name in ALL_FIXED]
+        + list(pk.sigma_coeff)
+        + [z_perm_coeff]
+        + [ap_coeff[l] for l in LOOKUPS]
+        + [sp_coeff[l] for l in LOOKUPS]
+        + [z_lookup_coeff[l] for l in LOOKUPS]
+        + [random_coeff]
+        + h_pieces
+    )
+    opens_wx = [advice_coeff[4], z_perm_coeff] + [z_lookup_coeff[l] for l in LOOKUPS]
+    opens_winvx = [ap_coeff[l] for l in LOOKUPS]
+
+    stacks, evals = {}, {}
+    for key, opens, point in (("x", opens_x, x), ("wx", opens_wx, x_w),
+                              ("winvx", opens_winvx, x_winv)):
+        stacks[key] = torch.stack(opens)
+        evals[key] = L.from_device_mont(ctx, _eval_stack(stacks[key], mont1(point)[0]))
+    for key in ("x", "wx", "winvx"):
+        for v in evals[key]:
+            tr.write_scalar(v)
+    _phase("evals")
+
+    # ---- 7. GWC multiopen ---------------------------------------------
+    # the three W commitments share one challenge, so their MSMs batch
+    v = tr.challenge()
+    v_m0 = mont1(v)[0]
+    ws = []
+    for key, point in (("x", x), ("wx", x_w), ("winvx", x_winv)):
+        ws.append(_gwc_witness(stacks[key], v_m0, mont1(point)[0],
+                               mont1(pow(point, -1, FR.p))[0]))
+    for pt in commit_many(ws):
+        tr.write_point(pt)
+    _phase("gwc")
+
+    return bytes(tr.data)
+
