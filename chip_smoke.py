@@ -4,8 +4,10 @@
 
 Phases, one line each (stderr carries detail):
  0. the card's name and power limit; build the CUDA kernels;
- 1. each kernel against its plain PyTorch version on the card, bit-exact,
-    at the main path's shapes, with both times;
+ 1. each kernel against its plain PyTorch version on the card, bit-exact
+    (points as affine), at the main path's shapes and on carry-heavy
+    operands, with both times; the plane sums also alone at the proof's
+    own shapes, at a ragged width, at one lane and at one row;
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
     pose_enc that must reproduce the committed vk, the committed proof;
  3. pose_enc at k=11: keygen, two proofs from default_rng(0) that must be
@@ -102,6 +104,18 @@ class Report:
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
 
+    def also(self, name, shape, *, err, ms, int_ops, note=""):
+        """One more shape of a kernel that has its row: printed, and kept
+        under the row's `other_shapes`."""
+        bound = int_ops / self.int_rate * 1e3
+        self.rows[name].setdefault("other_shapes", []).append(
+            {"shape": shape, "max_abs_err": err, "ms": ms, "bound_ms": bound,
+             "bound_by": "operations"})
+        print(f"phase 1 {name} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
+              f"bound {bound:.4f} ms (operations){note}", flush=True)
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}")
+
 
 def phase1(rep: Report, dev):
     from delay_enc_tpu_torch.ops import limbs as L
@@ -120,6 +134,19 @@ def phase1(rep: Report, dev):
         edge = L.to_device_mont(ctx, [0, 1, ctx.p - 1], dev)
         return torch.cat([w, edge])
 
+    def carry_heavy(ctx):
+        """Words that make every carry chain run long, each against each:
+        p - 1, p - 2, R mod p, all-ones words under the top one, zero words."""
+        ones = (1 << 256) - 1
+        vals = [0, 1, ctx.p - 1, ctx.p - 2, (1 << 256) % ctx.p, (1 << 255) % ctx.p,
+                ones >> 3, (ones >> 3) - 0xFFFFFFFF, (ones >> 3) ^ (0xFFFFFFFF << 96),
+                0xFFFFFFFF << 64, 1 << 32, (1 << 224) + 1, 0xFFFFFFFF]
+        if not all(0 <= v < ctx.p for v in vals):
+            raise AssertionError("a carry-heavy operand is not reduced")
+        w = L.to_tensor(L.ints_to_words_np(vals), dev)
+        m = len(vals)
+        return w.repeat_interleave(m, 0), w.repeat(m, 1)
+
     # K-a at 2^20 elements of Fr and Fq, elementwise and with a broadcast scalar
     n = 1 << 20
     for op, name in ((L.mont_mul, "field_mont_mul"), (L.add, "field_add"),
@@ -127,19 +154,21 @@ def phase1(rep: Report, dev):
         plain = {L.mont_mul: L.mont_mul_plain, L.add: L.add_plain, L.sub: L.sub_plain}[op]
         err, ms, plain_ms = 0, 0.0, 0.0
         for ctx in (L.FR_CTX, L.FQ_CTX):
-            a, b = rand_field(ctx, n), rand_field(ctx, n).flip(0)
-            for bb in (b, b[5:6]):
+            ha, hb = carry_heavy(ctx)
+            a = torch.cat([rand_field(ctx, n), ha])
+            b = torch.cat([rand_field(ctx, n).flip(0), hb])
+            for bb in (b, b[5:6], b[-2:-1]):
                 got = op(ctx, a, bb)
                 t0 = time.time()
                 want = plain(ctx, a, bb)
                 torch.cuda.synchronize()
-                plain_ms += (time.time() - t0) * 1e3 / 4
+                plain_ms += (time.time() - t0) * 1e3 / 6
                 err = max(err, max_err(got, want))
             ms += timed(lambda: op(ctx, a, b), 20) / 2
-        elems = n + 3
+        elems = a.shape[0]
         rep.add(name, err=err, ms=ms, plain_ms=plain_ms, nbytes=96 * elems,
                 int_ops=elems * (MONT_MULS * WIDE if op is L.mont_mul else 0),
-                note=" (Fr and Fq, 2^20 + 3 elements)")
+                note=f" (Fr and Fq, 2^20 + {elems - n} elements, carry-heavy pairs among them)")
 
     # K-b: (19, 2^19) forward coset transform, (6, 2^16) inverse
     d = Domain(16)
@@ -182,25 +211,88 @@ def phase1(rep: Report, dev):
     rep.add("g1_complete_add", err=err, ms=ms, plain_ms=plain_ms, nbytes=3 * 96 * npts,
             int_ops=npts * ADD_MULS * MONT_MULS * WIDE, note=" (2^16 pairs)")
 
-    # K-c: selector mode, C = 16 rows of W = 2^15 lanes over a pair table
+    # fixed base: 2^10 scalars with 0, 1, r - 1 and a power of two against the
+    # plain version, then 2^16 random ones, all compared as affine points
+    from delay_enc_tpu_torch.fields import FR
+
+    table_g = M.base_table((1, 2), dev)
     w = 1 << 15
-    pts = M.fixed_base_batch_mul(M.base_table((1, 2), dev),
-                                 torch.randint(0, 2**31, (2 * w, 8), generator=gen,
-                                               device=dev, dtype=torch.int64).to(torch.int32)
-                                 & 0x0FFFFFFF)
+
+    def rand_scalars(count):
+        return torch.randint(0, 2**31, (count, 8), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32) & 0x0FFFFFFF
+
+    special = M.scalars_to_words([0, 1, FR.p - 1, 1 << 200, (1 << 253) + 1, FR.p - 2], dev)
+    small = torch.cat([special, rand_scalars(1024 - special.shape[0])])
+    err = int(np.abs(affine_words(M.fixed_base_batch_mul(table_g, small))
+                     - affine_words(M.fixed_base_batch_mul_plain(table_g, small))).max())
+    scal = rand_scalars(2 * w)
+    pts = M.fixed_base_batch_mul(table_g, scal)
+    t0 = time.time()
+    want = M.fixed_base_batch_mul_plain(table_g, scal)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max(err, int(np.abs(affine_words(pts) - affine_words(want)).max()))
+    del want
+    ms = timed(lambda: M.fixed_base_batch_mul(table_g, scal), 5)
+    npts = 2 * w
+    rep.add("g1_fixed_base_mul", err=err, ms=ms, plain_ms=plain_ms,
+            nbytes=npts * (32 + 96) + M.SCALAR_BITS * 96,
+            int_ops=npts * M.SCALAR_BITS * ADD_MULS * MONT_MULS * WIDE,
+            note=f" (2^16 scalars, {M.fixed_base_split(npts)} threads a scalar; 2^10 with "
+                 f"0, 1, r - 1 and powers of two also agree; compared affine)")
+
+    # K-c: selector mode, C = 16 rows of W = 2^15 lanes over a pair table
     table = M.pair_tables(pts)
-    sel = torch.randint(0, 16, (16, w), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
+
+    def rand_sel(rows, width):
+        return torch.randint(0, 16, (rows, width), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.uint8)
+
+    def affine_err(got, want):
+        return int(np.abs(affine_words(got) - affine_words(want)).max())
+
+    sel = rand_sel(16, w)
     got = MT.tree_reduce(table, sel)
     t0 = time.time()
     want = MT.tree_reduce_plain(table, sel)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
-    err = int(np.abs(affine_words(got) - affine_words(want)).max())
+    err = affine_err(got, want)
     ms = timed(lambda: MT.tree_reduce(table, sel), 5)
     rep.add("plane_sums", err=err, ms=ms, plain_ms=plain_ms,
             nbytes=16 * w + 16 * w * 96 + 16 * 96,
             int_ops=16 * (w - 1) * ADD_MULS * MONT_MULS * WIDE,
             note=" (selector mode, C=16, W=2^15, compared affine)")
+
+    # K-c alone at the proof's shapes: one column and the largest batch; the
+    # plain version sums a sample of the rows (first, last and random ones)
+    rng = np.random.default_rng(2)
+    for cols in (1, 8):
+        rows = cols * M.PLANES
+        sel = rand_sel(rows, w)
+        got = MT.tree_reduce(table, sel)
+        pick = sorted({0, rows - 1, *rng.integers(0, rows, 14).tolist()})
+        err = affine_err(got[pick], MT.tree_reduce_plain(table, sel[pick]))
+        ms = timed(lambda: MT.tree_reduce(table, sel), 5)
+        rep.also("plane_sums", f"rows={rows} ({cols} x 127), W=2^15", err=err, ms=ms,
+                 int_ops=rows * (w - 1) * ADD_MULS * MONT_MULS * WIDE,
+                 note=f" ({len(pick)} rows compared affine; passes "
+                      f"{[(p.run, p.threads, p.chunks) for p in MT.plan(rows, w)]})")
+    # a width that is no multiple of a run or of 32, one lane, one row, and
+    # rows of plain points without selectors
+    for rows, width in ((3, 8191 + 6), (5, 1), (1, w)):
+        sel = rand_sel(rows, width)
+        sub = table[:, :width].contiguous()
+        err = affine_err(MT.tree_reduce(sub, sel), MT.tree_reduce_plain(sub, sel))
+        ms = timed(lambda: MT.tree_reduce(sub, sel), 3)
+        rep.also("plane_sums", f"rows={rows}, W={width}", err=err, ms=ms,
+                 int_ops=rows * (width - 1) * ADD_MULS * MONT_MULS * WIDE)
+    direct = table[1:4, :1000 + 7].contiguous()
+    err = affine_err(MT.tree_reduce(direct), MT.tree_reduce_plain(direct))
+    ms = timed(lambda: MT.tree_reduce(direct), 3)
+    rep.also("plane_sums", "rows=3, W=1007, points without selectors", err=err, ms=ms,
+             int_ops=3 * 1006 * ADD_MULS * MONT_MULS * WIDE)
 
 
 def pose_enc_circuit(seed: int = 42):
@@ -257,12 +349,13 @@ def spans(prefix=""):
 KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
     "field_binary_kernel": "field (K-a)", "ntt_stage_kernel": "ntt_stage (K-b)",
     "plane_sums_kernel": "plane_sums (K-c)", "g1_add_kernel": "g1_complete_add (K-d)",
+    "fixed_base_kernel": "g1_fixed_base_mul",
 }
 
 
 def profile_proof(srs, pk, builder, proof, dev):
     """One more headline proof under torch.profiler: device kernel time by
-    kernel (the port's four, and PyTorch's own copies and elementwise ops)
+    kernel (the port's own, and PyTorch's copies and elementwise ops)
     against the proof's wall time, so the device's idle share shows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -315,8 +408,10 @@ def main() -> int:
     for name in _cuda.SOURCES:
         with open(os.path.join(_cuda.BUILD, f"{name}.log")) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+                if "Compiling entry" in line:
+                    log(f"  {name}: {line.split(chr(39))[1]}")
+                elif "registers" in line or "spill" in line:
+                    log(f"  {name}:   {line.strip()}")
 
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -402,6 +497,11 @@ def main() -> int:
           f"verify {t_ver:.3f} s (host), proof {len(proof16)} B, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; spans {json.dumps(spans())}; "
           f"launches {json.dumps(launches)}", flush=True)
+
+    # the SRS powers are one launch of the fused kernel, and the elementwise
+    # addition is left with the three launches of pair_tables
+    if launches["g1_fixed_base_mul"] != 1 or launches["g1_complete_add"] != 3:
+        raise AssertionError(f"SRS setup and pair tables launched {launches}")
 
     profile_proof(srs16, pk16, b16, proof16, dev)
 

@@ -14,6 +14,20 @@
 //
 // The functions are __host__ __device__ so that the same arithmetic can be
 // compiled by a host C++ compiler and checked against Python integers.
+//
+// reduce_once, add, sub and mont_mul have two bodies.  A host compiler
+// takes the portable C++ one.  The device takes PTX carry chains
+// (add.cc / addc.cc, sub.cc / subc.cc, mad.lo.cc / madc.hi.cc): the carry
+// stays in the flag, each wide product is one multiply-add pair on the same
+// operands (one IMAD.WIDE with carry once assembled), and the Montgomery
+// product splits its partial products into an even and an odd accumulator
+// whose chains are independent of each other.  Both bodies give the same
+// fully reduced words.  With FLD_EMULATE_PTX a host compiler takes the
+// carry-chain bodies too, over C++ stand-ins for the PTX instructions that
+// keep the flag in a variable, so their logic can be tested without a card.
+// With FLD_PORTABLE the device takes the portable bodies: csrc/ntt.cu does,
+// because its one butterfly a thread runs faster on them, and
+// tools/torch_msm_bench.py can time the two against each other.
 
 #pragma once
 #include <stdint.h>
@@ -100,6 +114,208 @@ FDEV uint32_t onew<FQ>(int i) {
   }
 }
 
+#if (defined(__CUDA_ARCH__) && !defined(FLD_PORTABLE)) || defined(FLD_EMULATE_PTX)
+
+// ---- carry-chain bodies ---------------------------------------------------
+
+// One PTX instruction each, so an output register may share an input's.
+// `asm volatile` keeps them in program order, which keeps the flag intact
+// from one to the next.
+namespace ptx {
+#ifdef __CUDA_ARCH__
+#define FLD_PTX2(name, ins)                                               \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b) {      \
+    uint32_t r;                                                           \
+    asm volatile(ins " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));          \
+    return r;                                                             \
+  }
+#define FLD_PTX3(name, ins)                                                   \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b,            \
+                                           uint32_t c) {                      \
+    uint32_t r;                                                               \
+    asm volatile(ins " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));  \
+    return r;                                                                 \
+  }
+FLD_PTX2(add_cc, "add.cc.u32")
+FLD_PTX2(addc_cc, "addc.cc.u32")
+FLD_PTX2(addc, "addc.u32")
+FLD_PTX2(sub_cc, "sub.cc.u32")
+FLD_PTX2(subc_cc, "subc.cc.u32")
+FLD_PTX2(subc, "subc.u32")
+FLD_PTX2(mul_lo, "mul.lo.u32")
+FLD_PTX2(mul_hi, "mul.hi.u32")
+FLD_PTX3(mad_lo_cc, "mad.lo.cc.u32")
+FLD_PTX3(madc_lo_cc, "madc.lo.cc.u32")
+FLD_PTX3(madc_hi_cc, "madc.hi.cc.u32")
+FLD_PTX3(madc_hi, "madc.hi.u32")
+#undef FLD_PTX2
+#undef FLD_PTX3
+#else
+// Host stand-ins: the same results and the same flag, one variable a thread.
+inline uint32_t& cf() {
+  static thread_local uint32_t flag = 0;
+  return flag;
+}
+inline uint32_t put(uint64_t x, bool set) {
+  if (set) cf() = (uint32_t)(x >> 32) & 1u;
+  return (uint32_t)x;
+}
+inline uint32_t lo32(uint32_t a, uint32_t b) { return (uint32_t)((uint64_t)a * b); }
+inline uint32_t hi32(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+inline uint32_t add_cc(uint32_t a, uint32_t b) { return put((uint64_t)a + b, true); }
+inline uint32_t addc_cc(uint32_t a, uint32_t b) { return put((uint64_t)a + b + cf(), true); }
+inline uint32_t addc(uint32_t a, uint32_t b) { return put((uint64_t)a + b + cf(), false); }
+// a borrow sets bit 32 of the 64-bit difference
+inline uint32_t sub_cc(uint32_t a, uint32_t b) { return put((uint64_t)a - b, true); }
+inline uint32_t subc_cc(uint32_t a, uint32_t b) { return put((uint64_t)a - b - cf(), true); }
+inline uint32_t subc(uint32_t a, uint32_t b) { return put((uint64_t)a - b - cf(), false); }
+inline uint32_t mul_lo(uint32_t a, uint32_t b) { return lo32(a, b); }
+inline uint32_t mul_hi(uint32_t a, uint32_t b) { return hi32(a, b); }
+inline uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return put((uint64_t)lo32(a, b) + c, true);
+}
+inline uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return put((uint64_t)lo32(a, b) + c + cf(), true);
+}
+inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return put((uint64_t)hi32(a, b) + c + cf(), true);
+}
+inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  return put((uint64_t)hi32(a, b) + c + cf(), false);
+}
+#endif
+}  // namespace ptx
+
+// r = t mod p for a value t + hi * 2^256 < 2p
+template <int F>
+FDEV void reduce_once(uint32_t r[NW], const uint32_t t[NW], uint32_t hi) {
+  uint32_t d[NW];
+  d[0] = ptx::sub_cc(t[0], pw<F>(0));
+#pragma unroll
+  for (int j = 1; j < NW; j++) d[j] = ptx::subc_cc(t[j], pw<F>(j));
+  const uint32_t borrow = ptx::subc(0u, 0u);  // all ones when t < p
+  const bool ge = (hi != 0) || (borrow == 0);
+#pragma unroll
+  for (int j = 0; j < NW; j++) r[j] = ge ? d[j] : t[j];
+}
+
+template <int F>
+FDEV void add(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
+  uint32_t s[NW];
+  s[0] = ptx::add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < NW; j++) s[j] = ptx::addc_cc(a[j], b[j]);
+  const uint32_t hi = ptx::addc(0u, 0u);
+  reduce_once<F>(r, s, hi);
+}
+
+// a + b left unreduced: for two reduced operands whose sum (below 2p, so
+// below 2^255) only feeds mont_mul, which takes any operands below 2^256
+// with a * b < p * 2^256
+FDEV void add_unreduced(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
+  r[0] = ptx::add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < NW - 1; j++) r[j] = ptx::addc_cc(a[j], b[j]);
+  r[NW - 1] = ptx::addc(a[NW - 1], b[NW - 1]);
+}
+
+template <int F>
+FDEV void sub(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
+  uint32_t d[NW];
+  d[0] = ptx::sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < NW; j++) d[j] = ptx::subc_cc(a[j], b[j]);
+  // a < b: add p back (mod 2^256)
+  const uint32_t mask = ptx::subc(0u, 0u);
+  r[0] = ptx::add_cc(d[0], pw<F>(0) & mask);
+#pragma unroll
+  for (int j = 1; j < NW - 1; j++) r[j] = ptx::addc_cc(d[j], pw<F>(j) & mask);
+  r[NW - 1] = ptx::addc(d[NW - 1], pw<F>(NW - 1) & mask);
+}
+
+// One row of the Montgomery product.  The running value is e + o * 2^32:
+// e holds words 0..7, o words 1..8.  The row adds a * bi, the even-indexed
+// a[j] into e (their low and high halves fall on words j, j + 1 = 0..7) and
+// the odd-indexed into o, each as one carry chain, then m * p the same way
+// with m chosen so that e[0] becomes 0.  Dividing by 2^32 then needs no
+// move: the next row is called with the two arrays exchanged.  Its o is
+// this row's e, whose word 0 is zero, whose word 1 belongs under the new
+// e[0], and whose words 2..7 are the new o[0..5].  The value stays below
+// 2^288 (inputs below 2^256 with a * b < p * 2^256), so the chain of o
+// never carries out, and the carry out of e's chain lands in o[7].
+template <int F, bool FIRST>
+FDEV void mont_row(uint32_t e[NW], uint32_t o[NW], const uint32_t a[NW], uint32_t bi) {
+  if (FIRST) {
+#pragma unroll
+    for (int j = 0; j < NW; j += 2) {
+      e[j] = ptx::mul_lo(a[j], bi);
+      e[j + 1] = ptx::mul_hi(a[j], bi);
+      o[j] = ptx::mul_lo(a[j + 1], bi);
+      o[j + 1] = ptx::mul_hi(a[j + 1], bi);
+    }
+  } else {
+    e[0] = ptx::add_cc(e[0], o[1]);
+#pragma unroll
+    for (int j = 0; j < NW - 2; j += 2) {
+      o[j] = ptx::madc_lo_cc(a[j + 1], bi, o[j + 2]);
+      o[j + 1] = ptx::madc_hi_cc(a[j + 1], bi, o[j + 3]);
+    }
+    o[NW - 2] = ptx::madc_lo_cc(a[NW - 1], bi, 0u);
+    o[NW - 1] = ptx::madc_hi(a[NW - 1], bi, 0u);
+    e[0] = ptx::mad_lo_cc(a[0], bi, e[0]);
+    e[1] = ptx::madc_hi_cc(a[0], bi, e[1]);
+#pragma unroll
+    for (int j = 2; j < NW; j += 2) {
+      e[j] = ptx::madc_lo_cc(a[j], bi, e[j]);
+      e[j + 1] = ptx::madc_hi_cc(a[j], bi, e[j + 1]);
+    }
+    o[NW - 1] = ptx::addc(o[NW - 1], 0u);
+  }
+  const uint32_t m = e[0] * nprime<F>();
+  o[0] = ptx::mad_lo_cc(m, pw<F>(1), o[0]);
+  o[1] = ptx::madc_hi_cc(m, pw<F>(1), o[1]);
+#pragma unroll
+  for (int j = 2; j < NW - 2; j += 2) {
+    o[j] = ptx::madc_lo_cc(m, pw<F>(j + 1), o[j]);
+    o[j + 1] = ptx::madc_hi_cc(m, pw<F>(j + 1), o[j + 1]);
+  }
+  o[NW - 2] = ptx::madc_lo_cc(m, pw<F>(NW - 1), o[NW - 2]);
+  o[NW - 1] = ptx::madc_hi(m, pw<F>(NW - 1), o[NW - 1]);
+  e[0] = ptx::mad_lo_cc(m, pw<F>(0), e[0]);
+  e[1] = ptx::madc_hi_cc(m, pw<F>(0), e[1]);
+#pragma unroll
+  for (int j = 2; j < NW; j += 2) {
+    e[j] = ptx::madc_lo_cc(m, pw<F>(j), e[j]);
+    e[j + 1] = ptx::madc_hi_cc(m, pw<F>(j), e[j + 1]);
+  }
+  o[NW - 1] = ptx::addc(o[NW - 1], 0u);
+}
+
+// Montgomery product a * b * 2^-256 mod p, fully reduced: eight rows, then
+// the two accumulators are added up and reduced once.
+template <int F>
+FDEV void mont_mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
+  uint32_t e[NW], o[NW], t[NW];
+  mont_row<F, true>(e, o, a, b[0]);
+  mont_row<F, false>(o, e, a, b[1]);
+#pragma unroll
+  for (int i = 2; i < NW; i += 2) {
+    mont_row<F, false>(e, o, a, b[i]);
+    mont_row<F, false>(o, e, a, b[i + 1]);
+  }
+  // the last row ran with the arrays exchanged: o[0] == 0, o[1..7] lie
+  // under e[0..6]
+  t[0] = ptx::add_cc(e[0], o[1]);
+#pragma unroll
+  for (int j = 1; j < NW - 1; j++) t[j] = ptx::addc_cc(e[j], o[j + 1]);
+  t[NW - 1] = ptx::addc(e[NW - 1], 0u);
+  reduce_once<F>(r, t, 0u);
+}
+
+#else
+
+// ---- portable bodies --------------------------------------------------------
+
 // r = t mod p for a value t + hi * 2^256 < 2p
 template <int F>
 FDEV void reduce_once(uint32_t r[NW], const uint32_t t[NW], uint32_t hi) {
@@ -126,6 +342,18 @@ FDEV void add(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
     s[j] = (uint32_t)c;
   }
   reduce_once<F>(r, s, (uint32_t)(c >> 32));
+}
+
+// a + b left unreduced: for two reduced operands whose sum (below 2p, so
+// below 2^255) only feeds mont_mul, which takes any operands below 2^256
+// with a * b < p * 2^256
+FDEV void add_unreduced(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < NW; j++) {
+    c = (uint64_t)a[j] + b[j] + (c >> 32);
+    r[j] = (uint32_t)c;
+  }
 }
 
 template <int F>
@@ -179,6 +407,8 @@ FDEV void mont_mul(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
   reduce_once<F>(r, t, t[NW]);
 }
 
+#endif  // carry-chain or portable bodies
+
 FDEV void copy(uint32_t r[NW], const uint32_t a[NW]) {
 #pragma unroll
   for (int j = 0; j < NW; j++) r[j] = a[j];
@@ -202,24 +432,26 @@ FDEV void g1_identity(G1& p) {
 
 // Complete addition on y^2 = x^3 + 3 (b3 = 9): Renes-Costello-Batina 2016
 // Algorithm 7, in the operation order of delay_enc_tpu/ops/msm.py
-// _ll_complete_add (:129-163).  Handles identity and doubling.
+// _ll_complete_add (:129-163).  Handles identity and doubling.  The six
+// operand sums of m3, m4 and m5 go into their products unreduced; the
+// products reduce fully, so every word of the result is unchanged.
 FDEV void g1_add(G1& o, const G1& p, const G1& q) {
   uint32_t t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], u[NW], v[NW], y3[NW], z3[NW];
   mont_mul<FQ>(t0, p.x, q.x);
   mont_mul<FQ>(t1, p.y, q.y);
   mont_mul<FQ>(t2, p.z, q.z);
-  add<FQ>(u, p.x, p.y);
-  add<FQ>(v, q.x, q.y);
+  add_unreduced(u, p.x, p.y);
+  add_unreduced(v, q.x, q.y);
   mont_mul<FQ>(t3, u, v);  // m3
   add<FQ>(u, t0, t1);
   sub<FQ>(t3, t3, u);  // t3 = m3 - (t0 + t1)
-  add<FQ>(u, p.y, p.z);
-  add<FQ>(v, q.y, q.z);
+  add_unreduced(u, p.y, p.z);
+  add_unreduced(v, q.y, q.z);
   mont_mul<FQ>(t4, u, v);  // m4
   add<FQ>(u, t1, t2);
   sub<FQ>(t4, t4, u);  // t4 = m4 - (t1 + t2)
-  add<FQ>(u, p.x, p.z);
-  add<FQ>(v, q.x, q.z);
+  add_unreduced(u, p.x, p.z);
+  add_unreduced(v, q.x, q.z);
   mont_mul<FQ>(y3, u, v);  // m5
   add<FQ>(u, t0, t2);
   sub<FQ>(y3, y3, u);  // y3p = m5 - (t0 + t2)

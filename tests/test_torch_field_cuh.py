@@ -1,7 +1,11 @@
 """The CUDA kernels' arithmetic on the CPU: delay_enc_tpu_torch/csrc/field.cuh
-is __host__ __device__, so the host C++ compiler builds the same Montgomery
-product, addition, subtraction and complete addition that K-a..K-d run on
-the card.  Checked here against Python integers and the host curve."""
+is __host__ __device__, so the host C++ compiler builds the Montgomery
+product, addition, subtraction and complete addition of K-a..K-d.  The
+header has two sets of bodies: portable C++, which a host compiler takes,
+and PTX carry chains, which the card takes.  Both are built here, the
+second with FLD_EMULATE_PTX, which puts C++ stand-ins with a carry flag
+under the same chains, and both are checked against Python integers and
+the host curve."""
 
 import os
 import shutil
@@ -56,16 +60,21 @@ int main() {
 """
 
 
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+BODIES = {"portable": [], "carry_chain": ["-DFLD_EMULATE_PTX"]}
+
+
+@pytest.fixture(scope="module", params=list(BODIES))
+def harness(request, tmp_path_factory):
+    """The harness built without __CUDACC__, once for each set of bodies."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    d = tmp_path_factory.mktemp("field_cuh")
+    d = tmp_path_factory.mktemp("field_cuh_" + request.param)
     src, exe = d / "harness.cpp", d / "harness"
     src.write_text(HARNESS)
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wno-unknown-pragmas", f"-I{CSRC}",
-                    "-o", str(exe), str(src)], check=True, capture_output=True)
+                    *BODIES[request.param], "-o", str(exe), str(src)],
+                   check=True, capture_output=True)
 
     def run(lines):
         out = subprocess.run([str(exe)], input="\n".join(lines) + "\n", text=True,
@@ -87,7 +96,16 @@ def _unw(ws):
 def test_field_ops_match_python_ints(harness, fid, field):
     p = field.p
     rng = np.random.default_rng(fid)
-    vals = [0, 1, p - 1, p - 2, (1 << 255) % p] + [field.random(rng) for _ in range(3000)]
+    ones = (1 << 256) - 1
+    carry_heavy = [
+        p - 1, p - 2, R % p, (1 << 255) % p,
+        ones >> 3,  # every word all ones below the top one (2^253 - 1 < p)
+        (ones >> 3) - 0xFFFFFFFF,  # the same with a zero low word
+        (ones >> 3) ^ (0xFFFFFFFF << 96),  # a zero word in the middle
+        0xFFFFFFFF << 64, 1 << 32, (1 << 224) + 1, 0xFFFFFFFF,
+    ]
+    assert all(0 <= v < p for v in carry_heavy)
+    vals = [0, 1] + carry_heavy + [field.random(rng) for _ in range(3000)]
     lines, want = [], []
     for i, a in enumerate(vals):
         b = vals[(7 * i + 3) % len(vals)]
@@ -96,6 +114,14 @@ def test_field_ops_match_python_ints(harness, fid, field):
             want.append(w)
     got = [_unw(r) for r in harness(lines)]
     assert got == want
+    # every carry-heavy value against every other, both ways round
+    lines, want = [], []
+    for a in [0, 1] + carry_heavy:
+        for b in [0, 1] + carry_heavy:
+            for op, w in ((0, a * b * pow(R, -1, p) % p), (1, (a + b) % p), (2, (a - b) % p)):
+                lines.append(f"{op} {fid} " + " ".join(map(str, _w(a) + _w(b))))
+                want.append(w)
+    assert [_unw(r) for r in harness(lines)] == want
 
 
 def test_complete_add_matches_host_curve(harness):
@@ -122,3 +148,22 @@ def test_complete_add_matches_host_curve(harness):
         x, y, z = x * rinv % q, y * rinv % q, z * rinv % q
         got = None if z == 0 else (x * pow(z, -1, q) % q, y * pow(z, -1, q) % q)
         assert got == w
+
+
+def test_header_compiles_without_cuda(tmp_path):
+    """field.cuh alone, as a host compiler sees it (no __CUDACC__, no
+    __CUDA_ARCH__), with warnings as errors, for each set of bodies."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    src = tmp_path / "only_header.cpp"
+    src.write_text('#include "field.cuh"\n'
+                   "#if defined(__CUDACC__) || defined(__CUDA_ARCH__)\n#error CUDA\n#endif\n"
+                   "template void fld::mont_mul<0>(uint32_t*, const uint32_t*, const uint32_t*);\n"
+                   "template void fld::mont_mul<1>(uint32_t*, const uint32_t*, const uint32_t*);\n"
+                   "void both(fld::G1& o, const fld::G1& p, const fld::G1& q) "
+                   "{ fld::g1_add(o, p, q); }\n")
+    for flags in BODIES.values():
+        subprocess.run([cxx, "-std=c++17", "-Wall", "-Werror", "-Wno-unknown-pragmas",
+                        f"-I{CSRC}", *flags, "-c", "-o", str(tmp_path / "only_header.o"),
+                        str(src)], check=True, capture_output=True)
