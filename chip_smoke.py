@@ -3,18 +3,24 @@
     python3 chip_smoke.py
 
 Phases, one line each (stderr carries detail):
- 0. the card's name and power limit; build the CUDA kernels;
+ 0. the card's name and power limit; build the CUDA kernels; then SRS setup,
+    keygen and create_proof of the k=7 test circuit on the card, whose vk
+    and proof bytes must equal the JAX package's (tests/data/torch_port_k7.npz);
  1. each kernel against its plain PyTorch version on the card, bit-exact
     (points as affine), at the main path's shapes and on carry-heavy
-    operands, with both times; the plane sums also alone at the proof's
-    own shapes, at a ragged width, at one lane and at one row;
+    operands, with both times; the multi-stage NTT also at small and odd k,
+    at batch 1 and with its fused input and output sides; the scan kernel in
+    every form, at ragged lengths, with a zero inside and as powers; the
+    plane sums also alone at the proof's own shapes, at a ragged width, at
+    one lane and at one row;
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
     pose_enc that must reproduce the committed vk, the committed proof;
  3. pose_enc at k=11: keygen, two proofs from default_rng(0) that must be
     byte-identical, verify;
  4. delay_enc at k=16, the headline: SRS setup, keygen, create_proof,
-    verify, with every kernel's launch count from this phase; then one more
-    proof under torch.profiler for the device time by kernel;
+    verify, with every kernel's launch count from this phase and from the
+    proof alone, which must stay within the counts the redesigns reached;
+    then one more proof under torch.profiler for the device time by kernel;
 then the kernels' JSON line, the card's line, and the result line.  Any
 failure raises and exits non-zero.  Without a CUDA device it exits
 non-zero before printing a result.
@@ -104,15 +110,16 @@ class Report:
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
 
-    def also(self, name, shape, *, err, ms, int_ops, note=""):
+    def also(self, name, shape, *, err, ms, int_ops, nbytes=0, note=""):
         """One more shape of a kernel that has its row: printed, and kept
         under the row's `other_shapes`."""
-        bound = int_ops / self.int_rate * 1e3
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        ops_ms = int_ops / self.int_rate * 1e3
+        bound, by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
         self.rows[name].setdefault("other_shapes", []).append(
-            {"shape": shape, "max_abs_err": err, "ms": ms, "bound_ms": bound,
-             "bound_by": "operations"})
+            {"shape": shape, "max_abs_err": err, "ms": ms, "bound_ms": bound, "bound_by": by})
         print(f"phase 1 {name} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
-              f"bound {bound:.4f} ms (operations){note}", flush=True)
+              f"bound {bound:.4f} ms ({by}){note}", flush=True)
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version at {shape}")
 
@@ -122,6 +129,8 @@ def phase1(rep: Report, dev):
     from delay_enc_tpu_torch.ops import msm as M
     from delay_enc_tpu_torch.ops import msm_tree as MT
     from delay_enc_tpu_torch.ops import ntt as N
+    from delay_enc_tpu_torch.ops import poly as P
+    from delay_enc_tpu_torch.plonk import kernels as K
     from delay_enc_tpu_torch.plonk.domain import Domain
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -170,11 +179,31 @@ def phase1(rep: Report, dev):
                 int_ops=elems * (MONT_MULS * WIDE if op is L.mont_mul else 0),
                 note=f" (Fr and Fq, 2^20 + {elems - n} elements, carry-heavy pairs among them)")
 
+    # K-a again at (19, 2^19) elements, where the card and not the wrapper's
+    # host path sets the time; a sample of the rows against the plain version
+    big = rand_field(L.FR_CTX, 19 * (1 << 19) - 3).reshape(19, 1 << 19, 8)
+    pick = torch.randint(0, 1 << 19, (4096,), generator=gen, device=dev)
+    for op, plain, name in ((L.mont_mul, L.mont_mul_plain, "field_mont_mul"),
+                            (L.add, L.add_plain, "field_add")):
+        got = op(L.FR_CTX, big, big.flip(1))
+        err = max_err(got[:, pick], plain(L.FR_CTX, big[:, pick], big.flip(1)[:, pick]))
+        other = big.flip(1).contiguous()
+        ms = timed(lambda: op(L.FR_CTX, big, other), 10)
+        rep.also(name, "(19, 2^19) Fr", err=err, ms=ms, nbytes=96 * 19 * (1 << 19),
+                 int_ops=19 * (1 << 19) * (MONT_MULS * WIDE if op is L.mont_mul else 0),
+                 note=" (4096 columns of every row compared)")
+        del got, other
+    del big
+
     # K-b: (19, 2^19) forward coset transform, (6, 2^16) inverse
     d = Domain(16)
     plan, plan_ext = d.plan(dev), d.plan_ext(dev)
     ext_in = rand_field(L.FR_CTX, 19 * (1 << 19) - 3).reshape(19, 1 << 19, 8)
     inv_in = rand_field(L.FR_CTX, 6 * (1 << 16) - 3).reshape(6, 1 << 16, 8)
+
+    def ntt_ops(batch, k):
+        return batch * k * (1 << max(0, k - 1)) * MONT_MULS * WIDE
+
     err, plain_ms, ms, ops, nbytes = 0, 0.0, 0.0, 0, 0
     for x, tw in ((ext_in, plan_ext.tw), (inv_in, plan.tw_inv)):
         got = N.stockham(L.FR_CTX, x, tw)
@@ -186,12 +215,105 @@ def phase1(rep: Report, dev):
         del want
         ms += timed(lambda: N.stockham(L.FR_CTX, x, tw), 3)
         b_, n_ = x.shape[0], x.shape[1]
-        k_ = n_.bit_length() - 1
-        ops += b_ * k_ * (n_ // 2) * MONT_MULS * WIDE
+        ops += ntt_ops(b_, n_.bit_length() - 1)
         nbytes += 2 * x.numel() * 4 + (n_ // 2) * 32
-    rep.add("ntt_stage", err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes, int_ops=ops,
-            note=" (whole transforms: (19, 2^19) forward + (6, 2^16) inverse)")
-    del ext_in, inv_in
+    rep.add("ntt_fused", err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes, int_ops=ops,
+            note=f" (whole transforms: (19, 2^19) forward + (6, 2^16) inverse; passes "
+                 f"{[(p.s, p.c_log) for p in N.plan(19)]} and {[(p.s, p.c_log) for p in N.plan(16)]})")
+    del ext_in
+
+    # the fused sides, as the prover uses them: `_ext` (the zeta^i table in
+    # the first load, rows read as zero-padded) against the plain pad, scale
+    # and transform, every lane; `_coeff` (1/n in the last store); the
+    # quotient's inverse at batch 1 with the zeta^-i / n table
+    zeta = N.powers(L.FR_CTX, d.zeta, d.n_ext, dev)
+    coeff = rand_field(L.FR_CTX, 19 * (1 << 16) - 3).reshape(19, 1 << 16, 8)
+    padded = coeff.new_zeros(19, d.n_ext, 8)
+    padded[:, : d.n] = coeff
+    want = N.stockham_plain(L.FR_CTX, L.mont_mul_plain(L.FR_CTX, padded, zeta), plan_ext.tw)
+    del padded
+    err = max_err(K._ext(coeff, zeta, plan_ext), want)
+    del want
+    ms = timed(lambda: K._ext(coeff, zeta, plan_ext), 3)
+    first = N.plan(19, 1 << 16)[0]
+    rep.also("ntt_fused", "_ext: (19, 2^16) -> (19, 2^19), table and padding fused", err=err,
+             ms=ms, int_ops=ntt_ops(19, 19) + 19 * (1 << 16) * MONT_MULS * WIDE,
+             nbytes=coeff.numel() * 4 + 19 * d.n_ext * 32,
+             note=f" (every lane; {first.nz} of {1 << first.s} local rows are not padding)")
+    del coeff
+    want = L.mont_mul_plain(L.FR_CTX, N.stockham_plain(L.FR_CTX, inv_in, plan.tw_inv), plan.n_inv)
+    err = max_err(K._coeff(inv_in, plan), want)
+    ms = timed(lambda: K._coeff(inv_in, plan), 5)
+    rep.also("ntt_fused", "_coeff: (6, 2^16) inverse, 1/n in the last store", err=err, ms=ms,
+             int_ops=ntt_ops(6, 16) + 6 * (1 << 16) * MONT_MULS * WIDE)
+    del inv_in
+    one_in = rand_field(L.FR_CTX, (1 << 19) - 3).reshape(1, 1 << 19, 8)
+    want = L.mont_mul_plain(L.FR_CTX, N.stockham_plain(L.FR_CTX, one_in, plan_ext.tw_inv), zeta)
+    err = max_err(N.stockham(L.FR_CTX, one_in, plan_ext.tw_inv, out_scale=zeta), want)
+    ms = timed(lambda: N.stockham(L.FR_CTX, one_in, plan_ext.tw_inv, out_scale=zeta), 5)
+    rep.also("ntt_fused", "(1, 2^19) inverse, a table in the last store", err=err, ms=ms,
+             int_ops=ntt_ops(1, 19) + (1 << 19) * MONT_MULS * WIDE)
+    del one_in, want, zeta
+    # every small k, pose_enc's k (11 and 14), an odd k of two passes, each at
+    # batch 1 and 3, with a short row and a constant at one of them
+    for k in (0, 1, 2, 3, 4, 5, 11, 13, 14):
+        tw = N.NTTPlan.make(L.FR_CTX, k, dev).tw
+        err, ms = 0, 0.0
+        for batch in (1, 3):
+            count = batch << k
+            x = rand_field(L.FR_CTX, max(0, count - 3))[-count:].reshape(batch, 1 << k, 8)
+            err = max(err, max_err(N.stockham(L.FR_CTX, x, tw), N.stockham_plain(L.FR_CTX, x, tw)))
+            ms = timed(lambda: N.stockham(L.FR_CTX, x, tw), 5)
+        short = x[:, : max(1, (1 << k) - 3)].contiguous()
+        got = N.stockham(L.FR_CTX, short, tw, n=1 << k, out_scale=x[0, 0])
+        want = N.stockham_sides_plain(L.FR_CTX, short, tw, 1 << k, None, x[0, 0])
+        err = max(err, max_err(got, want))
+        rep.also("ntt_fused", f"k={k}, batch 1 and 3, and a short row with a constant", err=err,
+                 ms=ms, int_ops=ntt_ops(3, k),
+                 note=f" (passes {[(p.s, p.c_log) for p in N.plan(k)]})")
+
+    # field_scan at (5, 2^16), the grand products' shape: the product scan for
+    # the row, then every form; the plain version is the block scan over K-a
+    x5 = rand_field(L.FR_CTX, 5 * (1 << 16) - 3).reshape(5, 1 << 16, 8)
+    got = P.scan(L.FR_CTX, x5, "mul", "block")
+    t0 = time.time()
+    want = P.scan_plain(L.FR_CTX, x5, "mul", "block")
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    ms = timed(lambda: P.scan(L.FR_CTX, x5, "mul", "block"), 20)
+    rep.add("field_scan", err=max_err(got, want), ms=ms, plain_ms=plain_ms,
+            nbytes=2 * x5.numel() * 4, int_ops=5 * ((1 << 16) - 1) * MONT_MULS * WIDE,
+            note=" (inclusive forward product over (5, 2^16); bound by launch latency)")
+    forms = [(op, ex, rv) for op in ("mul", "add") for ex in (False, True) for rv in (False, True)]
+
+    def scan_err(x):
+        return max(max_err(P.scan(L.FR_CTX, x, op, "block", exclusive=ex, reverse=rv),
+                           P.scan_plain(L.FR_CTX, x, op, "hs", exclusive=ex, reverse=rv))
+                   for op, ex, rv in forms)
+
+    ha, hb = carry_heavy(L.FR_CTX)
+    holed = x5[:3, :1000].clone()
+    holed[0, 500] = 0
+    holed[1, 0] = 0
+    holed[2, 999] = 0
+    for x, shape in ((x5, "(5, 2^16)"), (x5.reshape(1, -1, 8)[:, : (1 << 16) + 1], "(1, 2^16 + 1)"),
+                     (x5[:3, :1], "(3, 1)"), (x5[:3, :2], "(3, 2)"), (x5[:3, :1000], "(3, 1000)"),
+                     (holed, "(3, 1000) with zeros inside"),
+                     (torch.stack([ha, hb]), f"(2, {ha.shape[0]}) carry-heavy operands")):
+        x = x.contiguous()
+        ms = timed(lambda: P.scan(L.FR_CTX, x, "mul", "block", exclusive=True, reverse=True), 10)
+        n_ = x.shape[1]
+        rep.also("field_scan", f"{shape}, 8 forms (mul and add, inclusive and exclusive, "
+                 f"forward and reverse)", err=scan_err(x), ms=ms, nbytes=2 * x.numel() * 4,
+                 int_ops=x.shape[0] * (n_ - 1) * MONT_MULS * WIDE,
+                 note=" (time of the exclusive reverse product)")
+    for count in (1, 2, 1000, 1 << 16, (1 << 16) + 1):
+        x = x5[1, 3].contiguous()
+        err = max_err(P.powers_of(L.FR_CTX, x, count), P.powers_of_plain(L.FR_CTX, x, count))
+        ms = timed(lambda: P.powers_of(L.FR_CTX, x, count), 10)
+        rep.also("field_scan", f"{count} powers of one element (constant input)", err=err, ms=ms,
+                 nbytes=32 * count, int_ops=max(0, count - 1) * MONT_MULS * WIDE)
+    del x5, holed
 
     # K-d: 2^16 pairs with identities, doublings and P + (-P)
     g = M.base_table((1, 2), dev)[:128]  # 2^b * G
@@ -210,6 +332,13 @@ def phase1(rep: Report, dev):
     npts = 1 << 16
     rep.add("g1_complete_add", err=err, ms=ms, plain_ms=plain_ms, nbytes=3 * 96 * npts,
             int_ops=npts * ADD_MULS * MONT_MULS * WIDE, note=" (2^16 pairs)")
+    # and at 2^20 pairs, where the card and not the host's launch path sets the time
+    p20, q20 = p.repeat(16, 1, 1), q.repeat(16, 1, 1)
+    err = max_err(M.complete_add(p20, q20)[-npts:], want)
+    ms = timed(lambda: M.complete_add(p20, q20), 10)
+    rep.also("g1_complete_add", "2^20 pairs", err=err, ms=ms, nbytes=3 * 96 * 16 * npts,
+             int_ops=16 * npts * ADD_MULS * MONT_MULS * WIDE)
+    del p20, q20
 
     # fixed base: 2^10 scalars with 0, 1, r - 1 and a power of two against the
     # plain version, then 2^16 random ones, all compared as affine points
@@ -340,6 +469,51 @@ def delay_enc_circuit(seed: int = 42):
                                exp_limb_bits=cc.exp_limb_bits).build()
 
 
+def golden_k7(dev):
+    """SRS setup, keygen and create_proof of the k=7 circuit of
+    tests/test_torch_prover.py on the card, against the JAX package's bytes
+    for the same tau and rng seed (tests/data/torch_port_k7.npz)."""
+    from delay_enc_tpu_torch import cs
+    from delay_enc_tpu_torch.curves.bn254 import g1_to_bytes
+    from delay_enc_tpu_torch.fields import FR
+    from delay_enc_tpu_torch.ops import msm as M
+    from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED
+
+    t0 = time.time()
+    b = cs.Builder(FR)
+    mg, rc = cs.MainGate(b), cs.RangeChip(b)
+    x, y = mg.assign_value(7), mg.assign_value(11)
+    s, m = mg.add(x, y), mg.mul(x, y)
+    acc = mg.compose([cs.Term(x, 2), cs.Term(y, 3), cs.Term(s, 1), cs.Term(m, 5)], constant=9)
+    sel = mg.select(s, m, mg.assign_bit(1))
+    mg.assert_equal(sel, s)
+    rc.assign(45, 2, 6)
+    mg.assert_one(mg.is_equal(acc, mg.assign_value(acc.value)))
+
+    srs = SRS.setup(7, tau=123456789, device=dev)
+    pk, vk = keygen(b, srs, device=dev)
+    proof = create_proof(srs, pk, b, np.random.default_rng(42), device=dev)
+
+    def pts(ps):
+        return np.stack([np.frombuffer(g1_to_bytes(p), np.uint8) for p in ps])
+
+    got = {"srs": pts(M.points_from_device(srs.g1_powers)),
+           "fixed": pts([vk.fixed_commitments[n] for n in ALL_FIXED]),
+           "sigma": pts(vk.sigma_commitments),
+           "transcript_repr": np.array(str(vk.transcript_repr)),
+           "proof": np.frombuffer(proof, np.uint8)}
+    with np.load(os.path.join(ROOT, "tests", "data", "torch_port_k7.npz")) as z:
+        for key, have in got.items():
+            want = z[key]
+            if have.shape != want.shape or not np.array_equal(have, want):
+                raise AssertionError(f"k=7 on the card: {key} differs from the JAX package's")
+    print(f"phase 0 golden k=7: SRS points, {len(ALL_FIXED)} fixed + "
+          f"{len(vk.sigma_commitments)} sigma commitments, transcript_repr and the "
+          f"{len(proof)} proof bytes equal the JAX package's ({time.time() - t0:.2f} s)",
+          flush=True)
+
+
 def spans(prefix=""):
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
@@ -347,7 +521,8 @@ def spans(prefix=""):
 
 
 KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
-    "field_binary_kernel": "field (K-a)", "ntt_stage_kernel": "ntt_stage (K-b)",
+    "field_binary_kernel": "field (K-a)", "ntt_fused_kernel": "ntt_fused (K-b)",
+    "scan_kernel": "field_scan",
     "plane_sums_kernel": "plane_sums (K-c)", "g1_add_kernel": "g1_complete_add (K-d)",
     "fixed_base_kernel": "g1_fixed_base_mul",
 }
@@ -412,6 +587,8 @@ def main() -> int:
                     log(f"  {name}: {line.split(chr(39))[1]}")
                 elif "registers" in line or "spill" in line:
                     log(f"  {name}:   {line.strip()}")
+
+    golden_k7(dev)
 
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -482,11 +659,13 @@ def main() -> int:
     t0 = time.time()
     pk16, vk16 = keygen(b16, srs16, k=k16, device=dev)
     t_key = time.time() - t0
+    before = _cuda.launch_counts()
     t0 = time.time()
     proof16 = create_proof(srs16, pk16, b16, np.random.default_rng(0), device=dev)
     torch.cuda.synchronize()
     t_prove = time.time() - t0
     launches = _cuda.launch_counts()
+    proof_launches = {name: launches[name] - before[name] for name in launches}
     t0 = time.time()
     ok = verify_proof(srs16, vk16, proof16)
     t_ver = time.time() - t0
@@ -496,12 +675,30 @@ def main() -> int:
           f"SRS setup {t_srs:.3f} s, keygen {t_key:.3f} s, prove {t_prove:.3f} s, "
           f"verify {t_ver:.3f} s (host), proof {len(proof16)} B, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; spans {json.dumps(spans())}; "
-          f"launches {json.dumps(launches)}", flush=True)
+          f"launches {json.dumps(launches)}; of them the proof's {json.dumps(proof_launches)}",
+          flush=True)
 
     # the SRS powers are one launch of the fused kernel, and the elementwise
     # addition is left with the three launches of pair_tables
     if launches["g1_fixed_base_mul"] != 1 or launches["g1_complete_add"] != 3:
         raise AssertionError(f"SRS setup and pair tables launched {launches}")
+
+    # one proof: four transforms of length 2^16, the coset transform and the
+    # quotient's inverse at 2^19, each a launch a pass (102 launches when a
+    # launch was one stage); 15 scans and ladders of powers, each one call;
+    # and the elementwise launches that are left, once 910
+    from delay_enc_tpu_torch.ops import ntt as N
+
+    n16 = 1 << k16
+    want_ntt = 4 * len(N.plan(k16)) + len(N.plan(k16 + 3, n16)) + len(N.plan(k16 + 3))
+    elementwise = proof_launches["field_mont_mul"] + proof_launches["field_add"]
+    if proof_launches["ntt_fused"] != want_ntt or want_ntt > 20:
+        raise AssertionError(f"a proof launched the NTT kernel {proof_launches['ntt_fused']} "
+                             f"times, planned {want_ntt}, allowed 20")
+    if proof_launches["field_scan"] != 15:
+        raise AssertionError(f"a proof called the scan kernel {proof_launches['field_scan']} times")
+    if elementwise >= 300:
+        raise AssertionError(f"a proof made {elementwise} elementwise product and sum launches")
 
     profile_proof(srs16, pk16, b16, proof16, dev)
 

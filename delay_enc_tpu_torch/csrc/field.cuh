@@ -25,9 +25,9 @@
 // fully reduced words.  With FLD_EMULATE_PTX a host compiler takes the
 // carry-chain bodies too, over C++ stand-ins for the PTX instructions that
 // keep the flag in a variable, so their logic can be tested without a card.
-// With FLD_PORTABLE the device takes the portable bodies: csrc/ntt.cu does,
-// because its one butterfly a thread runs faster on them, and
-// tools/torch_msm_bench.py can time the two against each other.
+// With FLD_PORTABLE the device takes the portable bodies, so that
+// tools/torch_msm_bench.py and tools/torch_ntt_scan_bench.py can time the two
+// against each other (csrc/ntt.cu sets it for itself under NTT_PORTABLE).
 
 #pragma once
 #include <stdint.h>

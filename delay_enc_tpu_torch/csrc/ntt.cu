@@ -1,84 +1,95 @@
-// K-b: one stage of a batched natural-order radix-2 NTT over Fr.
+// K-b: a batched natural-order radix-2 NTT over Fr, several stages a launch.
 //
 // Replaces delay_enc_tpu/ops/ntt.py stockham (:85), the transform behind
-// plonk/kernels.py _coeff, _ext and _evals_batch.  The same Stockham
-// autosort DIF stage: with l = n / 2^(t+1) and m = 2^t, x is viewed as
-// (2l, m) and
-//     y[2j,   k] = x[j, k] + x[j + l, k]
-//     y[2j+1, k] = w^(j m) * (x[j, k] - x[j + l, k])
-// so both input and output are in natural order.  The caller ping-pongs
-// two buffers over log2(n) launches; w^(j m) is read from one table of
-// the powers w^0 .. w^(n/2 - 1) in Montgomery form.  Rows of the batch
-// are independent transforms of length n laid out one after another.
+// plonk/kernels.py _coeff, _ext, _evals_batch and _quotient.  It computes
+// the same evaluations, A[j] = sum_i a[i] w^(i j) in natural order, so every
+// word equals the JAX package's; the decomposition is this card's own.
 //
-// Bound: memory.  A stage reads and writes every element once (64 B per
-// element) plus a twiddle, so a 19 x 2^19 transform moves about 12 GB over
-// its 19 stages (about 3.6 ms at 3.35 TB/s).  One thread per butterfly;
-// stages are not yet fused through shared memory.
+// A launch is one pass (csrc/ntt_tile.cuh): a block loads a tile of 2^s rows
+// by 2^c_log columns into shared memory, runs s stages there, and stores the
+// tile where the next pass, or the caller, reads it in natural order.  A
+// transform of length 2^16 is two passes of 8 stages, one of 2^19 two passes
+// of 10 and 9 (ops/ntt.py:plan), where one launch a stage moved every
+// element through device memory 16 and 19 times.  The first pass can read a
+// shorter row as zero-padded and multiply a per-index table in as it loads
+// (the coset scaling of _ext); the last can multiply by one constant (1/n)
+// or by a per-index table (1/n and zeta^-i at once) as it stores.
+//
+// Bound: operations.  Two or three passes move 128-192 B an element, about
+// 1.3 GB for the (19, 2^19) transform (0.4 ms at 3.35 TB/s), against 1.45 ms
+// for its 9.5 x 19 x 2^19 Montgomery products at the card's integer rate.
+// An element is one whole 32-byte sector, so a strided gather of elements
+// wastes no sector; twiddles come from one table of n / 2 powers, 8 MB at
+// 2^19, which stays in L2.  Shared memory holds word planes with a skew, so
+// neither the butterflies nor the bit-reversed store meet bank conflicts.
+//
+// NTT_PORTABLE keeps field.cuh's portable bodies on the device for this
+// kernel alone (tools/torch_msm_bench.py times the two against each other).
 
 #include <cuda_runtime.h>
 
-// The butterfly is one product, one sum and one difference between 64-byte
-// loads and stores.  Timed on an H100 over a (19, 2^19) transform
-// (tools/torch_msm_bench.py), the portable bodies of field.cuh took 4.27 ms
-// and the carry-chain ones 4.76 ms, so this kernel keeps the portable ones.
+#ifdef NTT_PORTABLE
 #ifndef FLD_PORTABLE
 #define FLD_PORTABLE
 #endif
-#include "field.cuh"
+#endif
+#include "ntt_tile.cuh"
+
+// The most threads a block may have, and the blocks an SM should hold: with
+// 256 and 4 a thread may use 64 registers.
+#ifndef NTT_MAX_THREADS
+#define NTT_MAX_THREADS 256
+#endif
+#ifndef NTT_MIN_BLOCKS
+#define NTT_MIN_BLOCKS 4
+#endif
 
 namespace {
 
-__device__ __forceinline__ void load8(uint32_t r[8], const uint32_t* p) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  uint4 lo = q[0], hi = q[1];
-  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
-}
-
-__device__ __forceinline__ void store8(uint32_t* p, const uint32_t r[8]) {
-  uint4* q = reinterpret_cast<uint4*>(p);
-  q[0] = make_uint4(r[0], r[1], r[2], r[3]);
-  q[1] = make_uint4(r[4], r[5], r[6], r[7]);
-}
-
-__global__ void ntt_stage_kernel(const uint32_t* __restrict__ x,
-                                 uint32_t* __restrict__ y,
-                                 const uint32_t* __restrict__ tw,
-                                 uint32_t batch, uint32_t n, uint32_t l,
-                                 uint32_t log_m) {
-  const uint32_t half = n >> 1;
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (size_t)batch * half) return;
-  const size_t row = g / half;
-  const uint32_t r = (uint32_t)(g - row * half);
-  const uint32_t m = 1u << log_m;
-  const uint32_t j = r >> log_m;
-  const uint32_t k = r & (m - 1);
-  const uint32_t* xb = x + row * n * 8;
-  uint32_t* yb = y + row * n * 8;
-  uint32_t u[8], v[8], s[8], d[8], w[8];
-  load8(u, xb + ((size_t)j * m + k) * 8);
-  load8(v, xb + ((size_t)(j + l) * m + k) * 8);
-  load8(w, tw + ((size_t)j * m) * 8);
-  fld::add<fld::FR>(s, u, v);
-  fld::sub<fld::FR>(d, u, v);
-  fld::mont_mul<fld::FR>(d, w, d);
-  store8(yb + ((size_t)(2 * j) * m + k) * 8, s);
-  store8(yb + ((size_t)(2 * j + 1) * m + k) * 8, d);
+__global__ void __launch_bounds__(NTT_MAX_THREADS, NTT_MIN_BLOCKS)
+ntt_fused_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+                 const uint32_t* __restrict__ tw, const uint32_t* __restrict__ in_tab,
+                 const uint32_t* __restrict__ out_tab, ntt::Pass P) {
+  extern __shared__ uint32_t sm[];
+  const uint32_t log_groups = P.log_n - P.s - P.c_log;
+  const uint32_t row = blockIdx.x >> log_groups;
+  const uint32_t group = blockIdx.x & ((1u << log_groups) - 1u);
+  const uint32_t* src_row = src + (size_t)row * P.n_in * 8;
+  uint32_t* dst_row = dst + ((size_t)row << P.log_n) * 8;
+  ntt::tile_load(P, group, threadIdx.x, blockDim.x, sm, src_row, in_tab);
+  __syncthreads();
+  for (uint32_t u = 0; u < P.s; u++) {
+    ntt::tile_stage(P, u, group, threadIdx.x, blockDim.x, sm, tw);
+    __syncthreads();
+  }
+  ntt::tile_store(P, group, threadIdx.x, blockDim.x, sm, dst_row, out_tab);
 }
 
 }  // namespace
 
-extern "C" int ntt_stage(const void* x, void* y, const void* tw, unsigned batch,
-                         unsigned n, unsigned l, unsigned log_m, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t work = (size_t)batch * (n / 2);
-  if (work == 0) return 0;
-  const int threads = 256;
-  const size_t blocks = (work + threads - 1) / threads;
-  ntt_stage_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-      static_cast<const uint32_t*>(tw), batch, n, l, log_m);
+// One pass over `batch` rows.  Source rows hold n_in elements, destination
+// rows 2^log_n.  in_tab and out_tab may be null (out_tab with out_mode 0).
+extern "C" int ntt_fused(const void* src, void* dst, const void* tw, const void* in_tab,
+                         const void* out_tab, unsigned batch, unsigned log_n, unsigned t0,
+                         unsigned s, unsigned c_log, unsigned n_in, unsigned nz,
+                         unsigned out_mode, unsigned threads, void* stream) {
+  if (batch == 0) return 0;
+  if (s + c_log > log_n || t0 + s > log_n || threads == 0 || threads > NTT_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const ntt::Pass P = {log_n, t0, s, c_log, n_in, nz, out_mode};
+  const size_t bytes = (size_t)8 * ntt::plane_words(1u << (s + c_log)) * sizeof(uint32_t);
+  static size_t allowed = 48 * 1024;
+  if (bytes > allowed) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        ntt_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    allowed = bytes;
+  }
+  const size_t blocks = (size_t)batch << (log_n - s - c_log);
+  if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+  ntt_fused_kernel<<<(unsigned)blocks, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst),
+      static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(in_tab),
+      static_cast<const uint32_t*>(out_tab), P);
   return (int)cudaGetLastError();
 }

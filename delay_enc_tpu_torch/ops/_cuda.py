@@ -22,7 +22,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("field", "ntt", "msm")
+SOURCES = ("field", "ntt", "scan", "msm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -35,7 +35,8 @@ _I = ctypes.c_int
 # C signatures: library, symbol, argument types (all return int)
 _SIGNATURES = {
     "field_binary": ("field", [_I, _I, _P, _P, _P, _U, _U, _U, _U, _U, _P]),
-    "ntt_stage": ("ntt", [_P, _P, _P, _U, _U, _U, _U, _P]),
+    "ntt_fused": ("ntt", [_P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _U, _U, _U, _U, _P]),
+    "field_scan": ("scan", [_I, _I, _P, _P, _P, _U, _U, _U, _P]),
     "plane_sums": ("msm", [_P, _P, _P, _U, _U, _U, _U, _U, _I, _P]),
     "g1_complete_add": ("msm", [_P, _P, _P, _U, _U, _P]),
     "g1_fixed_base_mul": ("msm", [_P, _P, _P, _U, _U, _P]),
@@ -56,7 +57,8 @@ def _stale(name: str) -> bool:
     so = os.path.join(BUILD, f"lib{name}.so")
     if not os.path.exists(so):
         return True
-    deps = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "field.cuh")]
+    deps = [os.path.join(CSRC, f"{name}.cu")]
+    deps += [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
     return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 
@@ -154,12 +156,25 @@ def require_cuda(*tensors) -> None:
             raise ValueError(f"a CUDA kernel cannot take a tensor on {t.device}")
 
 
-def stream():
-    """The current CUDA stream as a pointer for ctypes."""
-    import torch
-
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+_raw_stream = None
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def stream() -> int:
+    """The current CUDA stream's handle, an integer that `c_void_p` in a
+    kernel's `argtypes` takes as it is."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+
+        # the handle without a Stream object around it, where this PyTorch has it
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        if raw is not None:
+            _raw_stream = lambda: raw(torch.cuda.current_device())
+        else:
+            _raw_stream = lambda: torch.cuda.current_stream().cuda_stream
+    return _raw_stream()
+
+
+def ptr(t):
+    """A tensor's address for a `c_void_p` argument; None stays a null pointer."""
+    return None if t is None else t.data_ptr()

@@ -17,6 +17,9 @@ device and are what the kernel is checked against.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 import torch
 
@@ -244,21 +247,21 @@ _PLAIN = {OP_MUL: mont_mul_plain, OP_ADD: add_plain, OP_SUB: sub_plain}
 
 # ------------------------------------------------------------ dispatch
 
-def _operand(t: torch.Tensor, shape) -> tuple:
-    """How the kernel reads operand `t` broadcast to `shape`: returns
-    (div, mod, contiguous data) with element i of the output reading
-    element (i // div) % mod of the data.  Patterns that do not fit are
-    materialised."""
+@functools.lru_cache(maxsize=4096)
+def _operand(ts: tuple, shape: tuple) -> tuple:
+    """How the kernel reads an operand of shape `ts` broadcast to `shape`:
+    (div, mod, expand) with element i of the output reading element
+    (i // div) % mod of the contiguous operand.  A pattern that does not fit
+    has expand set: the operand is materialised at `shape` first.  Fixed by
+    the two shapes, so it is computed once for each pair."""
     nd = len(shape) - 1  # element dims (the word axis excluded)
-    ts = (1,) * (len(shape) - t.dim()) + tuple(t.shape)
+    ts = (1,) * (len(shape) - len(ts)) + ts
     active = [i for i in range(nd) if shape[i] != 1]
     kept = [i for i in active if ts[i] != 1]
     if kept:
         pos = [active.index(i) for i in kept]
         if pos != list(range(pos[0], pos[0] + len(pos))):
-            data = t.expand(shape).contiguous()
-            n = data.numel() // NW
-            return 1, n, data
+            return 1, math.prod(shape[:-1]), True
     mod = 1
     for i in kept:
         mod *= shape[i]
@@ -267,7 +270,15 @@ def _operand(t: torch.Tensor, shape) -> tuple:
         for i in active:
             if i > kept[-1]:
                 div *= shape[i]
-    return div, mod, t.contiguous()
+    return div, mod, False
+
+
+@functools.lru_cache(maxsize=4096)
+def _layout(sa: tuple, sb: tuple) -> tuple:
+    """(output shape, elements, how a is read, how b is read) of a
+    broadcasting binary operation on operands of shapes sa and sb."""
+    shape = tuple(torch.broadcast_shapes(sa, sb))
+    return shape, math.prod(shape[:-1]), _operand(sa, shape), _operand(sb, shape)
 
 
 def _check(t: torch.Tensor) -> None:
@@ -283,20 +294,26 @@ def _binary(op: int, ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.T
     if a.device.type == "cpu":
         return _PLAIN[op](ctx, a, b)
     _cuda.require_cuda(a)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    n = out.numel() // NW
+    sa, sb = a.shape, b.shape
+    if sa == sb and a.is_contiguous() and b.is_contiguous():
+        # the common case: nothing to broadcast, nothing to copy
+        out = torch.empty_like(a)
+        n = out.numel() // NW
+        adiv = bdiv = 1
+        amod = bmod = n
+    else:
+        shape, n, (adiv, amod, aexp), (bdiv, bmod, bexp) = _layout(tuple(sa), tuple(sb))
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+        a = (a.expand(shape) if aexp else a).contiguous()
+        b = (b.expand(shape) if bexp else b).contiguous()
     if n == 0:
         return out
     if n >= 1 << 32:
         raise ValueError("too many elements for one launch")
-    adiv, amod, ad = _operand(a, shape)
-    bdiv, bmod, bd = _operand(b, shape)
-    for t in (ad, bd, out):
-        if t.data_ptr() % 16:
-            raise ValueError("field operand is not 16-byte aligned")
-    _KERNEL[op](op, ctx.fid, _cuda.ptr(ad), _cuda.ptr(bd), _cuda.ptr(out), n,
-                adiv, amod, bdiv, bmod, _cuda.stream())
+    pa, pb, po = a.data_ptr(), b.data_ptr(), out.data_ptr()
+    if (pa | pb | po) % 16:
+        raise ValueError("field operand is not 16-byte aligned")
+    _KERNEL[op](op, ctx.fid, pa, pb, po, n, adiv, amod, bdiv, bmod, _cuda.stream())
     return out
 
 

@@ -1,10 +1,12 @@
-"""Prover building blocks, in plain PyTorch over kernels K-a and K-b.
+"""Prover building blocks, in plain PyTorch over the port's kernels.
 
 Counterpart of `delay_enc_tpu/plonk/kernels.py`, fused 8n quotient only.
 Each function keeps its JAX name; the JAX `vmap`s are a leading batch axis
 here.  Field arithmetic goes through `ops.limbs` (kernel K-a on a card),
-transforms through `ops.ntt.stockham` (kernel K-b), commitments through
-`ops.msm` (kernels K-c and K-d).
+transforms through `ops.ntt.stockham` (kernel K-b, with the coset scaling,
+the zero padding, 1/n and zeta^-i fused into its first and last pass),
+scans and powers through `ops.poly` (kernel `field_scan`), commitments
+through `ops.msm` (kernels K-c and K-d).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 from ..ops import limbs as L
 from ..ops import msm as M
 from ..ops import poly as P
-from ..ops.ntt import NTTPlan, coset_scale, stockham
+from ..ops.ntt import NTTPlan, stockham
 from .domain import MAX_DEGREE
 
 WIRE_COL = {"a": 0, "b": 1, "c": 2, "d": 3}
@@ -37,18 +39,17 @@ def _sub(a, b):
 # ---------------------------------------------------------------- transforms
 
 def _coeff(stack: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
-    """(…, n, 8) evaluations -> coefficients (iNTT, then 1/n)."""
-    return _mul(stockham(CTX, stack, plan.tw_inv), plan.n_inv)
+    """(…, n, 8) evaluations -> coefficients (iNTT with 1/n in its last pass)."""
+    return stockham(CTX, stack, plan.tw_inv, out_scale=plan.n_inv)
 
 
 def _ext(coeff: torch.Tensor, zeta_powers: torch.Tensor, plan_ext: NTTPlan) -> torch.Tensor:
     """(…, n, 8) coefficients -> evaluations on the extended coset
-    zeta*H_ext (…, n_ext, 8).  No sacrificial lane: the JAX package's
-    ext_batch_padded works around an XLA:TPU fault this path does not have."""
-    n, n_ext = coeff.shape[-2], zeta_powers.shape[0]
-    padded = coeff.new_zeros(*coeff.shape[:-2], n_ext, L.NW)
-    padded[..., :n, :] = coeff
-    return stockham(CTX, coset_scale(CTX, padded, zeta_powers), plan_ext.tw)
+    zeta*H_ext (…, n_ext, 8): coeff_i * zeta^i goes in as the first pass
+    loads, and the rows are read as zero-padded to n_ext.  No sacrificial
+    lane: the JAX package's ext_batch_padded works around an XLA:TPU fault
+    this path does not have."""
+    return stockham(CTX, coeff, plan_ext.tw, n=plan_ext.n, in_table=zeta_powers)
 
 
 def _evals_batch(coeff: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
@@ -94,26 +95,25 @@ def _lookup_fracs(a, s, ap, sp, beta_m, gamma_m):
 # caller-supplied randomness.
 
 def _gp_partials(num, den, active_mask, impl: str):
-    """num, den (G, n, 8) for G grand products; active_mask (n,) bool."""
+    """num, den (G, n, 8) for G grand products; active_mask (n,) bool.
+    Returns the masked num, the exclusive prefix and suffix products of the
+    masked den (row i: the product of the rows before it, and after it), and
+    the (G, 8) totals."""
     one = CTX.one_mont(num.device)
     num = torch.where(active_mask[:, None], num, one)
     den = torch.where(active_mask[:, None], den, one)
-    pre = P.prefix_product(CTX, den, impl)
-    suf = P.suffix_product(CTX, den, impl)
-    return num, pre, suf, pre[:, -1]
+    pre = P.prefix_product(CTX, den, impl, exclusive=True)
+    suf = P.suffix_product(CTX, den, impl, exclusive=True)
+    return num, pre, suf, _mul(pre[:, -1], den[:, -1])
 
 
 def _gp_finish(num, pre, suf, total_inv_m, blind_rows, impl: str):
-    """total_inv_m (G, 8); blind_rows (G, b, 8) -> z (G, n, 8)."""
-    g = num.shape[0]
-    one = CTX.one_mont(num.device).expand(g, 1, L.NW)
-    pre_excl = torch.cat([one, pre[:, :-1]], dim=1)
-    suf_excl = torch.cat([suf[:, 1:], one], dim=1)
-    den_inv = _mul(_mul(pre_excl, suf_excl), total_inv_m[:, None, :])
-    pref = P.prefix_product(CTX, _mul(num, den_inv), impl)
-    z = torch.cat([one, pref[:, :-1]], dim=1)
-    keep = z.shape[1] - blind_rows.shape[1]
-    return torch.cat([z[:, :keep], blind_rows], dim=1)
+    """pre, suf as `_gp_partials` returns them; total_inv_m (G, 8);
+    blind_rows (G, b, 8) -> z (G, n, 8)."""
+    den_inv = _mul(_mul(pre, suf), total_inv_m[:, None, :])
+    z = P.prefix_product(CTX, _mul(num, den_inv), impl, exclusive=True)
+    z[:, z.shape[1] - blind_rows.shape[1]:] = blind_rows
+    return z
 
 
 # ------------------------------------------------------------------ quotient
@@ -216,33 +216,37 @@ def _quotient_expr(advice_ext, instance_ext, z_perm_ext, z_l_ext, ap_ext, sp_ext
 
 def _quotient(advice_ext, instance_ext, z_perm_ext, z_l_ext, ap_ext, sp_ext,
               fe, sigma_ext, masks, chals, delta_ms, zh_inv_ext,
-              zeta_inv_powers, y_pows_rev, plan_ext: NTTPlan):
+              unscale, y_pows_rev, plan_ext: NTTPlan):
     """Fused extended-domain quotient: the folded expression on the 8n
-    coset, divided by Z_H, transformed back and unscaled by zeta^-i."""
+    coset, divided by Z_H and transformed back.  `unscale` (n_ext, 8) holds
+    zeta^-i / n_ext, which the transform's last pass multiplies in."""
     total = _quotient_expr(advice_ext, instance_ext, z_perm_ext, z_l_ext,
                            ap_ext, sp_ext, fe, sigma_ext, masks, chals,
                            delta_ms, y_pows_rev)
     h_ext = _mul(total, zh_inv_ext)
     del total
-    h_coeff = _mul(stockham(CTX, h_ext, plan_ext.tw_inv), plan_ext.n_inv)
-    return _mul(h_coeff, zeta_inv_powers)
+    return stockham(CTX, h_ext, plan_ext.tw_inv, out_scale=unscale)
 
 
 # ------------------------------------------------------ evaluations and GWC
 
-def _eval_stack(stacked: torch.Tensor, x_m: torch.Tensor) -> torch.Tensor:
-    """Evaluate every poly of (m, n, 8) at the point x -> (m, 8)."""
+def _eval_stack(stacked: torch.Tensor, x_m: torch.Tensor,
+                pows: torch.Tensor | None = None) -> torch.Tensor:
+    """Evaluate every poly of (m, n, 8) at the point x -> (m, 8).  `pows`,
+    where the caller has them, are the powers x^0 .. x^(n-1) or more."""
     n = stacked.shape[1]
-    pows = P.powers_of(CTX, x_m, n)
+    pows = P.powers_of(CTX, x_m, n) if pows is None else pows[:n]
     prods = _mul(stacked, pows).transpose(0, 1).contiguous()  # (n, m, 8)
     return _tree_sum(prods)
 
 
-def _gwc_witness(stacked: torch.Tensor, v_m, z_m, zinv_m) -> torch.Tensor:
-    """W = (Q - Q(z)) / (X - z) with Q = sum_i v^i p_i over the stack."""
+def _gwc_witness(stacked: torch.Tensor, v_m, z_m, zinv_m,
+                 z_pows: torch.Tensor | None = None) -> torch.Tensor:
+    """W = (Q - Q(z)) / (X - z) with Q = sum_i v^i p_i over the stack.
+    `z_pows`, where the caller has them, are the powers z^0 .. z^(n-1)."""
     m, n, _ = stacked.shape
     v_pows = P.powers_of(CTX, v_m, m)
     q = _tree_sum(_mul(stacked, v_pows[:, None, :]))
-    zp = P.powers_of(CTX, z_m, n)
+    zp = P.powers_of(CTX, z_m, n) if z_pows is None else z_pows
     zinv_p = P.powers_of(CTX, zinv_m, n + 1)
     return P.divide_by_linear(CTX, q, zp, zinv_p)

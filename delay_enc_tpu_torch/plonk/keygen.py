@@ -63,7 +63,7 @@ class ProvingKey:
     l_blind_ext: torch.Tensor
     x_ext: torch.Tensor  # identity poly X on the extended coset
     zeta_powers: torch.Tensor  # (n_ext, 8) coset scale
-    zeta_inv_powers: torch.Tensor
+    quotient_unscale: torch.Tensor  # (n_ext, 8) zeta^-i / n_ext: undoes scale and transform
     zh_inv_ext: torch.Tensor  # (n_ext, 8) 1/(X^n - 1) on the extended coset
     delta_powers: list  # host ints delta^0 .. delta^5
 
@@ -224,7 +224,8 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
     with GLOBAL_METRICS.span("keygen/to_mont"):
         dev_stack = L.to_tensor(np.stack([ctx.to_mont_np(col) for col in host_cols]), device)
         zeta_powers = powers(ctx, domain.zeta, domain.n_ext, device)
-        zeta_inv_powers = powers(ctx, FR.inv(domain.zeta), domain.n_ext, device)
+        quotient_unscale = powers(ctx, FR.inv(domain.zeta), domain.n_ext, device,
+                                  start=FR.inv(domain.n_ext))
         # identity poly X on the extended coset: zeta * omega_ext^j
         x_ext = L.to_device_mont(
             ctx, _host_powers(domain.omega_ext, domain.n_ext, start=domain.zeta), device)
@@ -262,7 +263,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
         l_blind_ext=ext_stack[nm + 2],
         x_ext=x_ext,
         zeta_powers=zeta_powers,
-        zeta_inv_powers=zeta_inv_powers,
+        quotient_unscale=quotient_unscale,
         zh_inv_ext=zh_inv_ext,
         delta_powers=delta_powers,
     )

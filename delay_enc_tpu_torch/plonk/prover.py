@@ -32,6 +32,7 @@ from ..cs.range import build_table
 from ..fields.bn254 import FR
 from ..ops import limbs as L
 from ..ops.ntt import powers
+from ..ops.poly import powers_of
 from ..utils.device import resolve, synchronize
 from ..utils.timers import GLOBAL_METRICS
 from .domain import QUOTIENT_PIECES
@@ -312,7 +313,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
         {l: ext_stack[off + 8 + i] for i, l in enumerate(LOOKUPS)},
         pk.fixed_ext, pk.sigma_ext,
         (pk.l0_ext, pk.l_last_ext, pk.l_blind_ext, pk.x_ext),
-        (theta_m, beta_m, gamma_m), delta_ms, pk.zh_inv_ext, pk.zeta_inv_powers,
+        (theta_m, beta_m, gamma_m), delta_ms, pk.zh_inv_ext, pk.quotient_unscale,
         y_pows_rev, plan_ext,
     )
     # the extended-domain arrays are not needed by the openings
@@ -342,11 +343,14 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
     opens_wx = [advice_coeff[4], z_perm_coeff] + [z_lookup_coeff[l] for l in LOOKUPS]
     opens_winvx = [ap_coeff[l] for l in LOOKUPS]
 
-    stacks, evals = {}, {}
+    # the powers of each point serve its evaluations and its GWC witness
+    stacks, evals, point_pows = {}, {}, {}
     for key, opens, point in (("x", opens_x, x), ("wx", opens_wx, x_w),
                               ("winvx", opens_winvx, x_winv)):
         stacks[key] = torch.stack(opens)
-        evals[key] = L.from_device_mont(ctx, _eval_stack(stacks[key], mont1(point)[0]))
+        point_m = mont1(point)[0]
+        point_pows[key] = powers_of(ctx, point_m, n)
+        evals[key] = L.from_device_mont(ctx, _eval_stack(stacks[key], point_m, point_pows[key]))
     for key in ("x", "wx", "winvx"):
         for v in evals[key]:
             tr.write_scalar(v)
@@ -359,7 +363,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
     ws = []
     for key, point in (("x", x), ("wx", x_w), ("winvx", x_winv)):
         ws.append(_gwc_witness(stacks[key], v_m0, mont1(point)[0],
-                               mont1(pow(point, -1, FR.p))[0]))
+                               mont1(pow(point, -1, FR.p))[0], point_pows[key]))
     for pt in commit_many(ws):
         tr.write_point(pt)
     _phase("gwc")

@@ -43,12 +43,15 @@ def proving_key_from_jax(pk_fields: dict, device="cuda"):
     `fixed_ext` (name -> (…, 16) limbs), the lists `sigma_coeff`,
     `sigma_ext`, and the arrays `l0_ext`, `l_last_ext`, `l_blind_ext`,
     `x_ext`, `zeta_powers`, `zeta_inv_powers`, `zh_inv_ext`."""
+    from .fields.bn254 import FR
     from .plonk.domain import Domain
     from .plonk.keygen import ProvingKey, VerifyingKey
 
     device = resolve(device)
     t = lambda a: from_jax_limbs(a, device)
     f = pk_fields
+    # the port keeps zeta^-i / n_ext in one table (plonk/kernels.py _quotient)
+    n_ext_inv = L.to_device_mont(L.FR_CTX, [FR.inv(Domain(int(f["k"])).n_ext)], device)
     vk = VerifyingKey(Domain(int(f["k"])), dict(f["fixed_commitments"]),
                       list(f["sigma_commitments"]), int(f["transcript_repr"]))
     return ProvingKey(
@@ -63,7 +66,7 @@ def proving_key_from_jax(pk_fields: dict, device="cuda"):
         l_blind_ext=t(f["l_blind_ext"]),
         x_ext=t(f["x_ext"]),
         zeta_powers=t(f["zeta_powers"]),
-        zeta_inv_powers=t(f["zeta_inv_powers"]),
+        quotient_unscale=L.mont_mul(L.FR_CTX, t(f["zeta_inv_powers"]), n_ext_inv),
         zh_inv_ext=t(f["zh_inv_ext"]),
         delta_powers=[int(d) for d in f["delta_powers"]],
     )

@@ -74,7 +74,12 @@ def test_grand_products_match_jax(impl):
     active_np = np.arange(N) < N - 7
     tn, tpre, tsuf, ttot = TK._gp_partials(t(num), t(den), torch.from_numpy(active_np), impl)
     jn, jpre, jsuf, jtot = JK._jit_gp_partials_batch(j(num), j(den), jnp.asarray(active_np))
-    for got, want in ((tn, jn), (tpre, jpre), (tsuf, jsuf), (ttot, jtot)):
+    # the port keeps the exclusive products: row i of the JAX package's
+    # inclusive ones shifted by one, with Montgomery 1 where nothing precedes
+    one = jnp.broadcast_to(j(CTX.to_mont_np([1])), (5, 1, 16))
+    jpre_excl = jnp.concatenate([one, jpre[:, :-1]], axis=1)
+    jsuf_excl = jnp.concatenate([jsuf[:, 1:], one], axis=1)
+    for got, want in ((tn, jn), (tpre, jpre_excl), (tsuf, jsuf_excl), (ttot, jtot)):
         assert same(got, want)
     tot_inv = CTX.to_mont_np([pow(v, -1, FR.p) for v in CTX.from_mont_np(TL.to_numpy(ttot))])
     blind = x.words(5, 6)
@@ -103,7 +108,10 @@ def test_quotient_matches_jax():
                 f(y_pows))
 
     td, jd = TDomain(K), JDomain(K)
-    got = TK._quotient(*args(t), td.plan_ext("cpu"))
+    # the port takes zeta^-i and 1/n_ext as one table
+    unscale = TK._mul(t(zeta_inv), td.plan_ext("cpu").n_inv)
+    targs = args(t)
+    got = TK._quotient(*targs[:12], unscale, targs[13], td.plan_ext("cpu"))
     want = JK._jit_quotient(*args(j), jd.plan_ext.tw_inv, jd.plan_ext.n_inv)
     assert got.shape == (N_EXT, 8)
     assert same(got, want)

@@ -87,7 +87,7 @@ def main() -> int:
     tw = Domain(16).plan_ext(dev).tw
     for name, fn in (("field_mont_mul", lambda: L.mont_mul(L.FR_CTX, big, big)),
                      ("field_add", lambda: L.add(L.FR_CTX, big, big)),
-                     ("ntt_stage", lambda: N.stockham(L.FR_CTX, big, tw))):
+                     ("ntt_fused", lambda: N.stockham(L.FR_CTX, big, tw))):
         print(json.dumps({"kernel": name, "shape": "(19, 2^19) Fr", "ms": timed(fn, 5)}),
               flush=True)
     del big
