@@ -12,7 +12,8 @@ Phases, one line each (stderr carries detail):
     at batch 1 and with its fused input and output sides; the scan kernel in
     every form, at ragged lengths, with a zero inside and as powers; the
     plane sums also alone at the proof's own shapes, at a ragged width, at
-    one lane and at one row;
+    one lane and at one row; the fractions (K5) and quotient (K6) kernels
+    also at small sizes against their plain versions on the CPU;
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
     pose_enc that must reproduce the committed vk, the committed proof;
  3. pose_enc at k=11: keygen, two proofs from default_rng(0) that must be
@@ -21,6 +22,9 @@ Phases, one line each (stderr carries detail):
     verify, with every kernel's launch count from this phase and from the
     proof alone, which must stay within the counts the redesigns reached;
     then one more proof under torch.profiler for the device time by kernel;
+ 5. mod_pow at k=17 (bench.py's draw): SRS setup, keygen, two proofs from
+    default_rng(0) that must be byte-identical, verify, with its own launch
+    counts a proof held to the same plan;
 then the kernels' JSON line, the card's line, and the result line.  Any
 failure raises and exits non-zero.  Without a CUDA device it exits
 non-zero before printing a result.
@@ -45,6 +49,9 @@ INT_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 WIDE = 2  # a 32x32->64 product counted as two integer multiply-adds
 MONT_MULS = 128  # wide products in one 8-word CIOS Montgomery product
 ADD_MULS = 12  # Montgomery products in one complete addition
+OFF_PATH = ("field_sub",)  # kernels checked in phase 1 that a proof no longer launches
+FRACS_MULS = 40  # Montgomery products a row of K5 (csrc/fracs_row.cuh)
+QUOTIENT_MULS = 116  # Montgomery products a row of K6 (csrc/quotient_row.cuh)
 
 
 def log(*a):
@@ -422,6 +429,89 @@ def phase1(rep: Report, dev):
     ms = timed(lambda: MT.tree_reduce(direct), 3)
     rep.also("plane_sums", "rows=3, W=1007, points without selectors", err=err, ms=ms,
              int_ops=3 * 1006 * ADD_MULS * MONT_MULS * WIDE)
+    del table, pts
+    phase1_fused(rep, dev, rand_field, carry_heavy)
+
+
+def phase1_fused(rep: Report, dev, rand_field, carry_heavy):
+    """K5 and K6 at the main path's shapes against their plain versions on
+    the card (the compositions over K-a), and at small sizes, with
+    carry-heavy words among the operands, against the plain versions on the
+    CPU."""
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.plonk import kernels as K
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED, KEY_ROWS
+
+    rng = np.random.default_rng(3)
+    consts = K.challenge_words(*(int(v) for v in rng.integers(1, 2**62, 4)),
+                               [int(v) for v in rng.integers(1, 2**62, 6)])
+    heavy_a, heavy_b = carry_heavy(L.FR_CTX)
+    heavy = torch.cat([heavy_a, heavy_b])
+
+    def stack(rows, n, with_heavy=False):
+        w = rand_field(L.FR_CTX, rows * n - 3).reshape(rows, n, 8)
+        if with_heavy:  # carry-heavy words scattered over every column
+            flat = w.reshape(-1, 8)
+            at = torch.randperm(flat.shape[0], device=dev)[: heavy.shape[0]]
+            flat[at] = heavy[: at.shape[0]]
+        return w
+
+    def cpu(ts):
+        return [t.cpu() for t in ts]
+
+    # K5 at delay_enc k=16: 2^16 rows, 7 of them inactive
+    n = 1 << 16
+    fr_in = [stack(6, n), stack(6, n), stack(1, n)[0], stack(len(ALL_FIXED), n), stack(8, n)]
+    usable = n - 7
+    got = K.gp_fracs(*fr_in, consts, usable)
+    t0 = time.time()
+    want = K.gp_fracs_plain(*fr_in, consts, usable)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    ms = timed(lambda: K.gp_fracs(*fr_in, consts, usable), 20)
+    # read: 6 + 6 + 1 columns, 6 key rows (tags, table), 8 lookup columns; write 10
+    rep.add("gp_fracs", err=err, ms=ms, plain_ms=plain_ms, nbytes=(27 + 10) * n * 32,
+            int_ops=usable * FRACS_MULS * MONT_MULS * WIDE,
+            note=f" (2^16 rows, {n - usable} inactive; plain: the composition over K-a)")
+    del fr_in, got, want
+    for n_small, usable in ((1000, 993), (8, 1)):
+        small = [stack(6, n_small, True), stack(6, n_small, True), stack(1, n_small, True)[0],
+                 stack(len(ALL_FIXED), n_small, True), stack(8, n_small, True)]
+        got = K.gp_fracs(*small, consts, usable)
+        want = K.gp_fracs(*cpu(small), consts, usable)
+        err = max(max_err(g.cpu(), w) for g, w in zip(got, want))
+        ms = timed(lambda: K.gp_fracs(*small, consts, usable), 10)
+        rep.also("gp_fracs", f"{n_small} rows, {usable} active, carry-heavy words, "
+                 f"against the CPU plain version", err=err, ms=ms,
+                 nbytes=37 * n_small * 32, int_ops=usable * FRACS_MULS * MONT_MULS * WIDE)
+
+    # K6 at delay_enc k=16: the extended coset of 2^19 rows
+    n_ext = 1 << 19
+    q_in = [stack(K.WIT_ROWS, n_ext), stack(len(KEY_ROWS), n_ext), stack(1, n_ext)[0],
+            stack(1, 8)[0]]
+    got = K.quotient_h(*q_in, consts)
+    t0 = time.time()
+    want = K.quotient_h_plain(*q_in, consts)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max_err(got, want)
+    del want
+    ms = timed(lambda: K.quotient_h(*q_in, consts), 5)
+    # read: 19 witness and 24 key columns and X; write h
+    rep.add("quotient_h", err=err, ms=ms, plain_ms=plain_ms, nbytes=(44 + 1) * n_ext * 32,
+            int_ops=n_ext * QUOTIENT_MULS * MONT_MULS * WIDE,
+            note=" (2^19 rows; plain: the composition over K-a with its stack and roll copies)")
+    del q_in, got
+    for n_small in (1 << 9, 8):
+        small = [stack(K.WIT_ROWS, n_small, True), stack(len(KEY_ROWS), n_small, True),
+                 stack(1, n_small, True)[0], heavy[:8].contiguous()]
+        got = K.quotient_h(*small, consts)
+        err = max_err(got.cpu(), K.quotient_h(*cpu(small), consts))
+        ms = timed(lambda: K.quotient_h(*small, consts), 10)
+        rep.also("quotient_h", f"{n_small} rows, carry-heavy words, against the CPU plain "
+                 f"version", err=err, ms=ms, nbytes=45 * n_small * 32,
+                 int_ops=n_small * QUOTIENT_MULS * MONT_MULS * WIDE)
 
 
 def pose_enc_circuit(seed: int = 42):
@@ -443,6 +533,16 @@ def pose_enc_circuit(seed: int = 42):
                               expected=expected, capacity=msg).build()
 
 
+def rand_bits(rng, bits: int) -> int:
+    """bench.py build_circuit's draw of a `bits`-bit integer."""
+    v = 0
+    while v.bit_length() != bits:
+        nbytes = (bits + 7) // 8
+        v = int.from_bytes(bytes(rng.integers(0, 256, nbytes, dtype="uint8")), "little")
+        v &= (1 << bits) - 1
+    return v
+
+
 def delay_enc_circuit(seed: int = 42):
     """bench.py build_circuit("delay_enc", k=16): the default 5-bit window."""
     from delay_enc_tpu_torch.fields import FR
@@ -453,20 +553,31 @@ def delay_enc_circuit(seed: int = 42):
     cc = CircuitConfig()
     rng = np.random.default_rng(seed)
     spec = get_spec(FR, cc.t, cc.rate, cc.r_f, cc.r_p)
-
-    def rand_bits(bits):
-        v = 0
-        while v.bit_length() != bits:
-            nbytes = (bits + 7) // 8
-            v = int.from_bytes(bytes(rng.integers(0, 256, nbytes, dtype="uint8")), "little")
-            v &= (1 << bits) - 1
-        return v
-
-    n = rand_bits(cc.bits_len)
+    n = rand_bits(rng, cc.bits_len)
     e = int(rng.integers(1, 1 << cc.exp_limb_bits))
-    x = rand_bits(cc.bits_len) % n
+    x = rand_bits(rng, cc.bits_len) % n
     return DelayEncryptCircuit(n=n, e=e, x=x, spec=spec, num_input=2, message=[0, 0],
                                exp_limb_bits=cc.exp_limb_bits).build()
+
+
+# bench.py T_BITS: the exponent bits of the mod_pow row of each k
+MOD_POW_T_BITS = {17: 8}
+
+
+def mod_pow_circuit(k: int = 17, seed: int = 42):
+    """bench.py build_circuit("mod_pow", k=17): a 2048-bit modulus and an
+    exponent of T_BITS[("mod_pow", 17)] = 8 bits with the top bit set."""
+    from delay_enc_tpu_torch.fields import FR
+    from delay_enc_tpu_torch.models import RSACircuit
+    from delay_enc_tpu_torch.utils.config import CircuitConfig
+
+    cc = CircuitConfig()
+    rng = np.random.default_rng(seed)
+    t_bits = MOD_POW_T_BITS[k]
+    n = rand_bits(rng, cc.bits_len)
+    e = rand_bits(rng, t_bits) | (1 << (t_bits - 1))
+    x = rand_bits(rng, cc.bits_len) % n
+    return RSACircuit(n=n, e=e, x=x, field=FR, exp_limb_bits=t_bits).build()
 
 
 def golden_k7(dev):
@@ -522,16 +633,18 @@ def spans(prefix=""):
 
 KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
     "field_binary_kernel": "field (K-a)", "ntt_fused_kernel": "ntt_fused (K-b)",
-    "scan_kernel": "field_scan",
+    "scan_kernel": "field_scan", "quotient_kernel": "quotient_h (K6)",
+    "fracs_kernel": "gp_fracs (K5)",
     "plane_sums_kernel": "plane_sums (K-c)", "g1_add_kernel": "g1_complete_add (K-d)",
     "fixed_base_kernel": "g1_fixed_base_mul",
 }
 
 
-def profile_proof(srs, pk, builder, proof, dev):
-    """One more headline proof under torch.profiler: device kernel time by
-    kernel (the port's own, and PyTorch's copies and elementwise ops)
-    against the proof's wall time, so the device's idle share shows."""
+def profile_proof(srs, pk, builder, proof, dev, phase: str):
+    """One more proof under torch.profiler: device kernel time by kernel (the
+    port's own, and PyTorch's copies and elementwise ops, the largest of
+    those by name) against the proof's wall time, so the device's idle share
+    shows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -546,23 +659,120 @@ def profile_proof(srs, pk, builder, proof, dev):
     if again != proof:
         raise AssertionError("the profiled proof differs from the first")
     groups: dict = {}
+    torch_own: dict = {}
+
+    def tally(table, key, us, count):
+        g = table.setdefault(key, [0.0, 0])
+        g[0] += us / 1e3
+        g[1] += count
+
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         name = next((v for k, v in KERNEL_SYMBOLS.items() if k in e.key), "torch (other)")
-        g = groups.setdefault(name, [0.0, 0])
-        g[0] += us / 1e3
-        g[1] += e.count
+        tally(groups, name, us, e.count)
+        if name == "torch (other)":
+            tally(torch_own, e.key[:90], us, e.count)
     busy = sum(g[0] for g in groups.values())
     if busy == 0:
-        print(f"phase 4 profile: proof wall {wall_ms:.3f} ms; the profiler saw no device "
+        print(f"{phase} profile: proof wall {wall_ms:.3f} ms; the profiler saw no device "
               f"time, idle share not measured", flush=True)
         return
     detail = {k: {"ms": round(v[0], 4), "kernels": v[1]} for k, v in sorted(groups.items())}
-    print(f"phase 4 profile: proof wall {wall_ms:.3f} ms under the profiler, device kernels "
-          f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.4f}; {json.dumps(detail)}",
+    top = sorted(torch_own.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"{phase} profile: proof wall {wall_ms:.3f} ms under the profiler, device kernels "
+          f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.4f}; {json.dumps(detail)}; "
+          f"largest of PyTorch's own: "
+          f"{json.dumps({k: {'ms': round(v[0], 4), 'kernels': v[1]} for k, v in top})}",
           flush=True)
+
+
+def planned_elementwise(k: int) -> int:
+    """K-a launches that a proof makes once K5 and K6 take the fractions and
+    the quotient: 22 products (the canonical form before each of 6
+    commitment batches, 4 in the grand products' finish, 3 in the
+    evaluations, 9 in the GWC witnesses) and the sums of the add trees: one
+    over the 2^k rows for each of the 3 points, one over the 47, 6 and 4
+    opened polynomials of the GWC combinations (6 + 3 + 2 levels)."""
+    return 22 + 3 * k + 11
+
+
+def check_proof_launches(proof_launches: dict, k: int) -> None:
+    """One proof at k: four transforms of length 2^k, the coset transform
+    and the quotient's inverse at 2^(k+3), each a launch a pass; 15 scans and
+    ladders of powers, each one call; one launch of K5 and of K6, no
+    subtraction, and the elementwise launches that are left (235 before K5
+    and K6, 910 before the scans)."""
+    from delay_enc_tpu_torch.ops import ntt as N
+
+    want_ntt = 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3))
+    elementwise = proof_launches["field_mont_mul"] + proof_launches["field_add"]
+    if proof_launches["ntt_fused"] != want_ntt or want_ntt > 20:
+        raise AssertionError(f"a proof launched the NTT kernel {proof_launches['ntt_fused']} "
+                             f"times, planned {want_ntt}, allowed 20")
+    if proof_launches["field_scan"] != 15:
+        raise AssertionError(f"a proof called the scan kernel {proof_launches['field_scan']} times")
+    for name in ("gp_fracs", "quotient_h"):
+        if proof_launches[name] != 1:
+            raise AssertionError(f"a proof launched {name} {proof_launches[name]} times")
+    if proof_launches["field_sub"] != 0:
+        raise AssertionError(f"a proof launched field_sub {proof_launches['field_sub']} times")
+    if elementwise > planned_elementwise(k):
+        raise AssertionError(f"a proof made {elementwise} elementwise product and sum launches, "
+                             f"planned {planned_elementwise(k)}")
+
+
+def mod_pow_phase(dev, card: str) -> None:
+    """mod_pow at k=17, bench.py's draw: SRS setup, keygen, two proofs from
+    one rng seed that must be byte-identical, verify; the launch counts are
+    set to 0 just before and read just after."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen, verify_proof
+    from delay_enc_tpu_torch.plonk.keygen import min_k
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    GLOBAL_METRICS.spans.clear()
+    k = 17
+    t0 = time.time()
+    b = mod_pow_circuit(k)
+    t_build = time.time() - t0
+    if min_k(b) > k:
+        raise AssertionError(f"mod_pow needs k={min_k(b)}")
+    _cuda.reset_launches()
+    t0 = time.time()
+    srs = SRS.setup(k, tau=0x5EED_0F_0D90, device=dev)
+    t_srs = time.time() - t0
+    t0 = time.time()
+    pk, vk = keygen(b, srs, k=k, device=dev)
+    t_key = time.time() - t0
+    before = _cuda.launch_counts()
+    proofs, t_prove = [], []
+    for _ in range(2):
+        t0 = time.time()
+        proofs.append(create_proof(srs, pk, b, np.random.default_rng(0), device=dev))
+        torch.cuda.synchronize()
+        t_prove.append(time.time() - t0)
+    launches = _cuda.launch_counts()
+    proof_launches = {name: (launches[name] - before[name]) // 2 for name in launches}
+    if proofs[0] != proofs[1]:
+        raise AssertionError("mod_pow proofs from one rng seed differ")
+    t0 = time.time()
+    if not verify_proof(srs, vk, proofs[0]):
+        raise AssertionError("mod_pow proof does not verify")
+    t_ver = time.time() - t0
+    print(f"phase 5 mod_pow k={k} on {card}: rows={b.rows} circuit build {t_build:.3f} s (host), "
+          f"SRS setup {t_srs:.3f} s, keygen {t_key:.3f} s, prove {t_prove[0]:.3f} s then "
+          f"{t_prove[1]:.3f} s (identical bytes), verify {t_ver:.3f} s (host), proof "
+          f"{len(proofs[0])} B, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; spans {json.dumps(spans())}; "
+          f"launches {json.dumps(launches)}; a proof's {json.dumps(proof_launches)}", flush=True)
+    if launches["g1_fixed_base_mul"] != 1 or launches["g1_complete_add"] != 3:
+        raise AssertionError(f"SRS setup and pair tables launched {launches}")
+    check_proof_launches(proof_launches, k)
+    profile_proof(srs, pk, b, proofs[0], dev, "phase 5")
 
 
 def main() -> int:
@@ -683,28 +893,24 @@ def main() -> int:
     if launches["g1_fixed_base_mul"] != 1 or launches["g1_complete_add"] != 3:
         raise AssertionError(f"SRS setup and pair tables launched {launches}")
 
-    # one proof: four transforms of length 2^16, the coset transform and the
-    # quotient's inverse at 2^19, each a launch a pass (102 launches when a
-    # launch was one stage); 15 scans and ladders of powers, each one call;
-    # and the elementwise launches that are left, once 910
-    from delay_enc_tpu_torch.ops import ntt as N
+    check_proof_launches(proof_launches, k16)
 
-    n16 = 1 << k16
-    want_ntt = 4 * len(N.plan(k16)) + len(N.plan(k16 + 3, n16)) + len(N.plan(k16 + 3))
-    elementwise = proof_launches["field_mont_mul"] + proof_launches["field_add"]
-    if proof_launches["ntt_fused"] != want_ntt or want_ntt > 20:
-        raise AssertionError(f"a proof launched the NTT kernel {proof_launches['ntt_fused']} "
-                             f"times, planned {want_ntt}, allowed 20")
-    if proof_launches["field_scan"] != 15:
-        raise AssertionError(f"a proof called the scan kernel {proof_launches['field_scan']} times")
-    if elementwise >= 300:
-        raise AssertionError(f"a proof made {elementwise} elementwise product and sum launches")
+    profile_proof(srs16, pk16, b16, proof16, dev, "phase 4")
+    del pk16, srs16, b16
 
-    profile_proof(srs16, pk16, b16, proof16, dev)
+    # ---- 5. mod_pow k=17 ----------------------------------------------
+    mod_pow_phase(dev, card)
 
-    # ---- 5. kernels ---------------------------------------------------
+    # ---- kernels --------------------------------------------------------
     for name, row in rep.rows.items():
         row["launches"] = launches.get(name, 0)
+    # K5 and K6 took the last subtractions of a proof (0 launches, asserted):
+    # K-a's subtraction is checked in phase 1 but is no kernel of the path
+    for name in OFF_PATH:
+        row = rep.rows.pop(name)
+        print(f"phase 4 {name}: off the main path, {row['launches']} launches; phase 1 "
+              f"max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms", flush=True)
     missing = [name for name, row in rep.rows.items() if row["launches"] == 0]
     print(json.dumps({"kernels": list(rep.rows.values())}), flush=True)
     if missing:

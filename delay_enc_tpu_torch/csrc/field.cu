@@ -21,19 +21,6 @@ namespace {
 
 enum { OP_MUL = 0, OP_ADD = 1, OP_SUB = 2 };
 
-__device__ __forceinline__ void load8(uint32_t r[8], const uint32_t* p) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  uint4 lo = q[0], hi = q[1];
-  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
-}
-
-__device__ __forceinline__ void store8(uint32_t* p, const uint32_t r[8]) {
-  uint4* q = reinterpret_cast<uint4*>(p);
-  q[0] = make_uint4(r[0], r[1], r[2], r[3]);
-  q[1] = make_uint4(r[4], r[5], r[6], r[7]);
-}
-
 template <int F, int OP>
 __global__ void field_binary_kernel(const uint32_t* __restrict__ a,
                                     const uint32_t* __restrict__ b,
@@ -45,8 +32,8 @@ __global__ void field_binary_kernel(const uint32_t* __restrict__ a,
   const uint32_t ai = (i / adiv) % amod;
   const uint32_t bi = (i / bdiv) % bmod;
   uint32_t x[8], y[8], r[8];
-  load8(x, a + (size_t)ai * 8);
-  load8(y, b + (size_t)bi * 8);
+  fld::ld8(x, a + (size_t)ai * 8);
+  fld::ld8(y, b + (size_t)bi * 8);
   if (OP == OP_MUL) {
     fld::mont_mul<F>(r, x, y);
   } else if (OP == OP_ADD) {
@@ -54,7 +41,7 @@ __global__ void field_binary_kernel(const uint32_t* __restrict__ a,
   } else {
     fld::sub<F>(r, x, y);
   }
-  store8(out + (size_t)i * 8, r);
+  fld::st8(out + (size_t)i * 8, r);
 }
 
 template <int F, int OP>

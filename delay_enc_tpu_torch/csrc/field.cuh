@@ -414,6 +414,29 @@ FDEV void copy(uint32_t r[NW], const uint32_t a[NW]) {
   for (int j = 0; j < NW; j++) r[j] = a[j];
 }
 
+// One element from global memory, and back: two 16-byte accesses on the
+// device (an element row is 32-byte aligned), a word loop on the host.
+FDEV void ld8(uint32_t r[NW], const uint32_t* p) {
+#ifdef __CUDA_ARCH__
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  const uint4 lo = q[0], hi = q[1];
+  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
+  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
+#else
+  for (int j = 0; j < NW; j++) r[j] = p[j];
+#endif
+}
+
+FDEV void st8(uint32_t* p, const uint32_t r[NW]) {
+#ifdef __CUDA_ARCH__
+  uint4* q = reinterpret_cast<uint4*>(p);
+  q[0] = make_uint4(r[0], r[1], r[2], r[3]);
+  q[1] = make_uint4(r[4], r[5], r[6], r[7]);
+#else
+  for (int j = 0; j < NW; j++) p[j] = r[j];
+#endif
+}
+
 // ---- BN254 G1, projective (X : Y : Z) over Fq, Montgomery words --------
 
 struct G1 {

@@ -42,26 +42,8 @@ struct Pass {
   uint32_t out_mode;  // what the store multiplies by: nothing, one constant, a table entry
 };
 
-FDEV void ld8(uint32_t r[8], const uint32_t* p) {
-#ifdef __CUDA_ARCH__
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  const uint4 lo = q[0], hi = q[1];
-  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
-#else
-  for (int j = 0; j < 8; j++) r[j] = p[j];
-#endif
-}
-
-FDEV void st8(uint32_t* p, const uint32_t r[8]) {
-#ifdef __CUDA_ARCH__
-  uint4* q = reinterpret_cast<uint4*>(p);
-  q[0] = make_uint4(r[0], r[1], r[2], r[3]);
-  q[1] = make_uint4(r[4], r[5], r[6], r[7]);
-#else
-  for (int j = 0; j < 8; j++) p[j] = r[j];
-#endif
-}
+using fld::ld8;
+using fld::st8;
 
 // Shared memory holds the tile as eight word planes, so that neighbouring
 // positions fall into neighbouring banks whatever word is read.  A position

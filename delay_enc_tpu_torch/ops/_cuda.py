@@ -22,7 +22,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("field", "ntt", "scan", "msm")
+SOURCES = ("field", "ntt", "scan", "msm", "quotient", "fracs")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _U = ctypes.c_uint
 _I = ctypes.c_int
+_Q = ctypes.c_ulonglong
 
 # C signatures: library, symbol, argument types (all return int)
 _SIGNATURES = {
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "plane_sums": ("msm", [_P, _P, _P, _U, _U, _U, _U, _U, _I, _P]),
     "g1_complete_add": ("msm", [_P, _P, _P, _U, _U, _P]),
     "g1_fixed_base_mul": ("msm", [_P, _P, _P, _U, _U, _P]),
+    "quotient_h": ("quotient", [_P, _P, _P, _P, _P, _P, _Q, _P]),
+    "gp_fracs": ("fracs", [_P, _P, _P, _P, _P, _P, _P, _P, _Q, _Q, _P]),
 }
 
 _lock = threading.Lock()

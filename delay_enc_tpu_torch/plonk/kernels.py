@@ -1,27 +1,53 @@
-"""Prover building blocks, in plain PyTorch over the port's kernels.
+"""Prover building blocks: the fused kernels and plain PyTorch over the others.
 
 Counterpart of `delay_enc_tpu/plonk/kernels.py`, fused 8n quotient only.
 Each function keeps its JAX name; the JAX `vmap`s are a leading batch axis
-here.  Field arithmetic goes through `ops.limbs` (kernel K-a on a card),
-transforms through `ops.ntt.stockham` (kernel K-b, with the coset scaling,
-the zero padding, 1/n and zeta^-i fused into its first and last pass),
-scans and powers through `ops.poly` (kernel `field_scan`), commitments
-through `ops.msm` (kernels K-c and K-d).
+here.  Two blocks are one kernel each on a card: `gp_fracs` (K5,
+`csrc/fracs.cu`), the numerators and denominators of the five grand
+products, and `quotient_h` (K6, `csrc/quotient.cu`), the y-folded quotient
+expression times 1/Z_H; on CPU tensors they run their plain versions, which
+are the functions below them.  Field arithmetic goes through `ops.limbs`
+(kernel K-a on a card), transforms through `ops.ntt.stockham` (kernel K-b,
+with the coset scaling, the zero padding, 1/n or zeta^-i / n_ext fused into
+its first and last pass), scans and powers through `ops.poly` (kernel
+`field_scan`), commitments through `ops.msm` (kernels K-c and K-d).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..fields.bn254 import FR
+from ..ops import _cuda
 from ..ops import limbs as L
 from ..ops import msm as M
 from ..ops import poly as P
 from ..ops.ntt import NTTPlan, stockham
 from .domain import MAX_DEGREE
+from .keygen import ALL_FIXED, KEY_ROWS, NUM_PERM_COLS
 
 WIRE_COL = {"a": 0, "b": 1, "c": 2, "d": 3}
 LOOKUPS = ("a", "b", "c", "d")
 CTX = L.FR_CTX
+N_EXPRS = 4 + 5 * len(LOOKUPS)  # gate, 3 permutation terms, 5 terms a lookup
+
+# rows of the prover's (19, n_ext, 8) witness stack: advice a..e, instance,
+# z_perm, z_l, A'_l, S'_l for the lookups a..d (csrc/quotient_row.cuh)
+W_INSTANCE, W_Z_PERM, W_Z_L, W_AP, W_SP, WIT_ROWS = 5, 6, 7, 11, 15, 19
+
+# rows of `challenge_words` (csrc/fracs_row.cuh Consts)
+C_THETA, C_BETA, C_GAMMA, C_Y, C_DELTA, C_BETA_DELTA, N_CONSTS = 0, 1, 2, 3, 4, 10, 16
+
+_REPLACES = "delay_enc_tpu/plonk/kernels.py:"
+K_FRACS = _cuda.kernel(
+    "gp_fracs", "gp_fracs",
+    _REPLACES + "102 _jit_compress, :109 _jit_perm_fracs, :125 _jit_lookup_fracs (K5)",
+    "delay_enc_tpu_torch/csrc/fracs.cu")
+K_QUOTIENT = _cuda.kernel(
+    "quotient_h", "quotient_h",
+    _REPLACES + "192 _quotient_expr and the * zh_inv_ext of :294 _jit_quotient (K6)",
+    "delay_enc_tpu_torch/csrc/quotient.cu")
 
 
 def _mul(a, b):
@@ -214,17 +240,152 @@ def _quotient_expr(advice_ext, instance_ext, z_perm_ext, z_l_ext, ap_ext, sp_ext
     return total
 
 
-def _quotient(advice_ext, instance_ext, z_perm_ext, z_l_ext, ap_ext, sp_ext,
-              fe, sigma_ext, masks, chals, delta_ms, zh_inv_ext,
-              unscale, y_pows_rev, plan_ext: NTTPlan):
-    """Fused extended-domain quotient: the folded expression on the 8n
-    coset, divided by Z_H and transformed back.  `unscale` (n_ext, 8) holds
-    zeta^-i / n_ext, which the transform's last pass multiplies in."""
-    total = _quotient_expr(advice_ext, instance_ext, z_perm_ext, z_l_ext,
-                           ap_ext, sp_ext, fe, sigma_ext, masks, chals,
-                           delta_ms, y_pows_rev)
-    h_ext = _mul(total, zh_inv_ext)
-    del total
+# ------------------------------------------------------ the fused kernels
+
+def challenge_words(theta: int, beta: int, gamma: int, y: int, deltas) -> np.ndarray:
+    """(16, 8) uint32 Montgomery words that both fused kernels take: theta,
+    beta, gamma, y, the six delta^c and the six beta delta^c."""
+    deltas = list(deltas)
+    if len(deltas) != NUM_PERM_COLS:
+        raise ValueError(f"{NUM_PERM_COLS} powers of delta, got {len(deltas)}")
+    return CTX.to_mont_np([theta, beta, gamma, y, *deltas, *(beta * d % FR.p for d in deltas)])
+
+
+def _check_operands(shapes: dict, consts) -> np.ndarray:
+    """Check each named tensor against its (…, 8) shape: int32, one device;
+    return the challenge words, checked, as a contiguous array."""
+    device = None
+    for name, (t, shape) in shapes.items():
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} {tuple(t.shape)}")
+        if device is not None and t.device != device:
+            raise ValueError(f"operands on different devices: {device} and {t.device}")
+        device = t.device
+    if not isinstance(consts, np.ndarray) or consts.dtype != np.uint32 \
+            or consts.shape != (N_CONSTS, L.NW):
+        raise ValueError(f"challenge words must be a ({N_CONSTS}, {L.NW}) uint32 array")
+    return np.ascontiguousarray(consts)
+
+
+def _pointers(tensors: list) -> list:
+    """The addresses of contiguous tensors, each 16-byte aligned for the
+    kernels' vector loads."""
+    ptrs = [t.data_ptr() for t in tensors]
+    if any(p % 16 for p in ptrs):
+        raise ValueError("a kernel operand is not 16-byte aligned")
+    return ptrs
+
+
+def _plain_consts(consts: np.ndarray, device) -> torch.Tensor:
+    """(16, 1, 8): row r is a (1, 8) operand of the plain functions."""
+    return L.to_tensor(consts, device)[:, None, :]
+
+
+def gp_fracs_plain(raw6, sigma_raw, omega_dev, raw_stack, lk_raw, consts, usable: int):
+    """`gp_fracs` over the plain functions `_compress`, `_perm_fracs` and
+    `_lookup_fracs`, stacked, with the rows from `usable` on set to one."""
+    c = _plain_consts(consts, raw6.device)
+    theta_m, beta_m, gamma_m = c[C_THETA], c[C_BETA], c[C_GAMMA]
+    key = dict(zip(ALL_FIXED, raw_stack))
+    s_raw = _compress(key["table_tag"], key["table_value"], theta_m)
+    num_p, den_p = _perm_fracs(list(raw6), list(sigma_raw), omega_dev, beta_m, gamma_m,
+                               list(c[C_DELTA : C_DELTA + NUM_PERM_COLS]))
+    nums, dens = [num_p], [den_p]
+    for i, l in enumerate(LOOKUPS):
+        a_raw = _compress(key[f"tag_{l}"], raw6[WIRE_COL[l]], theta_m)
+        num, den = _lookup_fracs(a_raw, s_raw, lk_raw[i], lk_raw[len(LOOKUPS) + i],
+                                 beta_m, gamma_m)
+        nums.append(num)
+        dens.append(den)
+    num, den = torch.stack(nums), torch.stack(dens)
+    one = CTX.one_mont(num.device)
+    num[:, usable:] = one
+    den[:, usable:] = one
+    return num, den
+
+
+def gp_fracs(raw6, sigma_raw, omega_dev, raw_stack, lk_raw, consts, usable: int):
+    """Numerators and denominators of the five grand products (the
+    permutation, then the lookups a..d), each (5, n, 8), one from row
+    `usable` on.  raw6 (6, n, 8): the advice columns and the instance column;
+    sigma_raw (6, n, 8); omega_dev (n, 8): omega^i; raw_stack: the key's
+    fixed columns (ALL_FIXED order); lk_raw (8, n, 8): A'_a..d then S'_a..d;
+    consts: `challenge_words`.  One launch of K5 on CUDA tensors."""
+    n = raw6.shape[1]
+    consts = _check_operands({
+        "raw6": (raw6, (NUM_PERM_COLS, n, L.NW)),
+        "sigma_raw": (sigma_raw, (NUM_PERM_COLS, n, L.NW)),
+        "omega_dev": (omega_dev, (n, L.NW)),
+        "raw_stack": (raw_stack, (len(ALL_FIXED), n, L.NW)),
+        "lk_raw": (lk_raw, (2 * len(LOOKUPS), n, L.NW)),
+    }, consts)
+    if not 0 <= usable <= n:
+        raise ValueError(f"usable rows {usable} outside 0..{n}")
+    if raw6.device.type == "cpu":
+        return gp_fracs_plain(raw6, sigma_raw, omega_dev, raw_stack, lk_raw, consts, usable)
+    _cuda.require_cuda(raw6)
+    ins = [t.contiguous() for t in (raw6, sigma_raw, omega_dev, raw_stack, lk_raw)]
+    num = torch.empty((1 + len(LOOKUPS), n, L.NW), dtype=torch.int32, device=raw6.device)
+    den = torch.empty_like(num)
+    K_FRACS(*_pointers(ins), consts.ctypes.data, num.data_ptr(), den.data_ptr(), n, usable,
+            _cuda.stream())
+    return num, den
+
+
+def _quotient_args(wit_ext, key_ext, x_ext, consts):
+    """The stacks and challenge words as the arguments of `_quotient_expr`."""
+    c = _plain_consts(consts, wit_ext.device)
+    y = CTX.from_mont_np(consts[C_Y])[0]
+    y_pows_rev = L.to_device_mont(CTX, [pow(y, N_EXPRS - 1 - i, FR.p) for i in range(N_EXPRS)],
+                                  wit_ext.device)
+    key = dict(zip(KEY_ROWS, key_ext))
+    nf = len(ALL_FIXED)
+    lookup = lambda row: {l: wit_ext[row + i] for i, l in enumerate(LOOKUPS)}
+    return (list(wit_ext[:W_INSTANCE]), wit_ext[W_INSTANCE], wit_ext[W_Z_PERM],
+            lookup(W_Z_L), lookup(W_AP), lookup(W_SP),
+            {name: key[name] for name in ALL_FIXED}, list(key_ext[nf : nf + NUM_PERM_COLS]),
+            (key["l0"], key["l_last"], key["l_blind"], x_ext),
+            (c[C_THETA], c[C_BETA], c[C_GAMMA]), list(c[C_DELTA : C_DELTA + NUM_PERM_COLS]),
+            y_pows_rev)
+
+
+def quotient_h_plain(wit_ext, key_ext, x_ext, zh_inv8, consts):
+    """`quotient_h` as `_quotient_expr` times 1/Z_H (period MAX_DEGREE)."""
+    total = _quotient_expr(*_quotient_args(wit_ext, key_ext, x_ext, consts))
+    return _mul(total.reshape(-1, MAX_DEGREE, L.NW), zh_inv8).reshape(-1, L.NW)
+
+
+def quotient_h(wit_ext, key_ext, x_ext, zh_inv8, consts):
+    """The y-folded constraint expression on the fused 8n coset, divided by
+    Z_H: (n_ext, 8).  wit_ext (19, n_ext, 8): the prover's witness stack
+    (W_* rows); key_ext (24, n_ext, 8): `ProvingKey.ext_stack`; x_ext
+    (n_ext, 8): X there; zh_inv8 (8, 8): 1/Z_H, which has period
+    MAX_DEGREE; consts: `challenge_words`.  One launch of K6 on CUDA
+    tensors."""
+    n_ext = wit_ext.shape[1]
+    consts = _check_operands({
+        "wit_ext": (wit_ext, (WIT_ROWS, n_ext, L.NW)),
+        "key_ext": (key_ext, (len(KEY_ROWS), n_ext, L.NW)),
+        "x_ext": (x_ext, (n_ext, L.NW)),
+        "zh_inv8": (zh_inv8, (MAX_DEGREE, L.NW)),
+    }, consts)
+    if n_ext % MAX_DEGREE:
+        raise ValueError(f"{n_ext} rows are no multiple of {MAX_DEGREE}")
+    if wit_ext.device.type == "cpu":
+        return quotient_h_plain(wit_ext, key_ext, x_ext, zh_inv8, consts)
+    _cuda.require_cuda(wit_ext)
+    ins = [t.contiguous() for t in (wit_ext, key_ext, x_ext, zh_inv8)]
+    h = torch.empty((n_ext, L.NW), dtype=torch.int32, device=wit_ext.device)
+    K_QUOTIENT(*_pointers(ins), consts.ctypes.data, h.data_ptr(), n_ext, _cuda.stream())
+    return h
+
+
+def quotient_stacked(wit_ext, key_ext, x_ext, zh_inv8, consts, unscale,
+                     plan_ext: NTTPlan) -> torch.Tensor:
+    """Fused extended-domain quotient: `quotient_h`, transformed back.
+    `unscale` (n_ext, 8) holds zeta^-i / n_ext, which the transform's last
+    pass multiplies in."""
+    h_ext = quotient_h(wit_ext, key_ext, x_ext, zh_inv8, consts)
     return stockham(CTX, h_ext, plan_ext.tw_inv, out_scale=unscale)
 
 

@@ -35,6 +35,10 @@ NUM_PERM_COLS = NUM_ADVICE + 1
 TABLE_NAMES = ("table_tag", "table_value")
 ALL_FIXED = tuple(FIXED_NAMES) + TABLE_NAMES
 LOOKUPS = ("a", "b", "c", "d")  # one lookup argument per tagged wire column
+# rows of the key's device stacks (`ProvingKey.raw_stack`, `.ext_stack`),
+# which csrc/fracs_row.cuh and csrc/quotient_row.cuh index by number
+LAGRANGE_NAMES = ("l0", "l_last", "l_blind")
+KEY_ROWS = ALL_FIXED + tuple(f"sigma_{c}" for c in range(NUM_PERM_COLS)) + LAGRANGE_NAMES
 
 DELTA = pow(FR.generator, 1 << FR.s, FR.p)
 
@@ -66,6 +70,12 @@ class ProvingKey:
     quotient_unscale: torch.Tensor  # (n_ext, 8) zeta^-i / n_ext: undoes scale and transform
     zh_inv_ext: torch.Tensor  # (n_ext, 8) 1/(X^n - 1) on the extended coset
     delta_powers: list  # host ints delta^0 .. delta^5
+    # the stacks the fused kernels read, rows in KEY_ROWS order: the fixed
+    # columns' row evaluations (len(ALL_FIXED), n, 8), and every column's
+    # extended-coset evaluations (len(KEY_ROWS), n_ext, 8).  fixed_raw,
+    # fixed_ext, sigma_ext and the l*_ext are views of their rows.
+    raw_stack: torch.Tensor
+    ext_stack: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -266,5 +276,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
         quotient_unscale=quotient_unscale,
         zh_inv_ext=zh_inv_ext,
         delta_powers=delta_powers,
+        raw_stack=dev_stack[:nf],
+        ext_stack=ext_stack,
     )
     return pk, vk

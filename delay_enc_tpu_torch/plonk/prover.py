@@ -35,22 +35,21 @@ from ..ops.ntt import powers
 from ..ops.poly import powers_of
 from ..utils.device import resolve, synchronize
 from ..utils.timers import GLOBAL_METRICS
-from .domain import QUOTIENT_PIECES
+from .domain import MAX_DEGREE, QUOTIENT_PIECES
 from .keygen import ALL_FIXED, LOOKUPS, ProvingKey
 from .kernels import (
     _canon_batch,
     _coeff,
-    _compress,
     _eval_stack,
     _evals_batch,
     _ext,
     _gp_finish,
     _gp_partials,
     _gwc_witness,
-    _lookup_fracs,
-    _perm_fracs,
-    _quotient,
+    challenge_words,
+    gp_fracs,
     msm_commit_batch,
+    quotient_stacked,
 )
 from .transcript import Transcript
 
@@ -192,8 +191,6 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
     def dev(words: np.ndarray) -> torch.Tensor:
         return L.to_tensor(words, device)
 
-    delta_ms = [mont1(d) for d in pk.delta_powers]
-
     tr = Transcript()
     # vk.hash_into(transcript): the vk's transcript_repr comes first
     tr.common_scalar(pk.vk.transcript_repr)
@@ -217,8 +214,6 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
     # instance column: public values padded with zeros, not blinded
     instance_col = list(builder.instance) + [0] * (n - len(builder.instance))
     raw6 = dev(np.stack([ctx.to_mont_np(col) for col in advice_host + [instance_col]]))
-    advice_raw = [raw6[c] for c in range(NUM_ADVICE)]
-    instance_raw = raw6[NUM_ADVICE]
     coeffs6 = _coeff(raw6, plan)
     advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
     instance_coeff = coeffs6[NUM_ADVICE]
@@ -228,14 +223,11 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
 
     # ---- 2. lookups ---------------------------------------------------
     theta = tr.challenge()
-    theta_m = mont1(theta)
 
-    s_raw = _compress(pk.fixed_raw["table_tag"], pk.fixed_raw["table_value"], theta_m)
     tbl_tags, tbl_vals = build_table(builder.lookup_widths)
     tkeys_padded, fvals = _table_keys(tbl_tags, tbl_vals, usable, theta)
-    a_raw, ap_host, sp_host = {}, {}, {}
+    ap_host, sp_host = {}, {}
     for l in LOOKUPS:
-        a_raw[l] = _compress(pk.fixed_raw[f"tag_{l}"], advice_raw[WIRE_COL[l]], theta_m)
         ap, sp = _permuted_columns(
             builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
             usable, tkeys_padded, fvals, l,
@@ -244,8 +236,6 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
         ap_host[l] = np.concatenate([ap, pad])
         sp_host[l] = np.concatenate([sp, pad])
     lk_raw = dev(np.stack([ap_host[l] for l in LOOKUPS] + [sp_host[l] for l in LOOKUPS]))
-    ap_raw = {l: lk_raw[i] for i, l in enumerate(LOOKUPS)}
-    sp_raw = {l: lk_raw[4 + i] for i, l in enumerate(LOOKUPS)}
     lk8 = _coeff(lk_raw, plan)
     ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
     sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
@@ -256,21 +246,15 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
     # ---- 3. grand products -------------------------------------------
     beta = tr.challenge()
     gamma = tr.challenge()
-    beta_m, gamma_m = mont1(beta), mont1(gamma)
     active = torch.arange(n, device=device) < usable
 
     omega_dev = powers(ctx, domain.omega, n, device)
     sigma_raw = _evals_batch(torch.stack(pk.sigma_coeff), plan)
-    sigma_raw = [sigma_raw[c] for c in range(len(pk.sigma_coeff))]
-    # all 5 grand products (permutation + 4 lookups) batched
-    num_p, den_p = _perm_fracs(advice_raw + [instance_raw], sigma_raw, omega_dev,
-                               beta_m, gamma_m, delta_ms)
-    nums, dens = [num_p], [den_p]
-    for l in LOOKUPS:
-        numl, denl = _lookup_fracs(a_raw[l], s_raw, ap_raw[l], sp_raw[l], beta_m, gamma_m)
-        nums.append(numl)
-        dens.append(denl)
-    num_a, pre, suf, totals = _gp_partials(torch.stack(nums), torch.stack(dens), active, SCAN)
+    # all 5 grand products (permutation + 4 lookups) batched; y is not drawn yet
+    num, den = gp_fracs(raw6, sigma_raw, omega_dev, pk.raw_stack, lk_raw,
+                        challenge_words(theta, beta, gamma, 0, pk.delta_powers), usable)
+    num_a, pre, suf, totals = _gp_partials(num, den, active, SCAN)
+    del num, den
     total_ints = L.from_device_mont(ctx, totals)
     if any(t == 0 for t in total_ints):
         raise ValueError("grand product denominator vanished")
@@ -291,9 +275,6 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
 
     # ---- 5. quotient ---------------------------------------------------
     y = tr.challenge()
-    n_exprs = 4 + 5 * len(LOOKUPS)
-    y_pows_rev = L.to_device_mont(ctx, [pow(y, n_exprs - 1 - i, FR.p) for i in range(n_exprs)],
-                                  device)
 
     witness_coeffs = (
         advice_coeff
@@ -304,21 +285,11 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
     )
     # one batched extended-coset NTT for every opened witness polynomial
     ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_ext)
-    advice_ext = [ext_stack[c] for c in range(NUM_ADVICE)]
-    off = NUM_ADVICE + 2
-    h_coeff = _quotient(
-        advice_ext, ext_stack[NUM_ADVICE], ext_stack[NUM_ADVICE + 1],
-        {l: ext_stack[off + i] for i, l in enumerate(LOOKUPS)},
-        {l: ext_stack[off + 4 + i] for i, l in enumerate(LOOKUPS)},
-        {l: ext_stack[off + 8 + i] for i, l in enumerate(LOOKUPS)},
-        pk.fixed_ext, pk.sigma_ext,
-        (pk.l0_ext, pk.l_last_ext, pk.l_blind_ext, pk.x_ext),
-        (theta_m, beta_m, gamma_m), delta_ms, pk.zh_inv_ext, pk.quotient_unscale,
-        y_pows_rev, plan_ext,
-    )
+    h_coeff = quotient_stacked(
+        ext_stack, pk.ext_stack, pk.x_ext, pk.zh_inv_ext[:MAX_DEGREE],
+        challenge_words(theta, beta, gamma, y, pk.delta_powers), pk.quotient_unscale, plan_ext)
     # the extended-domain arrays are not needed by the openings
-    del advice_ext, ext_stack
-    del a_raw, ap_raw, sp_raw, s_raw, lk_raw, num_a, pre, suf, omega_dev, sigma_raw
+    del ext_stack, lk_raw, num_a, pre, suf, omega_dev, sigma_raw
     h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]
     for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW)):
         tr.write_point(pt)

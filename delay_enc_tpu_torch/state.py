@@ -45,28 +45,37 @@ def proving_key_from_jax(pk_fields: dict, device="cuda"):
     `x_ext`, `zeta_powers`, `zeta_inv_powers`, `zh_inv_ext`."""
     from .fields.bn254 import FR
     from .plonk.domain import Domain
-    from .plonk.keygen import ProvingKey, VerifyingKey
+    from .plonk.keygen import ALL_FIXED, ProvingKey, VerifyingKey
 
     device = resolve(device)
     t = lambda a: from_jax_limbs(a, device)
     f = pk_fields
+    # the key's stacks in KEY_ROWS order (of the fixed columns, those given),
+    # and the named columns as their rows
+    names = [n for n in ALL_FIXED if n in f["fixed_ext"]]
+    raw_stack = t(np.stack([f["fixed_raw"][n] for n in names]))
+    ext_stack = t(np.stack([f["fixed_ext"][n] for n in names] + list(f["sigma_ext"])
+                           + [f["l0_ext"], f["l_last_ext"], f["l_blind_ext"]]))
+    nf, nm = len(names), len(names) + len(f["sigma_ext"])
     # the port keeps zeta^-i / n_ext in one table (plonk/kernels.py _quotient)
     n_ext_inv = L.to_device_mont(L.FR_CTX, [FR.inv(Domain(int(f["k"])).n_ext)], device)
     vk = VerifyingKey(Domain(int(f["k"])), dict(f["fixed_commitments"]),
                       list(f["sigma_commitments"]), int(f["transcript_repr"]))
     return ProvingKey(
         vk=vk,
-        fixed_raw={n: t(a) for n, a in f["fixed_raw"].items()},
+        fixed_raw={n: raw_stack[i] for i, n in enumerate(names)},
         fixed_coeff={n: t(a) for n, a in f["fixed_coeff"].items()},
-        fixed_ext={n: t(a) for n, a in f["fixed_ext"].items()},
+        fixed_ext={n: ext_stack[i] for i, n in enumerate(names)},
         sigma_coeff=[t(a) for a in f["sigma_coeff"]],
-        sigma_ext=[t(a) for a in f["sigma_ext"]],
-        l0_ext=t(f["l0_ext"]),
-        l_last_ext=t(f["l_last_ext"]),
-        l_blind_ext=t(f["l_blind_ext"]),
+        sigma_ext=[ext_stack[c] for c in range(nf, nm)],
+        l0_ext=ext_stack[nm],
+        l_last_ext=ext_stack[nm + 1],
+        l_blind_ext=ext_stack[nm + 2],
         x_ext=t(f["x_ext"]),
         zeta_powers=t(f["zeta_powers"]),
         quotient_unscale=L.mont_mul(L.FR_CTX, t(f["zeta_inv_powers"]), n_ext_inv),
         zh_inv_ext=t(f["zh_inv_ext"]),
         delta_powers=[int(d) for d in f["delta_powers"]],
+        raw_stack=raw_stack,
+        ext_stack=ext_stack,
     )

@@ -89,30 +89,35 @@ def test_grand_products_match_jax(impl):
 
 
 def test_quotient_matches_jax():
+    """The plain path of `quotient_stacked`: the stacks and challenge words
+    that the kernel takes, against the JAX package's separate columns."""
     x = Inputs(4)
-    adv, inst, zp = x.words(5, N_EXT), x.words(N_EXT), x.words(N_EXT)
-    zl, ap, sp = x.words(4, N_EXT), x.words(4, N_EXT), x.words(4, N_EXT)
-    fe = {name: x.words(N_EXT) for name in ALL_FIXED}
-    sig = x.words(6, N_EXT)
-    masks = x.words(4, N_EXT)
-    chals = x.words(3, 1)
-    deltas = x.words(6, 1)
-    zh_inv, zeta_inv, y_pows = x.words(N_EXT), x.words(N_EXT), x.words(24)
+    wit = x.words(TK.WIT_ROWS, N_EXT)
+    key = x.words(len(TK.KEY_ROWS), N_EXT)
+    x_ext = x.words(N_EXT)
+    zh8, zeta_inv = x.words(8), x.words(N_EXT)
+    theta, beta, gamma, y = (FR.random(x.rng) for _ in range(4))
+    deltas = [FR.random(x.rng) for _ in range(6)]
+    consts = TK.challenge_words(theta, beta, gamma, y, deltas)
     lk = ("a", "b", "c", "d")
-
-    def args(f):
-        return ([f(a) for a in adv], f(inst), f(zp), {l: f(zl[i]) for i, l in enumerate(lk)},
-                {l: f(ap[i]) for i, l in enumerate(lk)}, {l: f(sp[i]) for i, l in enumerate(lk)},
-                {n: f(v) for n, v in fe.items()}, [f(s) for s in sig], tuple(f(m) for m in masks),
-                tuple(f(c) for c in chals), [f(d) for d in deltas], f(zh_inv), f(zeta_inv),
-                f(y_pows))
+    nf = len(ALL_FIXED)
+    w = lambda *v: CTX.to_mont_np(list(v))
+    y_pows = w(*(pow(y, 23 - i, FR.p) for i in range(24)))
+    jargs = ([j(a) for a in wit[:5]], j(wit[5]), j(wit[6]),
+             {l: j(wit[7 + i]) for i, l in enumerate(lk)},
+             {l: j(wit[11 + i]) for i, l in enumerate(lk)},
+             {l: j(wit[15 + i]) for i, l in enumerate(lk)},
+             {n: j(key[i]) for i, n in enumerate(ALL_FIXED)}, [j(s) for s in key[nf : nf + 6]],
+             (j(key[nf + 6]), j(key[nf + 7]), j(key[nf + 8]), j(x_ext)),
+             tuple(j(w(v)) for v in (theta, beta, gamma)), [j(w(d)) for d in deltas],
+             j(np.tile(zh8, (N_EXT // 8, 1))), j(zeta_inv), j(y_pows))
 
     td, jd = TDomain(K), JDomain(K)
     # the port takes zeta^-i and 1/n_ext as one table
     unscale = TK._mul(t(zeta_inv), td.plan_ext("cpu").n_inv)
-    targs = args(t)
-    got = TK._quotient(*targs[:12], unscale, targs[13], td.plan_ext("cpu"))
-    want = JK._jit_quotient(*args(j), jd.plan_ext.tw_inv, jd.plan_ext.n_inv)
+    got = TK.quotient_stacked(t(wit), t(key), t(x_ext), t(zh8), consts, unscale,
+                              td.plan_ext("cpu"))
+    want = JK._jit_quotient(*jargs, jd.plan_ext.tw_inv, jd.plan_ext.n_inv)
     assert got.shape == (N_EXT, 8)
     assert same(got, want)
 

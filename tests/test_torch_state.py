@@ -55,3 +55,57 @@ def test_proving_key_from_jax_fields():
     assert np.array_equal(state.to_jax_limbs(pk.fixed_ext["tag_a"]), fields["fixed_ext"]["tag_a"])
     assert np.array_equal(state.to_jax_limbs(pk.zh_inv_ext), fields["zh_inv_ext"])
     assert pk.device.type == "cpu" and pk.delta_powers == [1, 2]
+
+
+def test_proving_key_from_jax_stacks_are_its_columns():
+    """A full key's stacks, in KEY_ROWS order, hold every named column, and
+    the named columns are views of their rows."""
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED, KEY_ROWS
+
+    rng = np.random.default_rng(3)
+    arr = lambda *s: rng.integers(0, 1 << 16, (*s, 16), dtype=np.uint32)
+    names = list(ALL_FIXED)[::-1]  # the dicts' order does not matter
+    fields = {
+        "k": 3, "fixed_commitments": {n: None for n in names},
+        "sigma_commitments": [None] * 6, "transcript_repr": 7, "delta_powers": [1, 2],
+        "fixed_raw": {n: arr(8) for n in names}, "fixed_coeff": {n: arr(8) for n in names},
+        "fixed_ext": {n: arr(64) for n in names},
+        "sigma_coeff": [arr(8) for _ in range(6)], "sigma_ext": [arr(64) for _ in range(6)],
+        "l0_ext": arr(64), "l_last_ext": arr(64), "l_blind_ext": arr(64), "x_ext": arr(64),
+        "zeta_powers": arr(64), "zeta_inv_powers": arr(64), "zh_inv_ext": arr(64),
+    }
+    pk = state.proving_key_from_jax(fields, device="cpu")
+    assert pk.raw_stack.shape == (len(ALL_FIXED), 8, 8)
+    assert pk.ext_stack.shape == (len(KEY_ROWS), 64, 8)
+    want_ext = ([fields["fixed_ext"][n] for n in ALL_FIXED] + fields["sigma_ext"]
+                + [fields["l0_ext"], fields["l_last_ext"], fields["l_blind_ext"]])
+    for row, want in enumerate(want_ext):
+        assert np.array_equal(state.to_jax_limbs(pk.ext_stack[row]), want), KEY_ROWS[row]
+    for row, name in enumerate(ALL_FIXED):
+        assert np.array_equal(state.to_jax_limbs(pk.raw_stack[row]), fields["fixed_raw"][name])
+        assert pk.fixed_raw[name].data_ptr() == pk.raw_stack[row].data_ptr()
+        assert pk.fixed_ext[name].data_ptr() == pk.ext_stack[row].data_ptr()
+    nf = len(ALL_FIXED)
+    views = pk.sigma_ext + [pk.l0_ext, pk.l_last_ext, pk.l_blind_ext]
+    assert [v.data_ptr() for v in views] == [pk.ext_stack[nf + i].data_ptr() for i in range(9)]
+
+
+def test_keygen_stacks_are_its_columns():
+    """The port's own keygen: the same relation between stacks and views."""
+    from delay_enc_tpu_torch import cs
+    from delay_enc_tpu_torch.fields import FR
+    from delay_enc_tpu_torch.plonk import keygen
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED, KEY_ROWS
+
+    b = cs.Builder(FR)
+    mg = cs.MainGate(b)
+    mg.mul(mg.assign_value(3), mg.assign_value(5))
+    srs = SRS.setup(4, tau=99, device="cpu")
+    pk, _ = keygen(b, srs, k=4, device="cpu")
+    assert pk.ext_stack.shape == (len(KEY_ROWS), 8 << 4, 8)
+    views = ([pk.fixed_ext[n] for n in ALL_FIXED] + pk.sigma_ext
+             + [pk.l0_ext, pk.l_last_ext, pk.l_blind_ext])
+    for row, v in enumerate(views):
+        assert torch.equal(v, pk.ext_stack[row]), KEY_ROWS[row]
+    for row, name in enumerate(ALL_FIXED):
+        assert torch.equal(pk.fixed_raw[name], pk.raw_stack[row])
