@@ -11,21 +11,30 @@ Phases, one line each (stderr carries detail):
     operands, with both times; the multi-stage NTT also at small and odd k,
     at batch 1 and with its fused input and output sides; the scan kernel in
     every form, at ragged lengths, with a zero inside and as powers; the
-    plane sums also alone at the proof's own shapes, at a ragged width, at
-    one lane and at one row; the fractions (K5) and quotient (K6) kernels
-    also at small sizes against their plain versions on the CPU;
+    plane sums of both bases (K-c over the base-4 table, plane_sums16 over
+    the base-16 one, every selector value among the rows) also alone at the
+    proof's own shapes, at a ragged width, at one lane and at one row; the
+    selector kernel at both digit widths with 0, 1, r - 1 and 2^253 among
+    the scalars; the fractions (K5) and quotient (K6) kernels also at small
+    sizes against their plain versions on the CPU;
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
     pose_enc that must reproduce the committed vk, the committed proof;
  3. pose_enc at k=11: keygen, two proofs from default_rng(0) that must be
-    byte-identical, verify;
+    byte-identical, verify; then the base-16 MSM: its table, a keygen that
+    must reproduce the committed vk and a proof that must equal the base-4
+    one;
  4. delay_enc at k=16, the headline: SRS setup, keygen, create_proof,
     verify, with every kernel's launch count from this phase and from the
     proof alone, which must stay within the counts the redesigns reached;
     then one more proof under torch.profiler for the device time by kernel;
+    then the base-16 MSM on the same SRS and keys: its table (seconds,
+    launches, bytes), one proof that must equal the base-4 one, beside a
+    base-4 proof's wall time, and one more under the profiler;
  5. mod_pow at k=17 (bench.py's draw): SRS setup, keygen, two proofs from
     default_rng(0) that must be byte-identical, verify, with its own launch
     counts a proof held to the same plan;
-then the kernels' JSON line, the card's line, and the result line.  Any
+then the kernels' JSON line (launches of phase 4's base-4 and base-16 runs
+together), the card's line, and the result line.  Any
 failure raises and exits non-zero.  Without a CUDA device it exits
 non-zero before printing a result.
 """
@@ -52,6 +61,7 @@ ADD_MULS = 12  # Montgomery products in one complete addition
 OFF_PATH = ("field_sub",)  # kernels checked in phase 1 that a proof no longer launches
 FRACS_MULS = 40  # Montgomery products a row of K5 (csrc/fracs_row.cuh)
 QUOTIENT_MULS = 116  # Montgomery products a row of K6 (csrc/quotient_row.cuh)
+COMMIT_BATCHES = 6  # commitment batches a proof: 5, 8, 5, 1, 7 and 3 columns
 
 
 def log(*a):
@@ -429,8 +439,103 @@ def phase1(rep: Report, dev):
     ms = timed(lambda: MT.tree_reduce(direct), 3)
     rep.also("plane_sums", "rows=3, W=1007, points without selectors", err=err, ms=ms,
              int_ops=3 * 1006 * ADD_MULS * MONT_MULS * WIDE)
-    del table, pts
+    del table
+    phase1_b16(rep, dev, gen, pts, affine_err)
+    del pts
     phase1_fused(rep, dev, rand_field, carry_heavy)
+
+
+def phase1_b16(rep: Report, dev, gen, pts, affine_err):
+    """plane_sums16 over the base-16 table of the 2^16 points of phase 1, and
+    the selector kernel, against their plain versions."""
+    from delay_enc_tpu_torch.fields import FR
+    from delay_enc_tpu_torch.ops import msm as M
+    from delay_enc_tpu_torch.ops import msm16 as M16
+    from delay_enc_tpu_torch.ops import msm_tree as MT
+
+    table = M16.pair_tables16(pts)  # (256, 2^15, 3, 8)
+    w = table.shape[1]
+
+    def rand_sel(rows, width):
+        return torch.randint(0, 256, (rows, width), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.uint8)
+
+    # C = 16 rows: row 0 runs through all 256 options, row 1 takes the
+    # identity option everywhere, row 2 option 255
+    sel = rand_sel(16, w)
+    sel[0] = torch.arange(256, device=dev, dtype=torch.int64).to(torch.uint8).repeat(w // 256)
+    sel[1] = 0
+    sel[2] = 255
+    got = MT.tree_reduce(table, sel)
+    t0 = time.time()
+    want = MT.tree_reduce_plain(table, sel)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = affine_err(got, want)
+    if M.points_from_device(got[1:2]) != [None]:
+        raise AssertionError("a row of identity options does not sum to the identity")
+    ms = timed(lambda: MT.tree_reduce(table, sel), 5)
+    rep.add("plane_sums16", err=err, ms=ms, plain_ms=plain_ms,
+            nbytes=16 * w + 16 * w * 96 + 16 * 96,
+            int_ops=16 * (w - 1) * ADD_MULS * MONT_MULS * WIDE,
+            note=" (256-option table, C=16, W=2^15, every selector value, the identity "
+                 "option and 255 among the rows; compared affine)")
+    # the proof's shapes, one column and the largest batch of 64 planes each;
+    # the plain version sums a sample of the rows
+    rng = np.random.default_rng(4)
+    for cols in (1, 8):
+        rows = cols * M16.PLANES
+        sel = rand_sel(rows, w)
+        sel[0] = 0
+        sel[-1] = 255
+        got = MT.tree_reduce(table, sel)
+        pick = sorted({0, rows - 1, *rng.integers(0, rows, 14).tolist()})
+        err = affine_err(got[pick], MT.tree_reduce_plain(table, sel[pick]))
+        ms = timed(lambda: MT.tree_reduce(table, sel), 5)
+        rep.also("plane_sums16", f"rows={rows} ({cols} x 64), W=2^15", err=err, ms=ms,
+                 nbytes=rows * w + table.numel() * 4 + rows * 96,
+                 int_ops=rows * (w - 1) * ADD_MULS * MONT_MULS * WIDE,
+                 note=f" ({len(pick)} rows compared affine; passes "
+                      f"{[(p.run, p.threads, p.chunks) for p in MT.plan(rows, w)]})")
+    for rows, width in ((3, 8191 + 6), (5, 1), (1, w)):
+        sel = rand_sel(rows, width)
+        sub = table[:, :width].contiguous()
+        err = affine_err(MT.tree_reduce(sub, sel), MT.tree_reduce_plain(sub, sel))
+        ms = timed(lambda: MT.tree_reduce(sub, sel), 3)
+        rep.also("plane_sums16", f"rows={rows}, W={width}", err=err, ms=ms,
+                 int_ops=rows * (width - 1) * ADD_MULS * MONT_MULS * WIDE)
+    del table, sub
+
+    # selectors: B = 8 and 1 columns of 2^16 scalars, random below 2^253,
+    # with 0, 1, r - 1 and 2^253 at even and odd places of the first and
+    # last column; at 2 bits (base 4) and 4 bits (base 16) a digit
+    n = 1 << 16
+    special = M.scalars_to_words([0, 1, FR.p - 1, 1 << 253, FR.p - 1, 0, 1 << 253], dev)
+    words = torch.randint(-2**31, 2**31, (8, n, 8), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    words[..., 7] &= 0x1FFFFFFF
+    words[0, : special.shape[0]] = special
+    words[-1, -special.shape[0]:] = special
+    for batch in (8, 1):
+        x = words[:batch].contiguous()
+        for bits in (2, 4):
+            planes = M.sel_planes(bits)
+            got = M.pair_sel(x, bits)
+            t0 = time.time()
+            want = M.pair_sel_plain(x, bits)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            err = max_err(got, want)
+            ms = timed(lambda: M.pair_sel(x, bits), 20)
+            nbytes = batch * n * 32 + batch * planes * n // 2
+            what = f"B={batch}, n=2^16, {bits}-bit digits ({planes} planes)"
+            if (batch, bits) == (8, 2):
+                rep.add("pair_sel", err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes, int_ops=0,
+                        note=f" ({what}: the base-4 path's largest batch; 0, 1, r - 1, 2^253 "
+                             f"among the scalars)")
+            else:
+                rep.also("pair_sel", what, err=err, ms=ms, nbytes=nbytes, int_ops=0,
+                         note=f" (plain {plain_ms:.4f} ms)")
 
 
 def phase1_fused(rep: Report, dev, rand_field, carry_heavy):
@@ -625,6 +730,19 @@ def golden_k7(dev):
           flush=True)
 
 
+def check_vk(vk, want, what: str) -> None:
+    """vk's commitments and transcript_repr against the committed vk."""
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED
+
+    for name in ALL_FIXED:
+        if vk.fixed_commitments[name] != want.fixed_commitments[name]:
+            raise AssertionError(f"{what}: fixed commitment {name} differs from the committed vk")
+    if vk.sigma_commitments != want.sigma_commitments:
+        raise AssertionError(f"{what}: sigma commitments differ from the committed vk")
+    if vk.transcript_repr != want.transcript_repr:
+        raise AssertionError(f"{what}: transcript_repr differs from the committed vk")
+
+
 def spans(prefix=""):
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
@@ -635,16 +753,18 @@ KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
     "field_binary_kernel": "field (K-a)", "ntt_fused_kernel": "ntt_fused (K-b)",
     "scan_kernel": "field_scan", "quotient_kernel": "quotient_h (K6)",
     "fracs_kernel": "gp_fracs (K5)",
-    "plane_sums_kernel": "plane_sums (K-c)", "g1_add_kernel": "g1_complete_add (K-d)",
+    "plane_sums_kernel": "plane_sums (K-c)", "plane_sums16_kernel": "plane_sums16",
+    "pair_sel_kernel": "pair_sel", "g1_add_kernel": "g1_complete_add (K-d)",
     "fixed_base_kernel": "g1_fixed_base_mul",
 }
 
 
-def profile_proof(srs, pk, builder, proof, dev, phase: str):
+def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4") -> dict:
     """One more proof under torch.profiler: device kernel time by kernel (the
     port's own, and PyTorch's copies and elementwise ops, the largest of
     those by name) against the proof's wall time, so the device's idle share
-    shows."""
+    shows.  Returns {kernel: [ms, launches]}, empty if the profiler saw no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -653,7 +773,7 @@ def profile_proof(srs, pk, builder, proof, dev, phase: str):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        again = create_proof(srs, pk, builder, np.random.default_rng(0), device=dev)
+        again = create_proof(srs, pk, builder, np.random.default_rng(0), device=dev, msm=msm)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     if again != proof:
@@ -678,7 +798,7 @@ def profile_proof(srs, pk, builder, proof, dev, phase: str):
     if busy == 0:
         print(f"{phase} profile: proof wall {wall_ms:.3f} ms; the profiler saw no device "
               f"time, idle share not measured", flush=True)
-        return
+        return {}
     detail = {k: {"ms": round(v[0], 4), "kernels": v[1]} for k, v in sorted(groups.items())}
     top = sorted(torch_own.items(), key=lambda kv: -kv[1][0])[:6]
     print(f"{phase} profile: proof wall {wall_ms:.3f} ms under the profiler, device kernels "
@@ -686,6 +806,7 @@ def profile_proof(srs, pk, builder, proof, dev, phase: str):
           f"largest of PyTorch's own: "
           f"{json.dumps({k: {'ms': round(v[0], 4), 'kernels': v[1]} for k, v in top})}",
           flush=True)
+    return groups
 
 
 def planned_elementwise(k: int) -> int:
@@ -698,13 +819,22 @@ def planned_elementwise(k: int) -> int:
     return 22 + 3 * k + 11
 
 
-def check_proof_launches(proof_launches: dict, k: int) -> None:
+def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4") -> None:
     """One proof at k: four transforms of length 2^k, the coset transform
     and the quotient's inverse at 2^(k+3), each a launch a pass; 15 scans and
     ladders of powers, each one call; one launch of K5 and of K6, no
     subtraction, and the elementwise launches that are left (235 before K5
-    and K6, 910 before the scans)."""
+    and K6, 910 before the scans); one selector launch a commitment batch,
+    and the plane sums of the proof's base only."""
     from delay_enc_tpu_torch.ops import ntt as N
+
+    tree, other = ("plane_sums16", "plane_sums") if msm == "b16" else ("plane_sums", "plane_sums16")
+    if proof_launches["pair_sel"] != COMMIT_BATCHES:
+        raise AssertionError(f"a proof launched pair_sel {proof_launches['pair_sel']} times, "
+                             f"planned {COMMIT_BATCHES}")
+    if proof_launches[tree] == 0 or proof_launches[other] != 0:
+        raise AssertionError(f"a {msm} proof launched {tree} {proof_launches[tree]} and {other} "
+                             f"{proof_launches[other]} times")
 
     want_ntt = 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3))
     elementwise = proof_launches["field_mont_mul"] + proof_launches["field_add"]
@@ -817,13 +947,7 @@ def main() -> int:
     want = load_vk(os.path.join(DATA, VK_FILE))
     if k11 != want.domain.k:
         raise AssertionError(f"pose_enc k={k11}, committed vk k={want.domain.k}")
-    for name in ALL_FIXED:
-        if vk11.fixed_commitments[name] != want.fixed_commitments[name]:
-            raise AssertionError(f"fixed commitment {name} differs from the committed vk")
-    if vk11.sigma_commitments != want.sigma_commitments:
-        raise AssertionError("sigma commitments differ from the committed vk")
-    if vk11.transcript_repr != want.transcript_repr:
-        raise AssertionError("transcript_repr differs from the committed vk")
+    check_vk(vk11, want, "keygen")
     with open(os.path.join(DATA, "proof_pose_enc_k11.bin"), "rb") as f:
         jax_proof = f.read()
     if not verify_proof(SRS.load_host_meta(os.path.join(DATA, "srs_bn254_k11.npz")), want,
@@ -852,7 +976,26 @@ def main() -> int:
     print(f"phase 3 pose_enc k={k11}: rows={b11.rows} keygen {t_key:.3f} s, prove "
           f"{t_prove[0]:.3f} s then {t_prove[1]:.3f} s (identical bytes), verify {t_ver:.3f} s, "
           f"proof {len(proofs[0])} B; spans {json.dumps(spans())}", flush=True)
-    del pk11, srs11
+    # the base-16 MSM: an MSM has one answer, so the vk and the proof bytes
+    # are the base-4 ones
+    t0 = time.time()
+    tab11 = srs11.pair_tables16()
+    torch.cuda.synchronize()
+    t_tab = time.time() - t0
+    t0 = time.time()
+    pk11, vk11 = keygen(b11, srs11, k=k11, device=dev, msm="b16")
+    t_key = time.time() - t0
+    check_vk(vk11, want, "keygen with msm='b16'")
+    t0 = time.time()
+    proof_b16 = create_proof(srs11, pk11, b11, np.random.default_rng(0), device=dev, msm="b16")
+    torch.cuda.synchronize()
+    t_b16 = time.time() - t0
+    if proof_b16 != proofs[0]:
+        raise AssertionError("the pose_enc proof with msm='b16' differs from the base-4 proof")
+    print(f"phase 3 pose_enc k={k11} msm='b16': table {t_tab:.3f} s, {tab11.numel() * 4} bytes; "
+          f"keygen {t_key:.3f} s reproduces the committed vk; prove {t_b16:.3f} s, the base-4 "
+          f"proof's bytes", flush=True)
+    del pk11, srs11, tab11
 
     # ---- 4. delay_enc k=16, the main path -----------------------------
     torch.cuda.empty_cache()
@@ -896,14 +1039,50 @@ def main() -> int:
     check_proof_launches(proof_launches, k16)
 
     profile_proof(srs16, pk16, b16, proof16, dev, "phase 4")
-    del pk16, srs16, b16
+
+    # ---- 4, base 16: the same SRS and keys through the base-16 MSM ------
+    torch.cuda.reset_peak_memory_stats()
+    GLOBAL_METRICS.spans.clear()
+    _cuda.reset_launches()
+    t0 = time.time()
+    tab16 = srs16.pair_tables16()
+    torch.cuda.synchronize()
+    t_tab = time.time() - t0
+    table_launches = _cuda.launch_counts()
+    t0 = time.time()
+    proof_b16 = create_proof(srs16, pk16, b16, np.random.default_rng(0), device=dev, msm="b16")
+    torch.cuda.synchronize()
+    t_b16 = time.time() - t0
+    b16_launches = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    b16_spans = spans()
+    if proof_b16 != proof16:
+        raise AssertionError("the delay_enc proof with msm='b16' differs from the base-4 proof")
+    t0 = time.time()
+    if create_proof(srs16, pk16, b16, np.random.default_rng(0), device=dev) != proof16:
+        raise AssertionError("a second base-4 delay_enc proof differs from the first")
+    torch.cuda.synchronize()
+    t_b4 = time.time() - t0
+    print(f"phase 4 delay_enc k={k16} msm='b16': table {t_tab:.3f} s, "
+          f"{table_launches['g1_complete_add']} K-d launches, {tab16.numel() * 4} bytes; prove "
+          f"{t_b16:.3f} s (the base-4 proof's bytes) against base 4 {t_prove:.3f} s before it "
+          f"and {t_b4:.3f} s after it; peak device memory {peak / 2**30:.3f} GiB; spans "
+          f"{json.dumps(b16_spans)}; launches {json.dumps(b16_launches)}", flush=True)
+    if table_launches["g1_complete_add"] != 15 or sum(table_launches.values()) != 15:
+        raise AssertionError(f"the base-16 table launched {table_launches}")
+    check_proof_launches({name: b16_launches[name] - table_launches[name] for name in b16_launches},
+                         k16, msm="b16")
+    groups = profile_proof(srs16, pk16, b16, proof16, dev, "phase 4 msm='b16'", msm="b16")
+    if groups and ("plane_sums16" not in groups or "plane_sums (K-c)" in groups):
+        raise AssertionError(f"the profiled b16 proof ran {sorted(groups)}")
+    del pk16, srs16, b16, tab16
 
     # ---- 5. mod_pow k=17 ----------------------------------------------
     mod_pow_phase(dev, card)
 
     # ---- kernels --------------------------------------------------------
     for name, row in rep.rows.items():
-        row["launches"] = launches.get(name, 0)
+        row["launches"] = launches.get(name, 0) + b16_launches.get(name, 0)
     # K5 and K6 took the last subtractions of a proof (0 launches, asserted):
     # K-a's subtraction is checked in phase 1 but is no kernel of the path
     for name in OFF_PATH:

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "ntt_fused": ("ntt", [_P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _U, _U, _U, _U, _P]),
     "field_scan": ("scan", [_I, _I, _P, _P, _P, _U, _U, _U, _P]),
     "plane_sums": ("msm", [_P, _P, _P, _U, _U, _U, _U, _U, _I, _P]),
+    "plane_sums16": ("msm", [_P, _P, _P, _U, _U, _U, _U, _U, _I, _P]),
+    "pair_sel": ("msm", [_P, _P, _U, _U, _U, _P]),
     "g1_complete_add": ("msm", [_P, _P, _P, _U, _U, _P]),
     "g1_fixed_base_mul": ("msm", [_P, _P, _P, _U, _U, _P]),
     "quotient_h": ("quotient", [_P, _P, _P, _P, _P, _P, _Q, _P]),

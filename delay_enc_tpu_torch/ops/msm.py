@@ -39,6 +39,10 @@ P = FQ.p
 K_ADD = _cuda.kernel("g1_complete_add", "g1_complete_add",
                      "delay_enc_tpu/ops/msm.py:216 complete_add (_ll_complete_add :129)",
                      "delay_enc_tpu_torch/csrc/msm.cu")
+K_SEL = _cuda.kernel("pair_sel", "pair_sel",
+                     "delay_enc_tpu/ops/msm.py:393 _jit_pair_sel and ops/msm16.py:112 "
+                     "_jit_pair_sel16",
+                     "delay_enc_tpu_torch/csrc/msm.cu")
 K_FIXED = _cuda.kernel("g1_fixed_base_mul", "g1_fixed_base_mul",
                        "delay_enc_tpu/ops/msm.py:508 fixed_base_batch_mul (lax.scan of "
                        "complete_add over 254 bit planes)",
@@ -154,17 +158,48 @@ def scalars_to_words(scalars, device) -> torch.Tensor:
     return L.to_tensor(L.ints_to_words_np([int(s) for s in scalars]), device)
 
 
-def pair_sel(scalar_words: torch.Tensor) -> torch.Tensor:
-    """(…, n, 8) canonical words -> (…, 127, n/2) uint8 base-4 pair
-    selectors (digit_even + 4 * digit_odd per plane), in plain PyTorch."""
+def sel_planes(digit_bits: int) -> int:
+    """Digit planes of a 254-bit scalar in digits of `digit_bits` bits."""
+    if digit_bits not in (2, 4):
+        raise ValueError(f"digits of 2 or 4 bits, not {digit_bits}")
+    return -(-SCALAR_BITS // digit_bits)
+
+
+def pair_sel_plain(scalar_words: torch.Tensor, digit_bits: int = 2) -> torch.Tensor:
+    """(…, n, 8) canonical words -> (…, planes, n/2) uint8 pair selectors,
+    digit_even + 2^digit_bits * digit_odd per plane, in plain PyTorch.  Bits
+    past 253 are dropped, as the JAX package's zero padding drops them."""
+    planes = sel_planes(digit_bits)
     *lead, n, _ = scalar_words.shape
-    shifts = torch.arange(0, 32, 2, dtype=torch.int32, device=scalar_words.device)
-    # bits (2i, 2i+1) of each word; the arithmetic shift's sign copies land
-    # above bit 1 and are masked off
-    d = ((scalar_words[..., None] >> shifts) & 3).to(torch.uint8)  # (…, n, 8, 16)
-    d = d.reshape(*lead, n, 128)[..., :PLANES].transpose(-1, -2)  # (…, 127, n)
-    pairs = d.reshape(*lead, PLANES, n // 2, 2)
-    return pairs[..., 0] + 4 * pairs[..., 1]
+    shifts = torch.arange(0, 32, digit_bits, dtype=torch.int32, device=scalar_words.device)
+    # digit j of each word; the arithmetic shift's sign copies land above the
+    # digit and are masked off
+    d = ((scalar_words[..., None] >> shifts) & ((1 << digit_bits) - 1)).to(torch.uint8)
+    d = d.reshape(*lead, n, 8 * len(shifts))[..., :planes].transpose(-1, -2)  # (…, planes, n)
+    d[..., -1, :] &= (1 << (SCALAR_BITS - (planes - 1) * digit_bits)) - 1
+    pairs = d.reshape(*lead, planes, n // 2, 2)
+    return pairs[..., 0] + (1 << digit_bits) * pairs[..., 1]
+
+
+def pair_sel(scalar_words: torch.Tensor, digit_bits: int = 2) -> torch.Tensor:
+    """(…, n, 8) canonical words -> (…, planes, n/2) uint8 pair selectors of
+    `pair_sel_plain`: 127 base-4 planes for digit_bits 2, 64 base-16 planes
+    for 4.  One launch of the selector kernel on CUDA tensors."""
+    if scalar_words.device.type == "cpu":
+        return pair_sel_plain(scalar_words, digit_bits)
+    _cuda.require_cuda(scalar_words)
+    planes = sel_planes(digit_bits)
+    if scalar_words.dtype != torch.int32 or scalar_words.dim() < 2 \
+            or scalar_words.shape[-1] != L.NW or scalar_words.shape[-2] % 2:
+        raise ValueError(f"scalars must be int32 (…, n, 8) with n even, got "
+                         f"{scalar_words.dtype} {tuple(scalar_words.shape)}")
+    *lead, n, _ = scalar_words.shape
+    words = scalar_words.contiguous()
+    batch = words.numel() // (n * L.NW) if n else 0
+    out = torch.empty((*lead, planes, n // 2), dtype=torch.uint8, device=words.device)
+    if batch and n:
+        K_SEL(_cuda.ptr(words), _cuda.ptr(out), batch, n // 2, digit_bits, _cuda.stream())
+    return out
 
 
 # ------------------------------------------------------------------- MSM
@@ -219,19 +254,21 @@ def plane_sums_batch(tables: torch.Tensor, scalar_words: torch.Tensor) -> torch.
     return sums.reshape(b, PLANES, 3, L.NW)
 
 
-def horner_host(plane_pts_affine) -> "tuple | None":
-    """LSB-first list of 127 base-4 plane sums (affine or None) -> the
-    affine MSM result sum_p 4^p S_p."""
+def horner_host(plane_pts_affine, base_bits: int = 2) -> "tuple | None":
+    """LSB-first list of plane sums (affine or None) -> the affine MSM result
+    sum_p 2^(base_bits p) S_p."""
     acc = None
     for pt in reversed(plane_pts_affine):
-        acc = _jac_double(_jac_double(acc))
+        for _ in range(base_bits):
+            acc = _jac_double(acc)
         acc = _jac_add_affine(acc, pt)
     return _jac_to_affine(acc)
 
 
 def fold_planes_host(sums: torch.Tensor, base_bits: int = 2) -> list:
-    """(B, P, 3, 8) plane sums -> B affine MSM results, by the copied C fold
-    (`native/ec.py:fold_planes_batch`, which reads 16-bit limbs)."""
+    """(B, P, 3, 8) plane sums of base 2^base_bits -> B affine MSM results,
+    by the copied C fold (`native/ec.py:fold_planes_batch`, which reads
+    16-bit limbs), or by `horner_host` where the C library is missing."""
     from ..native.ec import fold_planes_batch
 
     words = L.to_numpy(sums)
@@ -240,9 +277,8 @@ def fold_planes_host(sums: torch.Tensor, base_bits: int = 2) -> list:
     if res is not None:
         return res
     affine = points_from_device(words)
-    if base_bits != 2:
-        raise ValueError("the Python fold takes base-4 planes")
-    return [horner_host(affine[i * n_planes : (i + 1) * n_planes]) for i in range(b)]
+    return [horner_host(affine[i * n_planes : (i + 1) * n_planes], base_bits)
+            for i in range(b)]
 
 
 def msm_with_tables(tables: torch.Tensor, scalar_words: torch.Tensor) -> list:

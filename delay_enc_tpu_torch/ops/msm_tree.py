@@ -1,20 +1,23 @@
-"""MSM plane sums: kernel K-c and its plain version.
+"""MSM plane sums: kernels K-c and plane_sums16, and their plain version.
 
-Counterpart of `delay_enc_tpu/ops/msm_pallas.py`, renamed because it holds
-no Pallas.  It replaces the repo's one Pallas kernel, `msm_pallas._stage`
-(the `pl.pallas_call` of complete-add tree levels over (C, 48, W) blocks)
-driven by `msm_pallas.tree_reduce`, and the same add tree in
-`ops/msm.py:_jit_plane_sums`.
+K-c is the counterpart of `delay_enc_tpu/ops/msm.py:_jit_plane_sums`
+(:328), the base-4 select and its XLA add tree.  `plane_sums16` is the
+counterpart of `delay_enc_tpu/ops/msm_pallas.py` (renamed here because it
+holds no Pallas): the repo's one Pallas kernel, `msm_pallas._stage` (the
+`pl.pallas_call` of complete-add tree levels over (C, 48, W) blocks) driven
+by `msm_pallas.tree_reduce`, whose only caller is the base-16 MSM
+`ops/msm16.py:_jit_plane_sums16`, with the one-hot MXU select before it.
 
 `tree_reduce(x)` sums each row of x (C, W, 3, 8) of projective Fq points
 with complete additions, giving (C, 3, 8).  With `sel` (C, W) uint8, x is
-the (16, W, 3, 8) base-4 pair table and lane i of row c is
-x[sel[c, i], i]: the select is fused into the load.  On CUDA tensors it
-launches kernel K-c (`csrc/msm.cu`) once for each pass that `plan` lays
-out: as a rule a pass of serial runs, one partial sum a thread, then a
-pass that folds each row's partials.  On CPU tensors it runs
-`tree_reduce_plain`.  The order of additions differs between the two, so
-compare the results as affine points.
+a pair table, the (16, W, 3, 8) base-4 one or the (256, W, 3, 8) base-16
+one, and lane i of row c is x[sel[c, i], i]: the select is fused into the
+load.  On CUDA tensors it launches K-c (16 options, and rows of points) or
+`plane_sums16` (256 options) once for each pass that `plan` lays out: as a
+rule a pass of serial runs, one partial sum a thread, then a pass that
+folds each row's partials.  On CPU tensors it runs `tree_reduce_plain`.
+The order of additions differs between the two, so compare the results as
+affine points.
 """
 
 from __future__ import annotations
@@ -28,8 +31,14 @@ from . import limbs as L
 
 K_TREE = _cuda.kernel(
     "plane_sums", "plane_sums",
-    "delay_enc_tpu/ops/msm_pallas.py:79 _stage (pallas_call :85), tree_reduce :99",
+    "delay_enc_tpu/ops/msm.py:328 _jit_plane_sums (base-4 select and XLA add tree)",
     "delay_enc_tpu_torch/csrc/msm.cu")
+K_TREE16 = _cuda.kernel(
+    "plane_sums16", "plane_sums16",
+    "delay_enc_tpu/ops/msm_pallas.py:79 _stage (pallas_call :85), tree_reduce :99, and the "
+    "one-hot select of ops/msm16.py:164 _jit_plane_sums16 (:170-187)",
+    "delay_enc_tpu_torch/csrc/msm.cu")
+OPTIONS = {16: K_TREE, 256: K_TREE16}  # pair-table options -> kernel
 
 SMS = 132  # streaming multiprocessors of the H100 the plan is laid out for
 SM_THREADS = 384  # resident threads an SM: MSM_MIN_BLOCKS x SUM_THREADS of csrc/msm.cu
@@ -99,7 +108,7 @@ def plan(rows: int, width: int) -> tuple:
 
 
 def select_plain(table: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """(16, W, 3, 8) table, (C, W) selectors -> (C, W, 3, 8) points."""
+    """(16 or 256, W, 3, 8) table, (C, W) selectors -> (C, W, 3, 8) points."""
     lanes = torch.arange(table.shape[1], device=table.device)
     return table[sel.long(), lanes]
 
@@ -123,8 +132,8 @@ def tree_reduce_plain(x: torch.Tensor, sel: torch.Tensor | None = None) -> torch
 
 
 def tree_reduce(x: torch.Tensor, sel: torch.Tensor | None = None) -> torch.Tensor:
-    """(C, W, 3, 8) points, or the (16, W, 3, 8) table with (C, W) uint8
-    selectors -> (C, 3, 8) complete-add sums of each row."""
+    """(C, W, 3, 8) points, or a (16 or 256, W, 3, 8) pair table with (C, W)
+    uint8 selectors -> (C, 3, 8) complete-add sums of each row."""
     if x.device.type == "cpu":
         return tree_reduce_plain(x, sel)
     _cuda.require_cuda(x, sel)
@@ -135,10 +144,12 @@ def tree_reduce(x: torch.Tensor, sel: torch.Tensor | None = None) -> torch.Tenso
     if sel is None:
         rows = x.shape[0]
         sel_ptr = None
+        kern = K_TREE
     else:
-        if x.shape[0] != 16 or sel.dtype != torch.uint8 or sel.dim() != 2 \
+        if x.shape[0] not in OPTIONS or sel.dtype != torch.uint8 or sel.dim() != 2 \
                 or sel.shape[1] != w or sel.device != x.device:
-            raise ValueError("selector mode takes a (16, W, 3, 8) table and (C, W) uint8")
+            raise ValueError("selector mode takes a (16 or 256, W, 3, 8) table and (C, W) uint8")
+        kern = OPTIONS[x.shape[0]]
         sel = sel.contiguous()
         rows = sel.shape[0]
         sel_ptr = _cuda.ptr(sel)
@@ -150,7 +161,7 @@ def tree_reduce(x: torch.Tensor, sel: torch.Tensor | None = None) -> torch.Tenso
         return identity_proj(x.device).expand(rows, 3, L.NW).contiguous()
     for p in plan(rows, w):
         out = torch.empty((rows, p.out_width, 3, L.NW), dtype=torch.int32, device=x.device)
-        K_TREE(_cuda.ptr(x), sel_ptr, _cuda.ptr(out), rows, p.width, p.run, p.threads,
-               p.chunks, int(p.fold), _cuda.stream())
+        kern(_cuda.ptr(x), sel_ptr, _cuda.ptr(out), rows, p.width, p.run, p.threads,
+             p.chunks, int(p.fold), _cuda.stream())
         x, sel_ptr = out, None
     return x[:, 0]

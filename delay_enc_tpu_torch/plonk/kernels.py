@@ -10,7 +10,8 @@ are the functions below them.  Field arithmetic goes through `ops.limbs`
 (kernel K-a on a card), transforms through `ops.ntt.stockham` (kernel K-b,
 with the coset scaling, the zero padding, 1/n or zeta^-i / n_ext fused into
 its first and last pass), scans and powers through `ops.poly` (kernel
-`field_scan`), commitments through `ops.msm` (kernels K-c and K-d).
+`field_scan`), commitments through `ops.msm` (kernels `pair_sel`, K-c and
+K-d) or `ops.msm16` (`pair_sel`, `plane_sums16` and K-d).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ..fields.bn254 import FR
 from ..ops import _cuda
 from ..ops import limbs as L
 from ..ops import msm as M
+from ..ops import msm16 as M16
 from ..ops import poly as P
 from ..ops.ntt import NTTPlan, stockham
 from .domain import MAX_DEGREE
@@ -86,9 +88,17 @@ def _canon_batch(a: torch.Tensor) -> torch.Tensor:
     return L.mont_to_canonical(CTX, a)
 
 
-def msm_commit_batch(tables: torch.Tensor, canon_stack: torch.Tensor) -> list:
+def msm_commit_batch(tables, canon_stack: torch.Tensor) -> list:
     """(B, n, 8) canonical coefficient stack -> B host affine commitments,
-    through the shared per-SRS base-4 pair tables."""
+    through the shared per-SRS tables: a bare base-4 pair table, or a
+    ("b4" | "b16", table) pair from `SRS.msm_tables`."""
+    kind = "b4"
+    if isinstance(tables, tuple):
+        kind, tables = tables
+    if kind == "b16":
+        return M16.msm16_with_tables(tables, canon_stack)
+    if kind != "b4":
+        raise ValueError(f"unknown MSM {kind!r}: 'b4' or 'b16'")
     return M.msm_with_tables(tables, canon_stack)
 
 

@@ -166,12 +166,14 @@ def min_k(builder: Builder) -> int:
 
 
 def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = None,
-           device="cuda"):
+           device="cuda", msm: str = "b4"):
     """Compile the circuit structure; returns (pk, vk).
 
     Only the builder's structure is used (fixed columns, copies, lookup
     widths), never its witness.  The port has the fused 8n quotient path
-    only: k >= SPLIT_QUOTIENT_K or split=True raise."""
+    only: k >= SPLIT_QUOTIENT_K or split=True raise.  `msm` picks the
+    commitments' pair tables, "b4" or "b16" (`SRS.msm_tables`); both give
+    the same vk."""
     from .kernels import _canon_batch, _coeff, _ext, msm_commit_batch
 
     device = resolve(device)
@@ -255,7 +257,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
 
     # ---- commitments (one batched MSM over the shared pair tables) ----
     with GLOBAL_METRICS.span("keygen/commit", device):
-        all_comms = msm_commit_batch(srs.pair_tables(), _canon_batch(coeff_stack[:nm]))
+        all_comms = msm_commit_batch(srs.msm_tables(msm), _canon_batch(coeff_stack[:nm]))
     fixed_comms = dict(zip(ALL_FIXED, all_comms[:nf]))
     sigma_comms = list(all_comms[nf:])
 

@@ -1,9 +1,11 @@
 """KZG structured reference string and commitments.
 
-Counterpart of `delay_enc_tpu/plonk/kzg.py`, base-4 MSM tables only.  The
-SRS G1 powers are built on the device with the fixed-base batched scalar
-multiplication (`ops/msm.py:fixed_base_batch_mul`, one launch of the fused
-fixed-base kernel); `load` reads the JAX package's npz files.
+Counterpart of `delay_enc_tpu/plonk/kzg.py`.  The SRS G1 powers are built
+on the device with the fixed-base batched scalar multiplication
+(`ops/msm.py:fixed_base_batch_mul`, one launch of the fused fixed-base
+kernel); `load` reads the JAX package's npz files.  The commitments' pair
+tables, base 4 (`ops/msm.py`) or base 16 (`ops/msm16.py`), are built once
+per SRS on first use and kept in memory; they are not cached on disk.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from ..curves.bn254 import G2, G1_GEN, G2_GEN
 from ..fields.bn254 import FR, Fq2
 from ..ops import limbs as L
 from ..ops import msm as M
+from ..ops import msm16 as M16
 from ..utils.device import resolve, synchronize
 
 
@@ -27,7 +30,8 @@ class SRS:
         self.g1_powers = g1_powers  # (n, 3, 8) projective Montgomery, or None
         self.tau_g2 = tau_g2  # [tau] G2 (host)
         self.g2 = g2  # G2 generator
-        # base-4 pair tables keyed by truncation k, shared across views
+        # pair tables keyed by truncation k (base 4) or ("b16", k), shared
+        # across views
         self._pair_tables: dict = {}
         self._prepared: dict = {}  # verifier G2Prepared lines (lazy)
 
@@ -49,6 +53,24 @@ class SRS:
         if self.k not in self._pair_tables:
             self._pair_tables[self.k] = M.pair_tables(self.g1_powers)
         return self._pair_tables[self.k]
+
+    def pair_tables16(self) -> torch.Tensor:
+        """(256, n/2, 3, 8) base-16 pair tables of these points: 16x the
+        base-4 table's memory (805 MB at k=16), half its additions a
+        commitment.  Built once and reused by every commitment."""
+        key = ("b16", self.k)
+        if key not in self._pair_tables:
+            self._pair_tables[key] = M16.pair_tables16(self.g1_powers)
+        return self._pair_tables[key]
+
+    def msm_tables(self, msm: str = "b4") -> tuple:
+        """("b4" | "b16", tables) for the commitment MSMs; the caller names
+        the base (the JAX package reads DELAY_ENC_MSM)."""
+        if msm == "b4":
+            return "b4", self.pair_tables()
+        if msm == "b16":
+            return "b16", self.pair_tables16()
+        raise ValueError(f"unknown MSM {msm!r}: 'b4' or 'b16'")
 
     @staticmethod
     def setup(k: int, tau: int | None = None, device="cuda") -> "SRS":

@@ -163,7 +163,10 @@ def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire):
     return ap, sp
 
 
-def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda") -> bytes:
+def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
+                 msm: str = "b4") -> bytes:
+    """A proof for the builder's witness.  `msm` picks the commitments' pair
+    tables, "b4" or "b16" (`SRS.msm_tables`); both give the same bytes."""
     device = resolve(device)
     if pk.device != device or srs.device != device:
         raise ValueError(f"keys on {pk.device} and SRS on {srs.device}, proof asked for {device}")
@@ -198,7 +201,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda")
     for v in builder.instance:
         tr.common_scalar(v)
 
-    pair_tables = srs.pair_tables()
+    pair_tables = srs.msm_tables(msm)
 
     def commit_many(coeffs):
         stack = coeffs if isinstance(coeffs, torch.Tensor) else torch.stack(coeffs)

@@ -90,6 +90,18 @@ def port():
     return srs, pk, vk, b, proof
 
 
+@pytest.fixture(scope="module")
+def port_b16(port):
+    """keygen and create_proof on the same SRS and circuit through the
+    base-16 MSM."""
+    from delay_enc_tpu_torch.plonk import create_proof, keygen
+
+    srs, _, _, b, _ = port
+    pk, vk = keygen(b, srs, device="cpu", msm="b16")
+    proof = create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu", msm="b16")
+    return vk, proof
+
+
 def test_srs_points_match_golden(port, golden):
     from delay_enc_tpu_torch.curves.bn254 import g1_to_bytes
     from delay_enc_tpu_torch.ops import msm as TM
@@ -111,6 +123,28 @@ def test_vk_matches_golden(port, golden):
 
 def test_proof_bytes_match_golden(port, golden):
     assert np.array_equal(np.frombuffer(port[4], np.uint8), golden["proof"])
+
+
+def test_b16_vk_and_proof_bytes_match_golden(port_b16, golden):
+    """An MSM has one answer: the base-16 commitments give the same vk and,
+    through the transcript, the same proof bytes as the JAX package's."""
+    from delay_enc_tpu_torch.curves.bn254 import g1_to_bytes
+
+    vk, proof = port_b16
+    rec = _record(g1_to_bytes, [], vk, proof)
+    for key in ("fixed", "sigma", "proof"):
+        assert np.array_equal(rec[key], golden[key]), key
+    assert str(vk.transcript_repr) == str(golden["transcript_repr"])
+
+
+def test_unknown_msm_raises(port):
+    from delay_enc_tpu_torch.plonk import create_proof, keygen
+
+    srs, pk, _, b, _ = port
+    with pytest.raises(ValueError, match="unknown MSM"):
+        keygen(b, srs, device="cpu", msm="b5")
+    with pytest.raises(ValueError, match="unknown MSM"):
+        create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu", msm="b5")
 
 
 def test_both_verifiers_accept_port_proof(port):

@@ -3,11 +3,14 @@ against their plain versions and time them alone at the proof's shapes, with
 one large field product, addition and transform beside them, on one card.
 
     python3 tools/torch_msm_bench.py [--define MSM_MIN_BLOCKS=4 ...] [--rows 127,1016]
+        [--rows16 64,512]
 
 It prints the card's name and power limit, the registers and spills ptxas
 reports for csrc/msm.cu, and one JSON line for each measurement.  The
 defines that the sources know: MSM_MIN_BLOCKS=n (csrc/msm.cu) and
 FLD_PORTABLE (csrc/field.cuh: the portable Montgomery bodies on the device).
+K-c is timed over the base-4 table (--rows), then plane_sums16 over the
+base-16 one (--rows16).
 Run it once for each set of defines, all on one card one after another, to
 compare variants of the kernels; times from two cards do not compare.
 """
@@ -27,6 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from delay_enc_tpu_torch.ops import _cuda  # noqa: E402
 from delay_enc_tpu_torch.ops import msm as M  # noqa: E402
+from delay_enc_tpu_torch.ops import msm16 as M16  # noqa: E402
 from delay_enc_tpu_torch.ops import msm_tree as MT  # noqa: E402
 
 PLANES = 127
@@ -52,6 +56,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--rows", default="16,127,381,635,1016")
+    ap.add_argument("--rows16", default="16,64,320,512")
     ap.add_argument("--width", type=int, default=1 << 15)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -123,30 +128,33 @@ def main() -> int:
                           "bound_ms": n * ADD_OPS / rate * 1e3}), flush=True)
     del a, b
     rng = np.random.default_rng(5)
-    for rows in [int(r) for r in args.rows.split(",")]:
-        sel = torch.randint(0, 16, (rows, w), generator=gen, device=dev,
-                            dtype=torch.int64).to(torch.uint8)
-        got = MT.tree_reduce(pair, sel)
-        pick = sorted({0, rows - 1, *rng.integers(0, rows, 6).tolist()})
-        want = MT.tree_reduce_plain(pair, sel[pick])
-        ok = affine(got[pick]) == affine(want)
-        ms = timed(lambda: MT.tree_reduce(pair, sel), args.reps)
-        plan = [(p.run, p.threads, p.chunks, p.fold) for p in MT.plan(rows, w)]
-        print(json.dumps({"kernel": "plane_sums", "rows": rows, "width": w, "plan": plan,
-                          "agrees": ok, "rows_compared": len(pick), "ms": ms,
-                          "bound_ms": rows * (w - 1) * ADD_OPS / rate * 1e3}), flush=True)
-        if not ok:
-            return 1
-    # a ragged width, one lane and one row
-    for rows, width in ((3, 1000 + 13), (5, 1), (1, 4097)):
-        sel = torch.randint(0, 16, (rows, width), generator=gen, device=dev,
-                            dtype=torch.int64).to(torch.uint8)
-        sub = pair[:, :width].contiguous()
-        ok = affine(MT.tree_reduce(sub, sel)) == affine(MT.tree_reduce_plain(sub, sel))
-        print(json.dumps({"kernel": "plane_sums", "rows": rows, "width": width,
-                          "agrees": ok}), flush=True)
-        if not ok:
-            return 1
+    table16 = M16.pair_tables16(pts)
+    for table, opts, name, rows_arg in ((pair, 16, "plane_sums", args.rows),
+                                        (table16, 256, "plane_sums16", args.rows16)):
+        for rows in [int(r) for r in rows_arg.split(",")]:
+            sel = torch.randint(0, opts, (rows, w), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.uint8)
+            got = MT.tree_reduce(table, sel)
+            pick = sorted({0, rows - 1, *rng.integers(0, rows, 6).tolist()})
+            want = MT.tree_reduce_plain(table, sel[pick])
+            ok = affine(got[pick]) == affine(want)
+            ms = timed(lambda: MT.tree_reduce(table, sel), args.reps)
+            plan = [(p.run, p.threads, p.chunks, p.fold) for p in MT.plan(rows, w)]
+            print(json.dumps({"kernel": name, "rows": rows, "width": w, "plan": plan,
+                              "agrees": ok, "rows_compared": len(pick), "ms": ms,
+                              "bound_ms": rows * (w - 1) * ADD_OPS / rate * 1e3}), flush=True)
+            if not ok:
+                return 1
+        # a ragged width, one lane and one row
+        for rows, width in ((3, 1000 + 13), (5, 1), (1, 4097)):
+            sel = torch.randint(0, opts, (rows, width), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.uint8)
+            sub = table[:, :width].contiguous()
+            ok = affine(MT.tree_reduce(sub, sel)) == affine(MT.tree_reduce_plain(sub, sel))
+            print(json.dumps({"kernel": name, "rows": rows, "width": width,
+                              "agrees": ok}), flush=True)
+            if not ok:
+                return 1
     return 0
 
 
