@@ -10,7 +10,11 @@ Phases, one line each (stderr carries detail):
     (points as affine), at the main path's shapes and on carry-heavy
     operands, with both times; the multi-stage NTT also at small and odd k,
     at batch 1 and with its fused input and output sides; the scan kernel in
-    every form, at ragged lengths, with a zero inside and as powers; the
+    every form, at ragged lengths, in one row of 2^20, with a zero inside and
+    as powers, every form of more than one tile 50 times over (the look-back
+    is a race between blocks); K7's two contractions at the delay_enc
+    openings' stacks (47, 6 and 4 rows of 2^16), 50 times over, and at ragged
+    lengths against the plain version on the CPU; the
     plane sums of both bases (K-c over the base-4 table, plane_sums16 over
     the base-16 one, every selector value among the rows) also alone at the
     proof's own shapes, at a ragged width, at one lane and at one row; the
@@ -20,9 +24,10 @@ Phases, one line each (stderr carries detail):
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
     pose_enc that must reproduce the committed vk, the committed proof;
  3. pose_enc at k=11: keygen, two proofs from default_rng(0) that must be
-    byte-identical, verify; then the base-16 MSM: its table, a keygen that
-    must reproduce the committed vk and a proof that must equal the base-4
-    one;
+    byte-identical and equal the JAX package's proof for the same SRS,
+    circuit and seed (tests/data/torch_port_k11.npz), verify; then the
+    base-16 MSM: its table, a keygen that must reproduce the committed vk and
+    a proof that must equal the base-4 one;
  4. delay_enc at k=16, the headline: SRS setup, keygen, create_proof,
     verify, with every kernel's launch count from this phase and from the
     proof alone, which must stay within the counts the redesigns reached;
@@ -58,10 +63,12 @@ INT_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 WIDE = 2  # a 32x32->64 product counted as two integer multiply-adds
 MONT_MULS = 128  # wide products in one 8-word CIOS Montgomery product
 ADD_MULS = 12  # Montgomery products in one complete addition
-OFF_PATH = ("field_sub",)  # kernels checked in phase 1 that a proof no longer launches
+OFF_PATH = ("field_sub", "field_add")  # checked in phase 1, launched by no proof
 FRACS_MULS = 40  # Montgomery products a row of K5 (csrc/fracs_row.cuh)
 QUOTIENT_MULS = 116  # Montgomery products a row of K6 (csrc/quotient_row.cuh)
 COMMIT_BATCHES = 6  # commitment batches a proof: 5, 8, 5, 1, 7 and 3 columns
+SCAN_REPEATS = 50  # runs of each multi-tile scan and of K7 in phase 1, every result compared
+OPEN_ROWS = (47, 6, 4)  # rows a delay_enc proof opens at x, omega x and omega^-1 x
 
 
 def log(*a):
@@ -83,6 +90,27 @@ def timed(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, symbol: str):
+    """The device time a call of the kernels whose names hold `symbol`, from
+    torch.profiler over reps calls; None where the profiler saw none.  For
+    small launches `timed` measures the wrapper's host path as well."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if symbol in e.key)
+    return us / 1e3 / reps if us else None
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -108,7 +136,7 @@ class Report:
         self.int_rate = int_rate  # integer multiply-adds per second
         self.rows = {}
 
-    def add(self, name, *, err, ms, plain_ms, nbytes, int_ops, note=""):
+    def add(self, name, *, err, ms, plain_ms, nbytes, int_ops, note="", device_ms=None):
         from delay_enc_tpu_torch.ops import _cuda
 
         k = _cuda.KERNELS[name]
@@ -121,6 +149,9 @@ class Report:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
         }
+        if device_ms is not None:
+            self.rows[name]["device_ms"] = device_ms
+            note = f" (device time {device_ms:.4f} ms a call, torch.profiler){note}"
         print(f"phase 1 {name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {self.rows[name]['bound_ms']:.4f} ms ({self.rows[name]['bound_by']}){note}",
               flush=True)
@@ -297,40 +328,62 @@ def phase1(rep: Report, dev):
     want = P.scan_plain(L.FR_CTX, x5, "mul", "block")
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
-    ms = timed(lambda: P.scan(L.FR_CTX, x5, "mul", "block"), 20)
-    rep.add("field_scan", err=max_err(got, want), ms=ms, plain_ms=plain_ms,
+    fn = lambda: P.scan(L.FR_CTX, x5, "mul", "block")
+    rep.add("field_scan", err=max_err(got, want), ms=timed(fn, 20), plain_ms=plain_ms,
             nbytes=2 * x5.numel() * 4, int_ops=5 * ((1 << 16) - 1) * MONT_MULS * WIDE,
-            note=" (inclusive forward product over (5, 2^16); bound by launch latency)")
+            device_ms=device_ms(fn, 20, "scan_kernel"),
+            note=f" (inclusive forward product over (5, 2^16), one launch, tiles of "
+                 f"{P.tile_for(5, 1 << 16)} threads x elements)")
     forms = [(op, ex, rv) for op in ("mul", "add") for ex in (False, True) for rv in (False, True)]
 
+    def repeats(rows, n):
+        """50 runs where a row is more than one tile: the look-back is a race."""
+        threads, items = P.tile_for(rows, n)
+        return SCAN_REPEATS if n > threads * items else 1
+
     def scan_err(x):
-        return max(max_err(P.scan(L.FR_CTX, x, op, "block", exclusive=ex, reverse=rv),
-                           P.scan_plain(L.FR_CTX, x, op, "hs", exclusive=ex, reverse=rv))
-                   for op, ex, rv in forms)
+        err = 0
+        for op, ex, rv in forms:
+            want = P.scan_plain(L.FR_CTX, x, op, "hs", exclusive=ex, reverse=rv)
+            for _ in range(repeats(x.shape[0], x.shape[1])):
+                err = max(err, max_err(P.scan(L.FR_CTX, x, op, "block", exclusive=ex, reverse=rv),
+                                       want))
+        return err
 
     ha, hb = carry_heavy(L.FR_CTX)
-    holed = x5[:3, :1000].clone()
+    holed = x5[:3, :5000].clone()  # five tiles a row, a zero in the first, a middle, the last
     holed[0, 500] = 0
     holed[1, 0] = 0
-    holed[2, 999] = 0
+    holed[1, 2100] = 0
+    holed[2, 4999] = 0
+    row20 = rand_field(L.FR_CTX, (1 << 20) - 3).reshape(1, 1 << 20, 8)
     for x, shape in ((x5, "(5, 2^16)"), (x5.reshape(1, -1, 8)[:, : (1 << 16) + 1], "(1, 2^16 + 1)"),
                      (x5[:3, :1], "(3, 1)"), (x5[:3, :2], "(3, 2)"), (x5[:3, :1000], "(3, 1000)"),
-                     (holed, "(3, 1000) with zeros inside"),
-                     (torch.stack([ha, hb]), f"(2, {ha.shape[0]}) carry-heavy operands")):
+                     (holed, "(3, 5000) with zeros inside"),
+                     (torch.stack([ha, hb]), f"(2, {ha.shape[0]}) carry-heavy operands"),
+                     (row20, "(1, 2^20)")):
         x = x.contiguous()
-        ms = timed(lambda: P.scan(L.FR_CTX, x, "mul", "block", exclusive=True, reverse=True), 10)
+        fn = lambda: P.scan(L.FR_CTX, x, "mul", "block", exclusive=True, reverse=True)
         n_ = x.shape[1]
+        runs = repeats(x.shape[0], n_)
         rep.also("field_scan", f"{shape}, 8 forms (mul and add, inclusive and exclusive, "
-                 f"forward and reverse)", err=scan_err(x), ms=ms, nbytes=2 * x.numel() * 4,
+                 f"forward and reverse)", err=scan_err(x), ms=timed(fn, 10), nbytes=2 * x.numel() * 4,
                  int_ops=x.shape[0] * (n_ - 1) * MONT_MULS * WIDE,
-                 note=" (time of the exclusive reverse product)")
-    for count in (1, 2, 1000, 1 << 16, (1 << 16) + 1):
+                 note=f" (time of the exclusive reverse product; device time "
+                      f"{ms_text(device_ms(fn, 10, 'scan_kernel'))}; tiles of "
+                      f"{P.tile_for(x.shape[0], n_)}; each form {runs} times, every result "
+                      f"compared)")
+    for count in (1, 2, 1000, 1 << 16, (1 << 16) + 1, 1 << 20):
         x = x5[1, 3].contiguous()
-        err = max_err(P.powers_of(L.FR_CTX, x, count), P.powers_of_plain(L.FR_CTX, x, count))
-        ms = timed(lambda: P.powers_of(L.FR_CTX, x, count), 10)
-        rep.also("field_scan", f"{count} powers of one element (constant input)", err=err, ms=ms,
-                 nbytes=32 * count, int_ops=max(0, count - 1) * MONT_MULS * WIDE)
-    del x5, holed
+        want = P.powers_of_plain(L.FR_CTX, x, count)
+        err = max(max_err(P.powers_of(L.FR_CTX, x, count), want)
+                  for _ in range(repeats(1, count)))
+        fn = lambda: P.powers_of(L.FR_CTX, x, count)
+        rep.also("field_scan", f"{count} powers of one element (constant input)", err=err,
+                 ms=timed(fn, 10), nbytes=32 * count,
+                 int_ops=max(0, count - 1) * MONT_MULS * WIDE,
+                 note=f" (device time {ms_text(device_ms(fn, 10, 'scan_kernel'))})")
+    del x5, holed, row20
 
     # K-d: 2^16 pairs with identities, doublings and P + (-P)
     g = M.base_table((1, 2), dev)[:128]  # 2^b * G
@@ -443,6 +496,7 @@ def phase1(rep: Report, dev):
     phase1_b16(rep, dev, gen, pts, affine_err)
     del pts
     phase1_fused(rep, dev, rand_field, carry_heavy)
+    phase1_open(rep, dev, rand_field, carry_heavy)
 
 
 def phase1_b16(rep: Report, dev, gen, pts, affine_err):
@@ -619,6 +673,60 @@ def phase1_fused(rep: Report, dev, rand_field, carry_heavy):
                  int_ops=n_small * QUOTIENT_MULS * MONT_MULS * WIDE)
 
 
+def phase1_open(rep: Report, dev, rand_field, carry_heavy):
+    """K7 at the delay_enc k=16 openings (47, 6 and 4 rows of 2^16, carry-
+    heavy words among them) against its plain version on the card, 50 times
+    over (the eval's last-block ticket is a race between blocks); at ragged
+    lengths, one and several eval blocks a row, against the plain version on
+    the CPU."""
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.plonk import kernels as K
+
+    heavy_a, heavy_b = carry_heavy(L.FR_CTX)
+    heavy = torch.cat([heavy_a, heavy_b])
+
+    def operands(counts, n):
+        w = rand_field(L.FR_CTX, (sum(counts) + len(counts)) * n + max(counts) - 3)
+        at = torch.randperm(w.shape[0], device=dev)[: heavy.shape[0]]
+        w[at] = heavy[: at.shape[0]]
+        rows = list(w[: sum(counts) * n].reshape(-1, n, 8))
+        stacks, first = [], 0
+        for m in counts:
+            stacks.append(rows[first : first + m])
+            first += m
+        pows = list(w[sum(counts) * n : (sum(counts) + len(counts)) * n].reshape(-1, n, 8))
+        return stacks, pows, w[-max(counts):].contiguous()
+
+    n = 1 << 16
+    rows = sum(OPEN_ROWS)
+    stacks, pows, v_pows = operands(OPEN_ROWS, n)
+    for kind, products, symbol in (("eval", rows, "open_eval_kernel"),
+                                   ("combine", rows + len(OPEN_ROWS), "open_combine_kernel")):
+        t0 = time.time()
+        want = K.open_stack_plain(kind, stacks, pows, v_pows)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        err = max(max_err(K.open_stack(kind, stacks, pows, v_pows), want)
+                  for _ in range(SCAN_REPEATS))
+        fn = lambda: K.open_stack(kind, stacks, pows, v_pows)
+        nbytes = (rows + len(OPEN_ROWS)) * n * 32 + want.numel() * 4
+        rep.add(f"open_{kind}", err=err, ms=timed(fn, 20), plain_ms=plain_ms, nbytes=nbytes,
+                int_ops=products * n * MONT_MULS * WIDE, device_ms=device_ms(fn, 20, symbol),
+                note=f" ({OPEN_ROWS} rows of 2^16 at three points, one launch, {SCAN_REPEATS} "
+                     f"runs compared; plain: products and add trees over K-a)")
+        del want
+    del stacks, pows
+    for counts, n in (((5, 2, 1), 1003), ((5, 2, 1), 3 * K.OPEN_EVAL_CHUNK + 5)):
+        stacks, pows, v_pows = operands(counts, n)
+        cpu = ([[r.cpu() for r in rs] for rs in stacks], [p.cpu() for p in pows], v_pows.cpu())
+        for kind in ("eval", "combine"):
+            fn = lambda: K.open_stack(kind, stacks, pows, v_pows)
+            err = max_err(fn().cpu(), K.open_stack(kind, *cpu))
+            products = sum(counts) + (len(counts) if kind == "combine" else 0)
+            rep.also(f"open_{kind}", f"{counts} rows of {n}, against the CPU plain version",
+                     err=err, ms=timed(fn, 10), int_ops=products * n * MONT_MULS * WIDE)
+
+
 def pose_enc_circuit(seed: int = 42):
     """bench.py build_circuit("pose_enc") with the utils/config.py defaults."""
     from delay_enc_tpu_torch.encryption import PoseidonCipher
@@ -753,6 +861,7 @@ KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
     "field_binary_kernel": "field (K-a)", "ntt_fused_kernel": "ntt_fused (K-b)",
     "scan_kernel": "field_scan", "quotient_kernel": "quotient_h (K6)",
     "fracs_kernel": "gp_fracs (K5)",
+    "open_eval_kernel": "open_eval (K7)", "open_combine_kernel": "open_combine (K7)",
     "plane_sums_kernel": "plane_sums (K-c)", "plane_sums16_kernel": "plane_sums16",
     "pair_sel_kernel": "pair_sel", "g1_add_kernel": "g1_complete_add (K-d)",
     "fixed_base_kernel": "g1_fixed_base_mul",
@@ -809,23 +918,26 @@ def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4") -> 
     return groups
 
 
-def planned_elementwise(k: int) -> int:
-    """K-a launches that a proof makes once K5 and K6 take the fractions and
-    the quotient: 22 products (the canonical form before each of 6
-    commitment batches, 4 in the grand products' finish, 3 in the
-    evaluations, 9 in the GWC witnesses) and the sums of the add trees: one
-    over the 2^k rows for each of the 3 points, one over the 47, 6 and 4
-    opened polynomials of the GWC combinations (6 + 3 + 2 levels)."""
-    return 22 + 3 * k + 11
+# K-a launches a proof since K5, K6 and K7 took the fractions, the quotient
+# and the openings: the canonical form before each of 6 commitment batches,
+# 4 products in the grand products' finish, and the product by z^-(i+1) in
+# each of the 3 GWC divisions; no longer a function of k
+PLANNED_ELEMENTWISE = COMMIT_BATCHES + 4 + 3
+# field_scan calls, each one launch: the grand products' prefix, suffix and
+# finishing products, the powers of the 3 points, of v (one table for the
+# three stacks) and of the 3 inverse points, and the 3 GWC suffix sums
+PLANNED_SCANS = 3 + 3 + 1 + 3 + 3
 
 
 def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4") -> None:
     """One proof at k: four transforms of length 2^k, the coset transform
-    and the quotient's inverse at 2^(k+3), each a launch a pass; 15 scans and
-    ladders of powers, each one call; one launch of K5 and of K6, no
-    subtraction, and the elementwise launches that are left (235 before K5
-    and K6, 910 before the scans); one selector launch a commitment batch,
-    and the plane sums of the proof's base only."""
+    and the quotient's inverse at 2^(k+3), each a launch a pass; 13 scans and
+    ladders of powers, each one launch (39 launches in 15 calls before the
+    single-pass scan); one launch of K5, of K6 and of each of K7's two
+    contractions, no subtraction, and the 13 elementwise launches that are
+    left (81 before K7, 235 before K5 and K6, 910 before the scans); one
+    selector launch a commitment batch, and the plane sums of the proof's base
+    only."""
     from delay_enc_tpu_torch.ops import ntt as N
 
     tree, other = ("plane_sums16", "plane_sums") if msm == "b16" else ("plane_sums", "plane_sums16")
@@ -837,20 +949,22 @@ def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4") -> None:
                              f"{proof_launches[other]} times")
 
     want_ntt = 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3))
-    elementwise = proof_launches["field_mont_mul"] + proof_launches["field_add"]
+    elementwise = proof_launches["field_mont_mul"]
     if proof_launches["ntt_fused"] != want_ntt or want_ntt > 20:
         raise AssertionError(f"a proof launched the NTT kernel {proof_launches['ntt_fused']} "
                              f"times, planned {want_ntt}, allowed 20")
-    if proof_launches["field_scan"] != 15:
-        raise AssertionError(f"a proof called the scan kernel {proof_launches['field_scan']} times")
-    for name in ("gp_fracs", "quotient_h"):
+    if proof_launches["field_scan"] != PLANNED_SCANS:
+        raise AssertionError(f"a proof launched the scan kernel {proof_launches['field_scan']} "
+                             f"times, planned {PLANNED_SCANS}")
+    for name in ("gp_fracs", "quotient_h", "open_eval", "open_combine"):
         if proof_launches[name] != 1:
             raise AssertionError(f"a proof launched {name} {proof_launches[name]} times")
-    if proof_launches["field_sub"] != 0:
-        raise AssertionError(f"a proof launched field_sub {proof_launches['field_sub']} times")
-    if elementwise > planned_elementwise(k):
-        raise AssertionError(f"a proof made {elementwise} elementwise product and sum launches, "
-                             f"planned {planned_elementwise(k)}")
+    for name in OFF_PATH:
+        if proof_launches[name] != 0:
+            raise AssertionError(f"a proof launched {name} {proof_launches[name]} times")
+    if elementwise != PLANNED_ELEMENTWISE:
+        raise AssertionError(f"a proof made {elementwise} elementwise product launches, planned "
+                             f"{PLANNED_ELEMENTWISE}")
 
 
 def mod_pow_phase(dev, card: str) -> None:
@@ -969,13 +1083,18 @@ def main() -> int:
         t_prove.append(time.time() - t0)
     if proofs[0] != proofs[1]:
         raise AssertionError("pose_enc proofs from one rng seed differ")
+    with np.load(os.path.join(ROOT, "tests", "data", "torch_port_k11.npz")) as z:
+        if int(z["seed"]) != 0 or proofs[0] != z["proof"].tobytes():
+            raise AssertionError("the pose_enc k=11 proof differs from the JAX package's "
+                                 "(tests/data/torch_port_k11.npz)")
     t0 = time.time()
     if not verify_proof(srs11, vk11, proofs[0]):
         raise AssertionError("pose_enc proof does not verify")
     t_ver = time.time() - t0
     print(f"phase 3 pose_enc k={k11}: rows={b11.rows} keygen {t_key:.3f} s, prove "
-          f"{t_prove[0]:.3f} s then {t_prove[1]:.3f} s (identical bytes), verify {t_ver:.3f} s, "
-          f"proof {len(proofs[0])} B; spans {json.dumps(spans())}", flush=True)
+          f"{t_prove[0]:.3f} s then {t_prove[1]:.3f} s (identical bytes, the JAX package's "
+          f"proof's), verify {t_ver:.3f} s, proof {len(proofs[0])} B; spans "
+          f"{json.dumps(spans())}", flush=True)
     # the base-16 MSM: an MSM has one answer, so the vk and the proof bytes
     # are the base-4 ones
     t0 = time.time()
@@ -994,7 +1113,7 @@ def main() -> int:
         raise AssertionError("the pose_enc proof with msm='b16' differs from the base-4 proof")
     print(f"phase 3 pose_enc k={k11} msm='b16': table {t_tab:.3f} s, {tab11.numel() * 4} bytes; "
           f"keygen {t_key:.3f} s reproduces the committed vk; prove {t_b16:.3f} s, the base-4 "
-          f"proof's bytes", flush=True)
+          f"proof's bytes and the JAX package's", flush=True)
     del pk11, srs11, tab11
 
     # ---- 4. delay_enc k=16, the main path -----------------------------
@@ -1083,8 +1202,9 @@ def main() -> int:
     # ---- kernels --------------------------------------------------------
     for name, row in rep.rows.items():
         row["launches"] = launches.get(name, 0) + b16_launches.get(name, 0)
-    # K5 and K6 took the last subtractions of a proof (0 launches, asserted):
-    # K-a's subtraction is checked in phase 1 but is no kernel of the path
+    # K5 and K6 took the last subtractions of a proof, K7 the last sums (0
+    # launches, asserted): K-a's subtraction and sum are checked in phase 1
+    # but are no kernels of the path
     for name in OFF_PATH:
         row = rep.rows.pop(name)
         print(f"phase 4 {name}: off the main path, {row['launches']} launches; phase 1 "

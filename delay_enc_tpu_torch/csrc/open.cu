@@ -1,0 +1,145 @@
+// K7: the openings' contractions of coefficient rows with the powers of a
+// point, for all the points of a proof in one launch each.
+//
+// Replaces delay_enc_tpu/plonk/kernels.py _jit_eval_stack (:396) and the
+// v-weighted sum of _jit_gwc_witness (:411) with the * z^i of
+// ops/poly.py:137 divide_by_linear, which XLA ran as limb graphs over
+// (m, n, 16) stacks, and which the port ran as K-a products, a transposed
+// copy of each stack and a K-a add launch a level of each add tree: 68
+// launches a delay_enc proof.  The rest of divide_by_linear (the exclusive
+// suffix sum, csrc/scan.cu, and the product by z^-(i+1)) is unchanged.
+//
+// open_eval: a block a (chunk of EVAL_CHUNK elements, row); each thread
+// multiplies and adds its elements (csrc/open_row.cuh), the block sums its
+// threads in shared memory and leaves a partial sum in the scratch; the last
+// block of a row to finish, which an atomic ticket after a fence names (the
+// CUDA programming guide's "last block" pattern), sums the row's partials.
+// open_combine: a thread a column of one point; it walks the point's rows,
+// so a warp reads 32 neighbouring elements of each row.
+//
+// Bound: operations.  At delay_enc k=16 (57 rows of 2^16 over 3 points)
+// eval makes 57 x 2^16 Montgomery products (0.057 ms at 1.673e13
+// multiply-adds a second) and reads 126 MB (0.038 ms at 3.35 TB/s);
+// combine makes (57 + 3) x 2^16 (0.060 ms).
+
+#include <cuda_runtime.h>
+
+#include "open_row.cuh"
+
+namespace {
+
+constexpr unsigned COMBINE_THREADS = 128;
+
+// The sum of every thread's acc, into every thread's acc: an add tree over
+// shared memory.
+template <unsigned THREADS>
+__device__ void block_sum(uint32_t acc[8], uint32_t (*red)[8]) {
+  fld::copy(red[threadIdx.x], acc);
+  __syncthreads();
+  for (unsigned w = THREADS / 2; w > 0; w /= 2) {
+    if (threadIdx.x < w) fld::add<fld::FR>(red[threadIdx.x], red[threadIdx.x], red[threadIdx.x + w]);
+    __syncthreads();
+  }
+  fld::copy(acc, red[0]);
+  __syncthreads();  // red is written again by the next sum
+}
+
+__device__ __forceinline__ void st8_to_l2(uint32_t* p, const uint32_t v[8]) {
+  __stcg(reinterpret_cast<uint4*>(p), make_uint4(v[0], v[1], v[2], v[3]));
+  __stcg(reinterpret_cast<uint4*>(p) + 1, make_uint4(v[4], v[5], v[6], v[7]));
+}
+
+__device__ __forceinline__ void ld8_from_l2(uint32_t r[8], const uint32_t* p) {
+  const uint4 lo = __ldcg(reinterpret_cast<const uint4*>(p));
+  const uint4 hi = __ldcg(reinterpret_cast<const uint4*>(p) + 1);
+  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
+  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
+}
+
+__global__ void __launch_bounds__(opening::EVAL_THREADS)
+open_eval_kernel(const __grid_constant__ opening::Table t) {
+  __shared__ uint32_t red[opening::EVAL_THREADS][8];
+  __shared__ bool last;
+  const uint32_t r = blockIdx.y, chunk = blockIdx.x, chunks = gridDim.x;
+  uint32_t* out = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(t.out));
+  uint32_t* partial = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(t.scratch));
+  uint32_t acc[8];
+  opening::eval_thread(acc, t, r, chunk, threadIdx.x);
+  block_sum<opening::EVAL_THREADS>(acc, red);
+  if (chunks == 1) {
+    if (threadIdx.x == 0) fld::st8(out + (size_t)r * 8, acc);
+    return;
+  }
+  if (threadIdx.x == 0) {
+    uint32_t* counter = partial + (size_t)opening::rows(t) * chunks * 8 + r;
+    st8_to_l2(partial + ((size_t)r * chunks + chunk) * 8, acc);
+    __threadfence();
+    last = atomicAdd(counter, 1u) == chunks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  opening::zero(acc);
+  for (uint32_t c = threadIdx.x; c < chunks; c += opening::EVAL_THREADS) {
+    uint32_t v[8];
+    ld8_from_l2(v, partial + ((size_t)r * chunks + c) * 8);
+    fld::add<fld::FR>(acc, acc, v);
+  }
+  block_sum<opening::EVAL_THREADS>(acc, red);
+  if (threadIdx.x == 0) fld::st8(out + (size_t)r * 8, acc);
+}
+
+__global__ void __launch_bounds__(COMBINE_THREADS)
+open_combine_kernel(const __grid_constant__ opening::Table t) {
+  __shared__ __align__(16) uint32_t vp[opening::MAX_ROWS * 8];
+  const int s = blockIdx.y;
+  const uint32_t words = (t.first[s + 1] - t.first[s]) * 8;
+  const uint32_t* v = opening::at(t.vpows);
+  for (uint32_t w = threadIdx.x; w < words; w += COMBINE_THREADS) vp[w] = v[w];
+  __syncthreads();
+  const size_t i = (size_t)blockIdx.x * COMBINE_THREADS + threadIdx.x;
+  if (i >= t.n) return;
+  uint32_t o[8];
+  opening::combine_column(o, t, s, i, vp);
+  uint32_t* out = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(t.out));
+  fld::st8(out + ((size_t)s * t.n + i) * 8, o);
+}
+
+int check(const opening::Table& t) {
+  if (t.points == 0 || t.points > opening::MAX_POINTS) return (int)cudaErrorInvalidValue;
+  for (uint32_t s = 0; s < t.points; s++)
+    if (t.first[s + 1] < t.first[s]) return (int)cudaErrorInvalidValue;
+  if (t.first[0] != 0 || opening::rows(t) > opening::MAX_ROWS) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+}  // namespace
+
+// table: host memory, an opening::Table; its scratch holds
+// rows * chunks * 8 + rows words for eval (chunks = ceil(n / EVAL_CHUNK)).
+extern "C" int open_eval(const void* table, void* stream) {
+  const opening::Table t = *static_cast<const opening::Table*>(table);
+  if (const int e = check(t)) return e;
+  if (opening::rows(t) == 0 || t.n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t chunks = opening::chunks(t);
+  if (chunks > 1) {
+    uint32_t* counters = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(t.scratch)) +
+                         (size_t)opening::rows(t) * chunks * 8;
+    const cudaError_t e = cudaMemsetAsync(counters, 0, opening::rows(t) * 4, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  open_eval_kernel<<<dim3(chunks, opening::rows(t)), opening::EVAL_THREADS, 0, s>>>(t);
+  return (int)cudaGetLastError();
+}
+
+// table: host memory, an opening::Table; no scratch.
+extern "C" int open_combine(const void* table, void* stream) {
+  const opening::Table t = *static_cast<const opening::Table*>(table);
+  if (const int e = check(t)) return e;
+  if (t.n == 0) return 0;
+  const uint32_t blocks = (t.n + COMBINE_THREADS - 1) / COMBINE_THREADS;
+  open_combine_kernel<<<dim3(blocks, t.points), COMBINE_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(t);
+  return (int)cudaGetLastError();
+}

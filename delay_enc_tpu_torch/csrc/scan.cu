@@ -4,45 +4,71 @@
 //
 // Replaces the scan graphs of delay_enc_tpu/ops/poly.py: prefix_product
 // (:49), suffix_product (:79), suffix_sum (:146) and, with a constant input,
-// powers_of (:100), which the port ran as ladders of elementwise launches
-// (about 63 a scan of 2^16 rows, 32 for 2^16 powers).  Every prefix is one
-// reduced field element, so any order of association gives the same words.
+// powers_of (:100).  Every prefix is one reduced field element, so any order
+// of association gives the same words.
 //
-// One call is up to three launches on the stream (reduce, scan, apply):
-//   1. every tile of 1024 elements leaves its total;
-//   2. one block a row scans the row's totals in place (exclusive);
-//   3. every tile scans itself again, starting from its row's prefix, and
-//      stores.  A row of one tile is launch 3 alone.
-// In a tile a thread scans 4 neighbouring elements in registers, a warp
-// combines the threads' totals by shuffles of the eight words, and the
-// warps' totals go through shared memory.  Reading the input twice costs
-// less than storing partial results and reading them back.
+// One launch a call, one pass over the data: the single-pass scan with
+// decoupled look-back (Merrill and Garland, 2016).  A block takes the next
+// tile number from a counter in the scratch (so a block only ever waits for
+// blocks that started before it), copies its tile into shared memory, and:
+//   1. each thread combines its ITEMS elements one after another;
+//   2. the block scans the threads' totals: shuffles within a warp, then one
+//      warp over the warps' totals, which gives the tile's total;
+//   3. the tile publishes its total in its record, then walks back over its
+//      predecessors' records a warp at a time, one lane a predecessor, until
+//      a lane finds a published inclusive prefix; each lane combines what it
+//      read window after window, the lanes' combinations then combine into
+//      the tile's prefix, and the tile publishes its own inclusive prefix.  A record is eight words, written, fenced, and then
+//      flagged by a release store of its state; the reader acquires the
+//      state before it reads the words;
+//   4. each thread applies its prefix to its elements one after another, and
+//      the block copies the tile out.
+// A row of one tile needs no record.  The constant form (powers of one
+// element) needs none either: every full tile's total is c^TILE, so tile t's
+// prefix is that tile total to the power t, by squaring.
 //
-// Bound: launch latency.  At (5, 2^16) the call moves 21 MB (6 us at
-// 3.35 TB/s) and needs 3.3e5 products (5 us), less than three launches and
-// the two dozen products a thread makes one after another.
+// About 2.6 products an element (7/8 to reduce, 5/8 in the warp scan, 1/8
+// to combine the thread's prefix, 1 to apply), against about 8 in the
+// earlier three-launch design.  Two tile sizes, both of 8 elements a thread:
+// 256 threads, and 128 where the large tiles would give fewer than
+// SCAN_MIN_TILES blocks.  A thread's products run one after another, so the
+// chain of a tile, not the count of blocks, sets the time of a short scan:
+// the 1024-element tile beat the 2048 and those of 512 and 256 at (5, 2^16)
+// and (1, 2^16) (tools/torch_ntt_scan_bench.py).
+//
+// Bound: operations.  At (5, 2^16) the call moves 21 MB (6 us at
+// 3.35 TB/s) and needs 3.3e5 products (5 us at the integer rate).
 
 #include <cuda_runtime.h>
 
 #include "scan_tile.cuh"
 
+#ifndef SCAN_MIN_TILES
+#define SCAN_MIN_TILES 264
+#endif
+#ifndef SCAN_SMALL_THREADS  // the small tile (at least 256 elements: ops/poly.py's scratch)
+#define SCAN_SMALL_THREADS 128
+#endif
+#ifndef SCAN_SMALL_ITEMS
+#define SCAN_SMALL_ITEMS 8
+#endif
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr unsigned TILE = THREADS * scan::ITEMS;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void shuffle_up(uint32_t r[8], const uint32_t v[8], int delta) {
 #pragma unroll
-  for (int j = 0; j < 8; j++) r[j] = __shfl_up_sync(0xffffffffu, v[j], delta);
+  for (int j = 0; j < 8; j++) r[j] = __shfl_up_sync(FULL, v[j], delta);
 }
 
-// Inclusive scan of v across the warp.  Every lane makes every product and
-// keeps it where it has a lane d below: no branch around a shuffle.
-template <int F, int OP>
+// Inclusive scan of v across the first LANES lanes of the warp.  Every lane
+// makes every product and keeps it where it has a lane d below: no branch
+// around a shuffle.
+template <int F, int OP, int LANES>
 __device__ __forceinline__ void warp_scan(uint32_t v[8], int lane) {
 #pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
+  for (int d = 1; d < LANES; d *= 2) {
     uint32_t up[8], both[8];
     shuffle_up(up, v, d);
     scan::combine<F, OP>(both, up, v);
@@ -50,102 +76,184 @@ __device__ __forceinline__ void warp_scan(uint32_t v[8], int lane) {
   }
 }
 
-// pre = the combination of the totals of all threads before this one,
-// all = that of every thread of the block
+// v combined over all 32 lanes, in every lane
 template <int F, int OP>
-__device__ __forceinline__ void block_scan(uint32_t pre[8], uint32_t all[8],
-                                           const uint32_t total[8],
-                                           uint32_t (*warp_totals)[8]) {
+__device__ __forceinline__ void warp_reduce(uint32_t v[8]) {
+#pragma unroll
+  for (int d = 16; d > 0; d /= 2) {
+    uint32_t o[8];
+#pragma unroll
+    for (int j = 0; j < 8; j++) o[j] = __shfl_xor_sync(FULL, v[j], d);
+    scan::combine<F, OP>(v, v, o);
+  }
+}
+
+__device__ __forceinline__ uint32_t load_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// the eight words of a record, then its state
+__device__ __forceinline__ void publish(const scan::Records& recs, uint32_t rec, uint32_t state,
+                                        const uint32_t v[8]) {
+  uint4* dst = reinterpret_cast<uint4*>((state == scan::PREFIX ? recs.prefix : recs.total) +
+                                        (size_t)rec * 8);
+  __stcg(dst, make_uint4(v[0], v[1], v[2], v[3]));
+  __stcg(dst + 1, make_uint4(v[4], v[5], v[6], v[7]));
+  __threadfence();
+  store_release(recs.state + rec, state);
+}
+
+// Warp 0: the combination of everything in the row before tile t, whose
+// record is `rec`; `all` is the tile's total.
+template <int F, int OP>
+__device__ void tile_prefix(uint32_t pre[8], const uint32_t all[8], const scan::Records& recs,
+                            uint32_t rec, uint32_t t, bool lookback, uint32_t flags, int lane) {
+  if (!lookback) {
+    if (flags & scan::CONSTANT) {
+      scan::power<F, OP>(pre, all, t);
+    } else {
+      scan::identity<F, OP>(pre);
+    }
+    return;
+  }
+  scan::identity<F, OP>(pre);
+  if (t == 0) {
+    if (lane == 0) publish(recs, rec, scan::PREFIX, all);
+    return;
+  }
+  if (lane == 0) publish(recs, rec, scan::AGGREGATE, all);
+  // Each lane combines its own predecessors, window after window, and the
+  // lanes combine once at the end: a window costs one product in sequence.
+  uint32_t mine[8];
+  scan::identity<F, OP>(mine);
+  for (long long last = (long long)t - 1;; last -= scan::WINDOW) {
+    const long long p = last - lane;  // this lane's predecessor in the row
+    const long long r = p >= 0 ? (long long)rec - (long long)t + p : -1;
+    uint32_t state;
+    do {
+      state = r >= 0 ? load_acquire(recs.state + r) : (uint32_t)scan::PREFIX;
+    } while (__any_sync(FULL, state == scan::EMPTY));
+    const unsigned found = __ballot_sync(FULL, state == scan::PREFIX);
+    const int stop = found ? __ffs(found) - 1 : scan::WINDOW;
+    uint32_t v[8];
+    scan::window_value<F, OP>(v, recs, r, lane, stop);
+    scan::combine<F, OP>(mine, v, mine);
+    if (found) break;
+  }
+  warp_reduce<F, OP>(mine);
+  fld::copy(pre, mine);
+  if (lane == 0) {
+    uint32_t inc[8];
+    scan::combine<F, OP>(inc, pre, all);
+    publish(recs, rec, scan::PREFIX, inc);
+  }
+}
+
+template <int F, int OP, int THREADS, int ITEMS>
+__global__ void __launch_bounds__(THREADS)
+scan_kernel(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t n,
+            uint32_t tiles_a_row, uint32_t tiles, uint32_t flags) {
+  constexpr int WARPS = THREADS / 32;
+  constexpr uint32_t TILE = THREADS * ITEMS;
+  extern __shared__ uint4 tile_mem[];
+  uint32_t* tile = reinterpret_cast<uint32_t*>(tile_mem);
+  __shared__ uint32_t warp_vals[WARPS][8];  // the warps' totals, then their prefixes
+  __shared__ uint32_t number;
+  const bool lookback = tiles_a_row > 1 && !(flags & scan::CONSTANT);
+  const scan::Records recs(scratch, tiles);
+  uint32_t rec = blockIdx.x;
+  if (lookback) {
+    if (threadIdx.x == 0) number = atomicAdd(recs.counter, 1u);
+    __syncthreads();
+    rec = number;
+  }
+  const uint32_t row = rec / tiles_a_row, t = rec - row * tiles_a_row;
+  const uint32_t* in_row = in + (size_t)row * ((flags & scan::CONSTANT) ? 0u : n) * 8;
+  uint32_t* out_row = out + (size_t)row * n * 8;
+  const uint32_t first = t * TILE;
+  for (uint32_t q = threadIdx.x; q < 2 * TILE; q += THREADS)
+    scan::load_quad<F, OP, ITEMS>(tile, in_row, n, first, q, flags);
+  __syncthreads();
+
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t inc[8], before[8];
-  fld::copy(inc, total);
-  warp_scan<F, OP>(inc, lane);
+  scan::thread_reduce<F, OP, ITEMS>(inc, tile, threadIdx.x);
+  warp_scan<F, OP, 32>(inc, lane);
   shuffle_up(before, inc, 1);
   if (lane == 0) scan::identity<F, OP>(before);
-  if (lane == 31) fld::copy(warp_totals[warp], inc);
+  if (lane == 31) fld::copy(warp_vals[warp], inc);
   __syncthreads();
   if (warp == 0) {
-    uint32_t w[8];
+    uint32_t w[8], w_before[8], all[8], pre[8];
     if (lane < WARPS) {
-      fld::copy(w, warp_totals[lane]);
+      fld::copy(w, warp_vals[lane]);
     } else {
       scan::identity<F, OP>(w);
     }
-    warp_scan<F, OP>(w, lane);
-    if (lane < WARPS) fld::copy(warp_totals[lane], w);
+    warp_scan<F, OP, WARPS>(w, lane);
+    shuffle_up(w_before, w, 1);
+    if (lane == 0) scan::identity<F, OP>(w_before);
+#pragma unroll
+    for (int j = 0; j < 8; j++) all[j] = __shfl_sync(FULL, w[j], WARPS - 1);
+    tile_prefix<F, OP>(pre, all, recs, rec, t, lookback, flags, lane);
+    if (lane < WARPS) scan::combine<F, OP>(warp_vals[lane], pre, w_before);
   }
   __syncthreads();
-  if (warp > 0) {
-    scan::combine<F, OP>(pre, warp_totals[warp - 1], before);
-  } else {
-    fld::copy(pre, before);
-  }
-  fld::copy(all, warp_totals[WARPS - 1]);
-  __syncthreads();  // warp_totals is written again for the next tile
+  scan::combine<F, OP>(before, warp_vals[warp], before);
+  scan::thread_apply<F, OP, ITEMS>(tile, threadIdx.x, before, flags);
+  __syncthreads();
+  for (uint32_t q = threadIdx.x; q < 2 * TILE; q += THREADS)
+    scan::store_quad<ITEMS>(out_row, tile, n, first, q, flags);
 }
 
-// A block scans `tiles` tiles of its row one after another, carrying the
-// running combination, which starts from start[block] where start is given.
-// With `totals` it stores no element, only the block's combination.  The
-// scan of the totals runs in place (in == out): a thread reads its elements
-// before it writes them, and no other thread touches them.
-template <int F, int OP>
-__global__ void __launch_bounds__(THREADS)
-scan_kernel(const uint32_t* in, uint32_t* out, const uint32_t* start,
-            uint32_t* totals, uint32_t n, uint32_t in_stride, uint32_t blocks_a_row,
-            uint32_t tiles, uint32_t flags) {
-  __shared__ uint32_t warp_totals[WARPS][8];
-  const uint32_t row = blockIdx.x / blocks_a_row;
-  const uint32_t blk = blockIdx.x - row * blocks_a_row;
-  const uint32_t* in_row = in + (size_t)row * in_stride * 8;
-  uint32_t* out_row = out + (size_t)row * n * 8;
-  uint32_t carry[8];
-  if (start != nullptr) {
-    scan::ld8(carry, start + (size_t)blockIdx.x * 8);
-  } else {
-    scan::identity<F, OP>(carry);
+template <int F, int OP, int THREADS, int ITEMS>
+int launch(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t rows, uint32_t n,
+           uint32_t flags, cudaStream_t s) {
+  constexpr uint32_t TILE = THREADS * ITEMS;
+  constexpr size_t SMEM = scan::tile_words<THREADS, ITEMS>() * 4;
+  const uint32_t nt = (n + TILE - 1) / TILE;
+  const size_t tiles = (size_t)rows * nt;
+  if (tiles > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+  static bool sized = false;  // above 48 KB of shared memory only when asked for
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(scan_kernel<F, OP, THREADS, ITEMS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)SMEM);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
   }
-  for (uint32_t t = 0; t < tiles; t++) {
-    const uint32_t base = ((blk * tiles + t) * THREADS + threadIdx.x) * scan::ITEMS;
-    uint32_t x[scan::ITEMS][8], pre[8], all[8];
-    scan::thread_load<F, OP>(x, in_row, n, base, flags);
-    block_scan<F, OP>(pre, all, x[scan::ITEMS - 1], warp_totals);
-    if (totals == nullptr) {
-      scan::combine<F, OP>(pre, carry, pre);
-      scan::thread_store<F, OP>(x, pre, out_row, n, base, flags);
-    }
-    scan::combine<F, OP>(carry, carry, all);
+  if (nt > 1 && !(flags & scan::CONSTANT)) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = cudaMemsetAsync(scratch, 0, scan::reset_words(tiles) * 4, s);
+    if (e != cudaSuccess) return (int)e;
   }
-  if (totals != nullptr && threadIdx.x == 0) scan::st8(totals + (size_t)blockIdx.x * 8, carry);
+  scan_kernel<F, OP, THREADS, ITEMS><<<(unsigned)tiles, THREADS, SMEM, s>>>(
+      in, out, scratch, n, nt, (uint32_t)tiles, flags);
+  return (int)cudaGetLastError();
 }
 
 template <int F, int OP>
 int run(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t rows, uint32_t n,
         uint32_t flags, cudaStream_t s) {
-  const uint32_t nt = (n + TILE - 1) / TILE;
-  const uint32_t in_stride = (flags & scan::CONSTANT) ? 0u : n;
-  if ((size_t)rows * nt > 0x7fffffffu) return (int)cudaErrorInvalidValue;
-  if (nt == 1) {
-    scan_kernel<F, OP><<<rows, THREADS, 0, s>>>(in, out, nullptr, nullptr, n, in_stride,
-                                                1u, 1u, flags);
-    return (int)cudaGetLastError();
-  }
-  // 1. the tiles' totals; 2. each row's totals scanned in place, exclusive
-  // and forward; 3. the tiles again, each from its prefix
-  scan_kernel<F, OP><<<rows * nt, THREADS, 0, s>>>(in, out, nullptr, scratch, n, in_stride,
-                                                   nt, 1u, flags);
-  scan_kernel<F, OP><<<rows, THREADS, 0, s>>>(scratch, scratch, nullptr, nullptr, nt, nt, 1u,
-                                              (nt + TILE - 1) / TILE, scan::EXCLUSIVE);
-  scan_kernel<F, OP><<<rows * nt, THREADS, 0, s>>>(in, out, scratch, nullptr, n, in_stride,
-                                                   nt, 1u, flags);
-  return (int)cudaGetLastError();
+  constexpr uint32_t LARGE = 256 * 8;
+  if ((size_t)rows * ((n + LARGE - 1) / LARGE) >= SCAN_MIN_TILES)
+    return launch<F, OP, 256, 8>(in, out, scratch, rows, n, flags, s);
+  return launch<F, OP, SCAN_SMALL_THREADS, SCAN_SMALL_ITEMS>(in, out, scratch, rows, n, flags, s);
 }
 
 }  // namespace
 
 // in: (rows, n, 8), or one element (8 words) with the CONSTANT flag, which
-// stands for every element of every row; out: (rows, n, 8); scratch:
-// (rows, ceil(n / 1024), 8), used when a row is more than one tile.
+// stands for every element of every row; out: (rows, n, 8); scratch: the
+// look-back records, scan::records_words(rows * ceil(n / 256)) words (the
+// count of tiles of 256, which bounds that of any tile from 256 elements
+// on), used when a row is more than one tile and the input is not constant.
 extern "C" int field_scan(int op, int field, const void* in, void* out, void* scratch,
                           unsigned rows, unsigned n, unsigned flags, void* stream) {
   if (rows == 0 || n == 0) return 0;

@@ -22,7 +22,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("field", "ntt", "scan", "msm", "quotient", "fracs")
+SOURCES = ("field", "ntt", "scan", "msm", "quotient", "fracs", "open")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -45,6 +45,8 @@ _SIGNATURES = {
     "g1_fixed_base_mul": ("msm", [_P, _P, _P, _U, _U, _P]),
     "quotient_h": ("quotient", [_P, _P, _P, _P, _P, _P, _Q, _P]),
     "gp_fracs": ("fracs", [_P, _P, _P, _P, _P, _P, _P, _P, _Q, _Q, _P]),
+    "open_eval": ("open", [_P, _P]),
+    "open_combine": ("open", [_P, _P]),
 }
 
 _lock = threading.Lock()

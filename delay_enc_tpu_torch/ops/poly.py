@@ -5,7 +5,7 @@ axis (dim -2) of a (…, n, 8) tensor, so a stack of columns scans in one
 call.  Each prefix is one reduced field element, so every way of scanning
 gives the same words.
 
-On CUDA tensors every scan, and `powers_of`, is one call of the kernel
+On CUDA tensors every scan, and `powers_of`, is one launch of the kernel
 `field_scan` (`csrc/scan.cu`): inclusive or exclusive, forward or reverse,
 with the Montgomery product or the modular sum as the operator, and with a
 constant input for the powers of one element.  On CPU tensors the plain
@@ -13,8 +13,10 @@ versions run: "block" is the work-efficient two-level form (about 2n
 operations), "hs" the Hillis-Steele ladder (n log n), with flips and shifts
 around them for the reverse and the exclusive forms.  Each call names its
 scan, and any other name raises, on either device.  `scan_tiles_plain`
-follows the kernel's own three steps (tile totals, their exclusive scan, the
-tiles again) and is what the tests hold against the others.
+follows the kernel's own steps (each thread's elements one after another,
+the scan of the threads' totals, the tile's prefix from its predecessors,
+then each thread's elements again) and is what the tests hold against the
+others.
 """
 
 from __future__ import annotations
@@ -27,7 +29,10 @@ from .limbs import FieldCtx
 
 SCAN_BLOCK = 16  # rows per block of the "block" scan
 SCANS = ("block", "hs")
-TILE = 1024  # elements a block of the kernel scans: 256 threads x 4 (csrc/scan.cu)
+# the kernel's tiles (csrc/scan.cu): (threads, elements a thread); the small
+# one where the large would give fewer than MIN_TILES blocks
+LARGE_TILE, SMALL_TILE, MIN_TILES = (256, 8), (128, 8), 264
+SCRATCH_TILE = 256  # elements of the smallest tile the scratch is sized for
 EXCLUSIVE, REVERSE, CONSTANT = 1, 2, 4  # flag bits of the kernel
 OPS = {"mul": 0, "add": 1}
 
@@ -107,46 +112,91 @@ def scan_plain(ctx: FieldCtx, a: torch.Tensor, op: str, impl: str, *,
     return x.flip(-2) if reverse else x
 
 
-def scan_tiles_plain(ctx: FieldCtx, a: torch.Tensor, op: str, *, tile: int = TILE,
-                     exclusive: bool = False, reverse: bool = False) -> torch.Tensor:
-    """The scan in the kernel's own steps: element j in scan order is index
-    j, or n - 1 - j in reverse; each tile of `tile` elements leaves its
-    total; the totals are scanned exclusively, `tile` at a time with a
-    running carry; then each tile is scanned from its prefix.  Elements
-    beyond n count as the identity."""
+def tile_for(rows: int, n: int) -> tuple:
+    """The tile the kernel takes for `rows` rows of n elements."""
+    threads, items = LARGE_TILE
+    return LARGE_TILE if rows * -(-n // (threads * items)) >= MIN_TILES else SMALL_TILE
+
+
+def _power_plain(fn, identity: torch.Tensor, base: torch.Tensor, t: torch.Tensor):
+    """base (…, 8) combined with itself t (…,) times, by squaring."""
+    r = identity.expand_as(base)
+    t = t.clone()
+    while bool((t > 0).any()):
+        r = torch.where((t & 1).bool()[..., None], fn(r, base), r)
+        t >>= 1
+        base = fn(base, base)
+    return r
+
+
+def scan_tiles_plain(ctx: FieldCtx, a: torch.Tensor, op: str, *, tile: tuple | None = None,
+                     exclusive: bool = False, reverse: bool = False,
+                     n: int | None = None) -> torch.Tensor:
+    """The scan in the kernel's own steps, with tiles of `tile` = (threads,
+    elements a thread), by default the kernel's for this shape.  Element j in
+    scan order is index j, or n - 1 - j in reverse; elements from n on count
+    as the identity.  Each thread combines its elements one after another;
+    the threads' totals are scanned across the tile, which gives the tile's
+    total; a tile's prefix is the combination of its predecessors' totals
+    (the look-back), or, for a constant input (`a` one (8,) element standing
+    for n of them), the full tile's total to the power of the tile's index;
+    each thread then applies its prefix to its elements one after another."""
     fn, ident = _op_plain(ctx, op)
     identity = ctx.const(ident, a.device)
-    n = a.shape[-2]
-    lead = a.shape[:-2]
+    constant = n is not None
+    if constant:
+        lead = ()
+        if a.shape != (L.NW,):
+            raise ValueError(f"a constant input is one (8,) element, got {tuple(a.shape)}")
+    else:
+        n, lead = a.shape[-2], a.shape[:-2]
     if n == 0:
-        return a.clone()
+        return a.new_empty(*lead, 0, L.NW)
+    threads, items = tile or tile_for(int(torch.Size(lead).numel()), n)
+    size = threads * items
+    nt = -(-n // size)
     j = torch.arange(n, device=a.device)
     place = (n - 1 - j) if reverse else j
-    nt = -(-n // tile)
-    x = a[..., place, :]
-    if nt * tile != n:
-        x = torch.cat([x, identity.expand(*lead, nt * tile - n, L.NW)], dim=-2)
-    tiles = x.reshape(*lead, nt, tile, L.NW)
-    local = _scan_hs(fn, tiles, identity)  # inclusive inside each tile
-    totals = local[..., -1, :]  # (…, nt, 8)
-    # the exclusive scan of the totals, a tile of them at a time
-    prefixes, carry = [], identity.expand(*lead, L.NW)
-    for lo in range(0, nt, tile):
-        part = totals[..., lo : lo + tile, :]
-        inc = fn(carry[..., None, :], _scan_hs(fn, part, identity))
-        prefixes.append(torch.cat([carry[..., None, :], inc[..., :-1, :]], dim=-2))
-        carry = inc[..., -1, :]
-    start = torch.cat(prefixes, dim=-2)  # (…, nt, 8)
-    out = fn(start[..., :, None, :], local)
-    if exclusive:
-        out = torch.cat([start[..., :, None, :], out[..., :-1, :]], dim=-2)
-    out = out.reshape(*lead, nt * tile, L.NW)[..., :n, :]
+    if constant:  # every slot holds the element, those past n too
+        x = a.expand(nt * size, L.NW)
+    else:
+        x = a[..., place, :]
+        if nt * size != n:
+            x = torch.cat([x, identity.expand(*lead, nt * size - n, L.NW)], dim=-2)
+    x = x.reshape(*lead, nt, threads, items, L.NW)
+    total = x[..., 0, :]
+    for i in range(1, items):
+        total = fn(total, x[..., i, :])
+    inc = _scan_hs(fn, total, identity)  # (…, nt, threads, 8) across the tile
+    before = _shift(inc, identity)
+    tile_total = inc[..., -1, :]  # (…, nt, 8)
+    if constant:
+        pre_tile = _power_plain(fn, identity, tile_total, torch.arange(nt, device=a.device))
+    else:
+        pre_tile = _shift(_scan_hs(fn, tile_total, identity), identity)
+    acc = fn(pre_tile[..., None, :], before)
+    outs = []
+    for i in range(items):
+        if exclusive:
+            outs.append(acc)
+            acc = fn(acc, x[..., i, :]) if i + 1 < items else acc
+        else:
+            acc = fn(acc, x[..., i, :])
+            outs.append(acc)
+    out = torch.stack(outs, dim=-2).reshape(*lead, nt * size, L.NW)[..., :n, :]
     res = torch.empty_like(out)
     res[..., place, :] = out
     return res
 
 
 # ------------------------------------------------------------------ dispatch
+
+def scratch_words(tiles: int) -> int:
+    """Words of the kernel's look-back records for `tiles` tiles
+    (csrc/scan_tile.cuh records_words): a counter, a state a tile, a total
+    and an inclusive prefix a tile."""
+    return 8 + -(-tiles // 8) * 8 + 16 * tiles
+
 
 def _launch(ctx: FieldCtx, src: torch.Tensor, shape, op: str, flags: int) -> torch.Tensor:
     """One call of the kernel: `src` is the (…, n, 8) input, or one element
@@ -161,10 +211,10 @@ def _launch(ctx: FieldCtx, src: torch.Tensor, shape, op: str, flags: int) -> tor
     if n >= 1 << 31:
         raise ValueError("row too long for the scan kernel")
     src = src.contiguous()
-    tiles = -(-n // TILE)
     scratch = None
-    if tiles > 1:
-        scratch = torch.empty((rows, tiles, L.NW), dtype=torch.int32, device=src.device)
+    tiles = rows * -(-n // SCRATCH_TILE)  # at least the kernel's count of tiles
+    if tiles > rows and not flags & CONSTANT:
+        scratch = torch.empty(scratch_words(tiles), dtype=torch.int32, device=src.device)
     K_SCAN(OPS[op], ctx.fid, src.data_ptr(), out.data_ptr(), _cuda.ptr(scratch), rows, n,
            flags, _cuda.stream())
     return out
@@ -228,6 +278,12 @@ def divide_by_linear(ctx: FieldCtx, coeffs: torch.Tensor, z_powers: torch.Tensor
     b_i = (sum of a_j z^j over j > i) * z^-(i+1).  Returns the n-1
     coefficients padded with a zero to length n."""
     n = coeffs.shape[-2]
-    t = L.mont_mul(ctx, coeffs, z_powers[:n])
+    return divide_scaled(ctx, L.mont_mul(ctx, coeffs, z_powers[:n]), zinv_powers)
+
+
+def divide_scaled(ctx: FieldCtx, t: torch.Tensor, zinv_powers: torch.Tensor) -> torch.Tensor:
+    """`divide_by_linear` from t_j = a_j z^j: the exclusive suffix sums of t
+    times z^-(i+1)."""
+    n = t.shape[-2]
     above = suffix_sum(ctx, t, "block", exclusive=True)
     return L.mont_mul(ctx, above, zinv_powers[1 : n + 1])

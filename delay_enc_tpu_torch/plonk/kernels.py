@@ -5,8 +5,11 @@ Each function keeps its JAX name; the JAX `vmap`s are a leading batch axis
 here.  Two blocks are one kernel each on a card: `gp_fracs` (K5,
 `csrc/fracs.cu`), the numerators and denominators of the five grand
 products, and `quotient_h` (K6, `csrc/quotient.cu`), the y-folded quotient
-expression times 1/Z_H; on CPU tensors they run their plain versions, which
-are the functions below them.  Field arithmetic goes through `ops.limbs`
+expression times 1/Z_H.  The openings' contractions of coefficient rows with
+the powers of a point are K7 (`open_stack`, `csrc/open.cu`): one launch
+evaluates every opened row at its point, one forms every point's v-weighted
+sum times z^i.  On CPU tensors they run their plain versions, which are the
+functions below them.  Field arithmetic goes through `ops.limbs`
 (kernel K-a on a card), transforms through `ops.ntt.stockham` (kernel K-b,
 with the coset scaling, the zero padding, 1/n or zeta^-i / n_ext fused into
 its first and last pass), scans and powers through `ops.poly` (kernel
@@ -15,6 +18,8 @@ K-d) or `ops.msm16` (`pair_sel`, `plane_sums16` and K-d).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -50,6 +55,14 @@ K_QUOTIENT = _cuda.kernel(
     "quotient_h", "quotient_h",
     _REPLACES + "192 _quotient_expr and the * zh_inv_ext of :294 _jit_quotient (K6)",
     "delay_enc_tpu_torch/csrc/quotient.cu")
+K_OPEN_EVAL = _cuda.kernel(
+    "open_eval", "open_eval", _REPLACES + "396 _jit_eval_stack (K7)",
+    "delay_enc_tpu_torch/csrc/open.cu")
+K_OPEN_COMBINE = _cuda.kernel(
+    "open_combine", "open_combine",
+    _REPLACES + "411 _jit_gwc_witness, its v-weighted sum and the * z^i of "
+    "delay_enc_tpu/ops/poly.py:137 divide_by_linear (K7)",
+    "delay_enc_tpu_torch/csrc/open.cu")
 
 
 def _mul(a, b):
@@ -261,9 +274,8 @@ def challenge_words(theta: int, beta: int, gamma: int, y: int, deltas) -> np.nda
     return CTX.to_mont_np([theta, beta, gamma, y, *deltas, *(beta * d % FR.p for d in deltas)])
 
 
-def _check_operands(shapes: dict, consts) -> np.ndarray:
-    """Check each named tensor against its (…, 8) shape: int32, one device;
-    return the challenge words, checked, as a contiguous array."""
+def _check_shapes(shapes: dict):
+    """Check each named tensor against its (…, 8) shape: int32, one device."""
     device = None
     for name, (t, shape) in shapes.items():
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
@@ -271,6 +283,12 @@ def _check_operands(shapes: dict, consts) -> np.ndarray:
         if device is not None and t.device != device:
             raise ValueError(f"operands on different devices: {device} and {t.device}")
         device = t.device
+
+
+def _check_operands(shapes: dict, consts) -> np.ndarray:
+    """Check each named tensor against its (…, 8) shape: int32, one device;
+    return the challenge words, checked, as a contiguous array."""
+    _check_shapes(shapes)
     if not isinstance(consts, np.ndarray) or consts.dtype != np.uint32 \
             or consts.shape != (N_CONSTS, L.NW):
         raise ValueError(f"challenge words must be a ({N_CONSTS}, {L.NW}) uint32 array")
@@ -401,14 +419,100 @@ def quotient_stacked(wit_ext, key_ext, x_ext, zh_inv8, consts, unscale,
 
 # ------------------------------------------------------ evaluations and GWC
 
+# csrc/open_row.cuh: rows and points a table holds, elements an eval block sums
+OPEN_MAX_ROWS, OPEN_MAX_POINTS, OPEN_EVAL_CHUNK = 64, 4, 4096
+OPEN_KINDS = ("eval", "combine")
+
+
+class _OpenTable(ctypes.Structure):
+    """csrc/open_row.cuh opening::Table, field for field."""
+    _fields_ = [
+        ("row", ctypes.c_uint64 * OPEN_MAX_ROWS),
+        ("pows", ctypes.c_uint64 * OPEN_MAX_POINTS),
+        ("vpows", ctypes.c_uint64),
+        ("out", ctypes.c_uint64),
+        ("scratch", ctypes.c_uint64),
+        ("first", ctypes.c_uint32 * (OPEN_MAX_POINTS + 1)),
+        ("points", ctypes.c_uint32),
+        ("n", ctypes.c_uint32),
+    ]
+
+
+def open_stack_plain(kind: str, stacks, pows, v_pows=None) -> torch.Tensor:
+    """`open_stack` as products against the powers and pairwise add trees."""
+    outs = []
+    for rows, p in zip(stacks, pows):
+        st = torch.stack(list(rows))
+        m, n = st.shape[0], st.shape[1]
+        if kind == "eval":
+            outs.append(_tree_sum(_mul(st, p[:n]).transpose(0, 1).contiguous()))
+        else:
+            outs.append(_mul(_tree_sum(_mul(st, v_pows[:m, None, :])), p[:n]))
+    return torch.cat(outs) if kind == "eval" else torch.stack(outs)
+
+
+def open_stack(kind: str, stacks, pows, v_pows=None) -> torch.Tensor:
+    """The openings' contractions, for up to 4 points at once.  stacks[s]:
+    the (n, 8) coefficient rows opened at point s; pows[s]: its powers
+    x_s^0 .. x_s^(n-1) (or more).
+    "eval": (rows, 8), row j's sum_i c_j[i] x_s^i, the rows of every point in
+    order; "combine": (points, n, 8), x_s^i sum_j v^j c_{s,j}[i], with
+    v_pows = v^0 .. v^(m-1) for the largest stack.  One launch of K7 on CUDA
+    tensors, which takes the rows where they lie."""
+    if kind not in OPEN_KINDS:
+        raise ValueError(f"unknown contraction {kind!r}; expected one of {OPEN_KINDS}")
+    stacks = [list(rows) for rows in stacks]
+    if not 0 < len(stacks) <= OPEN_MAX_POINTS or len(pows) != len(stacks):
+        raise ValueError(f"1 to {OPEN_MAX_POINTS} points, each with its powers")
+    if not all(stacks) or sum(len(r) for r in stacks) > OPEN_MAX_ROWS:
+        raise ValueError(f"1 to {OPEN_MAX_ROWS} rows in all, at least one a point")
+    n = stacks[0][0].shape[0]
+    if n >= 1 << 31:
+        raise ValueError("rows too long for the K7 kernels")
+    m_max = max(len(r) for r in stacks)
+    shapes = {}
+    for s, (rows, p) in enumerate(zip(stacks, pows)):
+        for j, row in enumerate(rows):
+            shapes[f"stacks[{s}][{j}]"] = (row, (n, L.NW))
+        shapes[f"pows[{s}]"] = (p[:n], (n, L.NW))
+    if kind == "combine":
+        if v_pows is None:
+            raise ValueError("combine takes the powers of v")
+        shapes["v_pows"] = (v_pows[:m_max], (m_max, L.NW))
+    device = stacks[0][0].device
+    _check_shapes(shapes)
+    if device.type == "cpu":
+        return open_stack_plain(kind, stacks, pows, v_pows)
+    _cuda.require_cuda(stacks[0][0])
+    rows = [r.contiguous() for rs in stacks for r in rs]
+    pows = [p.contiguous() for p in pows]
+    t = _OpenTable()
+    t.row[: len(rows)] = _pointers(rows)
+    t.pows[: len(pows)] = _pointers(pows)
+    first = np.cumsum([0] + [len(rs) for rs in stacks])
+    t.first[: len(first)] = [int(v) for v in first]
+    t.points, t.n = len(stacks), n
+    if kind == "eval":
+        out = torch.empty((len(rows), L.NW), dtype=torch.int32, device=device)
+        chunks = -(-n // OPEN_EVAL_CHUNK)
+        scratch = torch.empty(len(rows) * (chunks * L.NW + 1), dtype=torch.int32, device=device)
+        t.out, t.scratch = out.data_ptr(), scratch.data_ptr()
+        K_OPEN_EVAL(ctypes.addressof(t), _cuda.stream())
+    else:
+        v_pows = v_pows.contiguous()
+        out = torch.empty((len(stacks), n, L.NW), dtype=torch.int32, device=device)
+        t.vpows, t.out = _pointers([v_pows])[0], out.data_ptr()
+        K_OPEN_COMBINE(ctypes.addressof(t), _cuda.stream())
+    return out
+
+
 def _eval_stack(stacked: torch.Tensor, x_m: torch.Tensor,
                 pows: torch.Tensor | None = None) -> torch.Tensor:
     """Evaluate every poly of (m, n, 8) at the point x -> (m, 8).  `pows`,
     where the caller has them, are the powers x^0 .. x^(n-1) or more."""
     n = stacked.shape[1]
-    pows = P.powers_of(CTX, x_m, n) if pows is None else pows[:n]
-    prods = _mul(stacked, pows).transpose(0, 1).contiguous()  # (n, m, 8)
-    return _tree_sum(prods)
+    pows = P.powers_of(CTX, x_m, n) if pows is None else pows
+    return open_stack("eval", [list(stacked)], [pows])
 
 
 def _gwc_witness(stacked: torch.Tensor, v_m, z_m, zinv_m,
@@ -417,7 +521,6 @@ def _gwc_witness(stacked: torch.Tensor, v_m, z_m, zinv_m,
     `z_pows`, where the caller has them, are the powers z^0 .. z^(n-1)."""
     m, n, _ = stacked.shape
     v_pows = P.powers_of(CTX, v_m, m)
-    q = _tree_sum(_mul(stacked, v_pows[:, None, :]))
     zp = P.powers_of(CTX, z_m, n) if z_pows is None else z_pows
-    zinv_p = P.powers_of(CTX, zinv_m, n + 1)
-    return P.divide_by_linear(CTX, q, zp, zinv_p)
+    t = open_stack("combine", [list(stacked)], [zp], v_pows)[0]
+    return P.divide_scaled(CTX, t, P.powers_of(CTX, zinv_m, n + 1))

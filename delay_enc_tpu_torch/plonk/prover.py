@@ -32,7 +32,7 @@ from ..cs.range import build_table
 from ..fields.bn254 import FR
 from ..ops import limbs as L
 from ..ops.ntt import powers
-from ..ops.poly import powers_of
+from ..ops.poly import divide_scaled, powers_of
 from ..utils.device import resolve, synchronize
 from ..utils.timers import GLOBAL_METRICS
 from .domain import MAX_DEGREE, QUOTIENT_PIECES
@@ -40,15 +40,14 @@ from .keygen import ALL_FIXED, LOOKUPS, ProvingKey
 from .kernels import (
     _canon_batch,
     _coeff,
-    _eval_stack,
     _evals_batch,
     _ext,
     _gp_finish,
     _gp_partials,
-    _gwc_witness,
     challenge_words,
     gp_fracs,
     msm_commit_batch,
+    open_stack,
     quotient_stacked,
 )
 from .transcript import Transcript
@@ -317,27 +316,22 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     opens_wx = [advice_coeff[4], z_perm_coeff] + [z_lookup_coeff[l] for l in LOOKUPS]
     opens_winvx = [ap_coeff[l] for l in LOOKUPS]
 
-    # the powers of each point serve its evaluations and its GWC witness
-    stacks, evals, point_pows = {}, {}, {}
-    for key, opens, point in (("x", opens_x, x), ("wx", opens_wx, x_w),
-                              ("winvx", opens_winvx, x_winv)):
-        stacks[key] = torch.stack(opens)
-        point_m = mont1(point)[0]
-        point_pows[key] = powers_of(ctx, point_m, n)
-        evals[key] = L.from_device_mont(ctx, _eval_stack(stacks[key], point_m, point_pows[key]))
-    for key in ("x", "wx", "winvx"):
-        for v in evals[key]:
-            tr.write_scalar(v)
+    # the powers of each point serve its evaluations and its GWC witness; K7
+    # takes the opened rows where they lie, every point in one launch
+    stacks = [opens_x, opens_wx, opens_winvx]
+    points = [x, x_w, x_winv]
+    point_pows = [powers_of(ctx, mont1(p)[0], n) for p in points]
+    for e in L.from_device_mont(ctx, open_stack("eval", stacks, point_pows)):
+        tr.write_scalar(e)
     _phase("evals")
 
     # ---- 7. GWC multiopen ---------------------------------------------
     # the three W commitments share one challenge, so their MSMs batch
     v = tr.challenge()
-    v_m0 = mont1(v)[0]
-    ws = []
-    for key, point in (("x", x), ("wx", x_w), ("winvx", x_winv)):
-        ws.append(_gwc_witness(stacks[key], v_m0, mont1(point)[0],
-                               mont1(pow(point, -1, FR.p))[0], point_pows[key]))
+    v_pows = powers_of(ctx, mont1(v)[0], max(len(rows) for rows in stacks))
+    scaled = open_stack("combine", stacks, point_pows, v_pows)
+    ws = [divide_scaled(ctx, t, powers_of(ctx, mont1(pow(p, -1, FR.p))[0], n + 1))
+          for t, p in zip(scaled, points)]
     for pt in commit_many(ws):
         tr.write_point(pt)
     _phase("gwc")

@@ -1,11 +1,13 @@
 """The scan kernel of delay_enc_tpu_torch (`field_scan`) without a card: the
-plain version that follows the kernel's own steps (tile totals, their
-exclusive scan, the tiles again) with a small tile, against the block and
-ladder scans and against the JAX package's prefix_product, suffix_product,
-suffix_sum, powers_of and divide_by_linear, for inclusive, exclusive,
-reverse and ragged lengths; and the kernel's per-thread body itself
-(csrc/scan_tile.cuh is __host__ __device__), built by the host C++ compiler
-and checked against Python integers.  No tolerance: the words are equal."""
+plain version that follows the kernel's own steps (each thread's elements,
+the scan of the threads' totals, the tile's prefix from its predecessors or,
+for a constant input, by squaring, each thread's elements again) with small
+tiles and the kernel's own, against the block and ladder scans, for
+inclusive, exclusive, reverse and ragged lengths; and the kernel's tile body
+itself (csrc/scan_tile.cuh is __host__ __device__), built by the host C++
+compiler with the look-back walked in an order drawn from a seed, and checked
+against Python integers.  The JAX comparisons of the scans are in
+tests/test_torch_poly.py.  No tolerance: the words are equal."""
 
 import itertools
 import os
@@ -16,16 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-
 from delay_enc_tpu.fields import FR
 from delay_enc_tpu.fields.bn254 import FQ
-from delay_enc_tpu.ops import limbs as JL
-from delay_enc_tpu.ops import poly as JP
 from delay_enc_tpu_torch.ops import limbs as TL
 from delay_enc_tpu_torch.ops import poly as TP
 
-JCTX, CTX = JL.FR_CTX, TL.FR_CTX
+CTX = TL.FR_CTX
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "delay_enc_tpu_torch", "csrc")
 N = 64
@@ -41,14 +39,6 @@ def _t(w):
     return TL.to_tensor(w, "cpu")
 
 
-def _limbs(t):
-    return TL.words_to_limbs_np(TL.to_numpy(t))
-
-
-def _j(w):
-    return TL.words_to_limbs_np(w)
-
-
 @pytest.fixture(scope="module")
 def column():
     return _rand_mont(np.random.default_rng(2025), N)
@@ -59,64 +49,24 @@ def column():
 @pytest.mark.parametrize("op,exclusive,reverse", FORMS)
 @pytest.mark.parametrize("n", [1, 2, 7, 64, 100])
 def test_tiles_plain_matches_block_and_ladder(op, exclusive, reverse, n):
+    """Tiles of one element, of a few, and the kernel's small tile; a row of
+    100 in tiles of one walks the look-back over four windows."""
     rng = np.random.default_rng(n)
     a = _t(_rand_mont(rng, 3, n))
     want = TP.scan(CTX, a, op, "block", exclusive=exclusive, reverse=reverse)
     assert torch.equal(TP.scan(CTX, a, op, "hs", exclusive=exclusive, reverse=reverse), want)
-    for tile in (1, 4, 16, 1024):
+    for tile in ((1, 1), (2, 2), (4, 2), TP.SMALL_TILE):
         got = TP.scan_tiles_plain(CTX, a, op, tile=tile, exclusive=exclusive, reverse=reverse)
         assert torch.equal(got, want), tile
 
 
-@pytest.mark.parametrize("exclusive", [False, True])
-def test_prefix_and_suffix_products_match_jax(column, exclusive):
-    one = np.asarray(JCTX.one_mont())[None]
-    for name, reverse in (("prefix_product", False), ("suffix_product", True)):
-        want = np.asarray(jax.jit(lambda a: getattr(JP, name)(JCTX, a, "block"))(_j(column)))
-        if exclusive:  # the JAX package shifts its inclusive scans (kernels.py _gp_finish)
-            want = np.concatenate([want[1:], one] if reverse else [one, want[:-1]])
-        got = getattr(TP, name)(CTX, _t(column), "block", exclusive=exclusive)
-        assert np.array_equal(_limbs(got), want)
-        tiled = TP.scan_tiles_plain(CTX, _t(column), "mul", tile=8, exclusive=exclusive,
-                                    reverse=reverse)
-        assert np.array_equal(_limbs(tiled), want)
-
-
-@pytest.mark.parametrize("exclusive", [False, True])
-def test_suffix_sum_matches_jax(column, exclusive):
-    want = np.asarray(jax.jit(lambda a: JP.suffix_sum(JCTX, a))(_j(column)))
-    if exclusive:
-        want = np.concatenate([want[1:], np.zeros_like(want[:1])])
-    got = TP.suffix_sum(CTX, _t(column), "block", exclusive=exclusive)
-    assert np.array_equal(_limbs(got), want)
-    tiled = TP.scan_tiles_plain(CTX, _t(column), "add", tile=8, exclusive=exclusive, reverse=True)
-    assert np.array_equal(_limbs(tiled), want)
-
-
-@pytest.mark.parametrize("n", [1, 2, 3, 64, 65])
-def test_powers_are_the_exclusive_scan_of_a_constant(column, n):
-    """powers_of as the kernel computes it, against the JAX package's ladder."""
-    x = column[5]
-    want = np.asarray(jax.jit(lambda v: JP.powers_of(JCTX, v, n))(_j(x)))
-    assert np.array_equal(_limbs(TP.powers_of(CTX, _t(x), n)), want)
-    const = _t(x).expand(n, 8)
-    for tile in (4, 1024):
-        got = TP.scan_tiles_plain(CTX, const, "mul", tile=tile, exclusive=True)
-        assert np.array_equal(_limbs(got), want)
-
-
-def test_divide_by_linear_matches_jax(column):
-    z = FR.random(np.random.default_rng(7))
-    zp = CTX.to_mont_np([pow(z, i, FR.p) for i in range(N)])
-    zinv = CTX.to_mont_np([pow(z, -i, FR.p) for i in range(N + 1)])
-    got = TP.divide_by_linear(CTX, _t(column), _t(zp), _t(zinv))
-    want = jax.jit(lambda c, a, b: JP.divide_by_linear(JCTX, c, a, b))(
-        _j(column), _j(zp), _j(zinv))
-    assert np.array_equal(_limbs(got), np.asarray(want))
-    # and through the kernel's steps: the exclusive reverse sum of a_j z^j
-    t = TL.mont_mul(CTX, _t(column), _t(zp))
-    above = TP.scan_tiles_plain(CTX, t, "add", tile=8, exclusive=True, reverse=True)
-    assert np.array_equal(_limbs(TL.mont_mul(CTX, above, _t(zinv)[1:])), np.asarray(want))
+def test_kernel_tile_choice():
+    """The large tile where it gives at least MIN_TILES blocks: (5, 2^16)
+    does not, (5, 2^20) does."""
+    assert TP.tile_for(1, 1 << 16) == TP.SMALL_TILE
+    assert TP.tile_for(5, 1 << 16) == TP.SMALL_TILE
+    assert TP.tile_for(1, 1 << 20) == TP.LARGE_TILE
+    assert TP.tile_for(264, 1) == TP.LARGE_TILE
 
 
 def test_zero_inside_a_product_scan():
@@ -126,7 +76,8 @@ def test_zero_inside_a_product_scan():
     a[1, 0] = 0
     for exclusive, reverse in itertools.product((False, True), repeat=2):
         want = TP.scan(CTX, _t(a), "mul", "hs", exclusive=exclusive, reverse=reverse)
-        got = TP.scan_tiles_plain(CTX, _t(a), "mul", tile=8, exclusive=exclusive, reverse=reverse)
+        got = TP.scan_tiles_plain(CTX, _t(a), "mul", tile=(2, 2), exclusive=exclusive,
+                                  reverse=reverse)
         assert torch.equal(got, want)
     incl = TP.prefix_product(CTX, _t(a), "block")
     assert not incl[0, :13].eq(0).all(-1).any() and incl[0, 13:].eq(0).all()
@@ -140,68 +91,118 @@ def test_unknown_names_raise(column):
         TP.scan(CTX, _t(column), "max", "block")
 
 
-# ------------------------------------ the kernel's thread body, host-compiled
+# ------------------------------------- the kernel's tile body, host-compiled
 
 HARNESS = r"""
+#include <algorithm>
 #include <cstdio>
+#include <random>
 #include <vector>
 #include "scan_tile.cuh"
-// stdin: op field rows n flags threads, then the input's words (one element
-// with the CONSTANT flag).  The three launches of csrc/scan.cu with blocks of
-// `threads` threads; the scan of the threads' totals across a block, which
-// the card does with shuffles, is a loop here.
-template <int F, int OP>
-void launch(const uint32_t* in, uint32_t* out, const uint32_t* start, uint32_t* totals,
-            unsigned blocks, unsigned n, unsigned in_stride, unsigned blocks_a_row,
-            unsigned tiles, unsigned flags, unsigned threads) {
-  for (unsigned b = 0; b < blocks; b++) {
-    const unsigned row = b / blocks_a_row, blk = b - row * blocks_a_row;
-    const uint32_t* in_row = in + (size_t)row * in_stride * 8;
-    uint32_t* out_row = out + (size_t)row * n * 8;
-    uint32_t carry[8];
-    if (start) scan::ld8(carry, start + (size_t)b * 8); else scan::identity<F, OP>(carry);
-    for (unsigned t = 0; t < tiles; t++) {
-      std::vector<uint32_t> xs((size_t)threads * scan::ITEMS * 8);
-      auto x = [&](unsigned tid) { return (uint32_t(*)[8])(xs.data() + (size_t)tid * scan::ITEMS * 8); };
-      auto base = [&](unsigned tid) { return ((blk * tiles + t) * threads + tid) * scan::ITEMS; };
-      for (unsigned tid = 0; tid < threads; tid++)
-        scan::thread_load<F, OP>(x(tid), in_row, n, base(tid), flags);
-      uint32_t run[8];
-      fld::copy(run, carry);
-      for (unsigned tid = 0; tid < threads; tid++) {
-        if (!totals) scan::thread_store<F, OP>(x(tid), run, out_row, n, base(tid), flags);
-        scan::combine<F, OP>(run, run, x(tid)[scan::ITEMS - 1]);
-      }
-      fld::copy(carry, run);
+// stdin: op field rows n flags threads items seed, then the input's words
+// (one element with the CONSTANT flag); op 9 prints records_words(n).  The
+// blocks of csrc/scan.cu with `threads` threads of `items` elements: first
+// every block up to its published total, in tile order; then every block's
+// look-back, prefix and stores, in an order drawn from `seed`, so that a
+// look-back meets predecessors with and without their inclusive prefix.  The
+// scans across a block and across a look-back window, which the card does
+// with shuffles, are loops here.
+static void publish(const scan::Records& recs, size_t rec, uint32_t state, const uint32_t v[8]) {
+  scan::st8((state == scan::PREFIX ? recs.prefix : recs.total) + rec * 8, v);
+  recs.state[rec] = state;
+}
+template <int F, int OP, int ITEMS>
+void run(const uint32_t* in, uint32_t* out, unsigned rows, unsigned n, unsigned flags,
+         unsigned threads, unsigned seed) {
+  const unsigned TILE = threads * ITEMS, nt = (n + TILE - 1) / TILE;
+  const size_t tiles = (size_t)rows * nt, words = threads * (ITEMS * 8 + 4);
+  const bool lookback = nt > 1 && !(flags & scan::CONSTANT);
+  std::vector<uint32_t> scratch(scan::records_words(tiles), 0);
+  const scan::Records recs(scratch.data(), tiles);
+  std::vector<uint32_t> mem(tiles * words), before(tiles * threads * 8), all(tiles * 8);
+  for (size_t rec = 0; rec < tiles; rec++) {
+    const unsigned row = rec / nt, t = rec % nt;
+    const uint32_t* in_row = in + (size_t)row * ((flags & scan::CONSTANT) ? 0u : n) * 8;
+    uint32_t* tile = &mem[rec * words];
+    for (unsigned q = 0; q < 2 * TILE; q++)
+      scan::load_quad<F, OP, ITEMS>(tile, in_row, n, t * TILE, q, flags);
+    uint32_t run[8];
+    scan::identity<F, OP>(run);
+    for (unsigned tid = 0; tid < threads; tid++) {
+      uint32_t total[8];
+      scan::thread_reduce<F, OP, ITEMS>(total, tile, tid);
+      fld::copy(&before[(rec * threads + tid) * 8], run);
+      scan::combine<F, OP>(run, run, total);
     }
-    if (totals) scan::st8(totals + (size_t)b * 8, carry);
+    fld::copy(&all[rec * 8], run);
+    if (lookback) publish(recs, rec, t == 0 ? scan::PREFIX : scan::AGGREGATE, run);
+  }
+  std::vector<size_t> order(tiles);
+  for (size_t i = 0; i < tiles; i++) order[i] = i;
+  std::shuffle(order.begin(), order.end(), std::mt19937(seed));
+  for (size_t rec : order) {
+    const unsigned row = rec / nt, t = rec % nt;
+    uint32_t pre[8];
+    scan::identity<F, OP>(pre);
+    if (!lookback && (flags & scan::CONSTANT)) scan::power<F, OP>(pre, &all[rec * 8], t);
+    if (lookback && t > 0) {
+      for (long long last = (long long)t - 1;; last -= scan::WINDOW) {
+        long long r[scan::WINDOW];
+        int stop = scan::WINDOW;
+        for (int lane = scan::WINDOW - 1; lane >= 0; lane--) {
+          const long long p = last - lane;
+          r[lane] = p >= 0 ? (long long)rec - t + p : -1;
+          const uint32_t state = r[lane] >= 0 ? recs.state[r[lane]] : (uint32_t)scan::PREFIX;
+          if (state == scan::EMPTY) return;  // never: every total is published
+          if (state == scan::PREFIX) stop = lane;
+        }
+        uint32_t sum[8];
+        scan::identity<F, OP>(sum);
+        for (int lane = 0; lane < scan::WINDOW; lane++) {
+          uint32_t v[8];
+          scan::window_value<F, OP>(v, recs, r[lane], lane, stop);
+          scan::combine<F, OP>(sum, sum, v);
+        }
+        scan::combine<F, OP>(pre, sum, pre);
+        if (stop < scan::WINDOW) break;
+      }
+      uint32_t inc[8];
+      scan::combine<F, OP>(inc, pre, &all[rec * 8]);
+      publish(recs, rec, scan::PREFIX, inc);
+    }
+    uint32_t* tile = &mem[rec * words];
+    for (unsigned tid = 0; tid < threads; tid++) {
+      uint32_t p[8];
+      scan::combine<F, OP>(p, pre, &before[(rec * threads + tid) * 8]);
+      scan::thread_apply<F, OP, ITEMS>(tile, tid, p, flags);
+    }
+    for (unsigned q = 0; q < 2 * TILE; q++)
+      scan::store_quad<ITEMS>(out + (size_t)row * n * 8, tile, n, t * TILE, q, flags);
   }
 }
 template <int F, int OP>
-void run(const uint32_t* in, uint32_t* out, unsigned rows, unsigned n, unsigned flags,
-         unsigned threads) {
-  const unsigned tile = threads * scan::ITEMS, nt = (n + tile - 1) / tile;
-  const unsigned in_stride = (flags & scan::CONSTANT) ? 0u : n;
-  if (nt == 1) {
-    launch<F, OP>(in, out, nullptr, nullptr, rows, n, in_stride, 1, 1, flags, threads);
-    return;
-  }
-  std::vector<uint32_t> scratch((size_t)rows * nt * 8);
-  launch<F, OP>(in, out, nullptr, scratch.data(), rows * nt, n, in_stride, nt, 1, flags, threads);
-  launch<F, OP>(scratch.data(), scratch.data(), nullptr, nullptr, rows, nt, nt, 1,
-                (nt + tile - 1) / tile, scan::EXCLUSIVE, threads);
-  launch<F, OP>(in, out, scratch.data(), nullptr, rows * nt, n, in_stride, nt, 1, flags, threads);
+void items(unsigned it, const uint32_t* in, uint32_t* out, unsigned rows, unsigned n,
+           unsigned flags, unsigned threads, unsigned seed) {
+  if (it == 1) run<F, OP, 1>(in, out, rows, n, flags, threads, seed);
+  if (it == 2) run<F, OP, 2>(in, out, rows, n, flags, threads, seed);
+  if (it == 4) run<F, OP, 4>(in, out, rows, n, flags, threads, seed);
+  if (it == 8) run<F, OP, 8>(in, out, rows, n, flags, threads, seed);
 }
 int main() {
-  unsigned op, f, rows, n, flags, threads;
-  if (scanf("%u %u %u %u %u %u", &op, &f, &rows, &n, &flags, &threads) != 6) return 1;
+  unsigned op, f, rows, n, flags, threads, it, seed;
+  if (scanf("%u %u %u %u %u %u %u %u", &op, &f, &rows, &n, &flags, &threads, &it, &seed) != 8)
+    return 1;
+  if (op == 9) {
+    printf("%zu\n", scan::records_words(n));
+    return 0;
+  }
   std::vector<uint32_t> in(((flags & scan::CONSTANT) ? 1 : (size_t)rows * n) * 8);
   for (auto& w : in) if (scanf("%u", &w) != 1) return 1;
   std::vector<uint32_t> out((size_t)rows * n * 8, 0xdeadbeefu);
-  if (f == 0 && op == 0) run<0, 0>(in.data(), out.data(), rows, n, flags, threads);
-  if (f == 0 && op == 1) run<0, 1>(in.data(), out.data(), rows, n, flags, threads);
-  if (f == 1 && op == 0) run<1, 0>(in.data(), out.data(), rows, n, flags, threads);
-  if (f == 1 && op == 1) run<1, 1>(in.data(), out.data(), rows, n, flags, threads);
+  if (f == 0 && op == 0) items<0, 0>(it, in.data(), out.data(), rows, n, flags, threads, seed);
+  if (f == 0 && op == 1) items<0, 1>(it, in.data(), out.data(), rows, n, flags, threads, seed);
+  if (f == 1 && op == 0) items<1, 0>(it, in.data(), out.data(), rows, n, flags, threads, seed);
+  if (f == 1 && op == 1) items<1, 1>(it, in.data(), out.data(), rows, n, flags, threads, seed);
   for (size_t e = 0; e < (size_t)rows * n; e++) {
     for (int j = 0; j < 8; j++) printf("%u ", out[e * 8 + j]);
     printf("\n");
@@ -223,11 +224,13 @@ def scan_harness(tmp_path_factory):
                     f"-I{CSRC}", "-DFLD_EMULATE_PTX", "-o", str(exe), str(src)],
                    check=True, capture_output=True)
 
-    def run(op, fid, rows, n, flags, threads, words):
-        text = f"{op} {fid} {rows} {n} {flags} {threads}\n" + \
+    def run(op, fid, rows, n, flags, tile, seed, words=()):
+        text = f"{op} {fid} {rows} {n} {flags} {tile[0]} {tile[1]} {seed}\n" + \
             " ".join(map(str, np.asarray(words, dtype=np.uint32).reshape(-1))) + "\n"
         out = subprocess.run([str(exe)], input=text, text=True, capture_output=True,
                              check=True, timeout=300).stdout
+        if op == 9:
+            return int(out)
         return np.array([list(map(int, ln.split())) for ln in out.strip().split("\n")],
                         dtype=np.uint32).reshape(rows, n, 8)
 
@@ -247,24 +250,46 @@ def _scan_ints(row, p, op, exclusive, reverse):
 
 
 @pytest.mark.parametrize("fid,field", [(0, FR), (1, FQ)], ids=["fr", "fq"])
-@pytest.mark.parametrize("n,threads", [(1, 2), (2, 2), (5, 1), (16, 4), (37, 2), (300, 4),
-                                       (1000, 256)])
-def test_thread_body_matches_python_ints(scan_harness, fid, field, n, threads):
-    """Every form of the scan through the C++ that the card runs: one, a few
-    and many tiles a row (300 elements in tiles of 16 make the totals' own
-    scan run over two tiles), a ragged last tile, a zero inside."""
+@pytest.mark.parametrize("n,tile", [(1, (2, 1)), (2, (2, 1)), (5, (1, 1)), (16, (2, 2)),
+                                    (37, (2, 4)), (100, (1, 1)), (300, (4, 2)),
+                                    (3000, TP.SMALL_TILE), (4500, TP.LARGE_TILE)])
+def test_thread_body_matches_python_ints(scan_harness, fid, field, n, tile):
+    """Every form of the scan through the C++ that the card runs, at one,
+    a few and many tiles a row (100 tiles of one element walk four look-back
+    windows), a ragged last tile, a zero inside, the kernel's two tiles; and
+    the constant input, the powers of one element."""
     ctx = TL.FR_CTX if fid == 0 else TL.FQ_CTX
     rng = np.random.default_rng(n)
     rows = [[field.random(rng) for _ in range(n)] for _ in range(2)]
     if n > 3:
         rows[1][n // 2] = 0
     words = np.stack([ctx.to_mont_np(r) for r in rows])
-    for op, exclusive, reverse in itertools.product((0, 1), (False, True), (False, True)):
+    for i, (op, exclusive, reverse) in enumerate(itertools.product((0, 1), (False, True),
+                                                                   (False, True))):
         flags = (TP.EXCLUSIVE if exclusive else 0) | (TP.REVERSE if reverse else 0)
-        got = scan_harness(op, fid, 2, n, flags, threads, words)
+        got = scan_harness(op, fid, 2, n, flags, tile, n + i, words)
         want = [v for r in rows for v in _scan_ints(r, field.p, op, exclusive, reverse)]
         assert ctx.from_mont_np(got) == want, (op, exclusive, reverse)
-    # the constant input: the powers of one element
     x = field.random(rng)
-    got = scan_harness(0, fid, 1, n, TP.EXCLUSIVE | TP.CONSTANT, threads, ctx.to_mont_np([x]))
+    got = scan_harness(0, fid, 1, n, TP.EXCLUSIVE | TP.CONSTANT, tile, n, ctx.to_mont_np([x]))
     assert ctx.from_mont_np(got) == [pow(x, i, field.p) for i in range(n)]
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_lookback_in_any_order(scan_harness, seed):
+    """Three rows of 70 one-element tiles, the look-backs walked in three
+    orders: each tile's prefix is the same whichever predecessors have
+    published theirs."""
+    rng = np.random.default_rng(seed)
+    rows = [[FR.random(rng) for _ in range(70)] for _ in range(3)]
+    words = np.stack([CTX.to_mont_np(r) for r in rows])
+    for op in (0, 1):
+        got = scan_harness(op, 0, 3, 70, TP.REVERSE, (1, 1), seed, words)
+        want = [v for r in rows for v in _scan_ints(r, FR.p, op, False, True)]
+        assert CTX.from_mont_np(got) == want
+
+
+def test_scratch_size_matches_records(scan_harness):
+    """The wrapper's scratch is the records' size in csrc/scan_tile.cuh."""
+    for tiles in (1, 2, 7, 8, 9, 1280, 4097):
+        assert TP.scratch_words(tiles) == scan_harness(9, 0, 1, tiles, 0, (1, 1), 0)

@@ -1,18 +1,23 @@
 """Build the port's kernels with optional -D defines, check the multi-stage
-NTT (K-b) and the scan kernel against their plain versions, and time them
-alone at the proof's shapes on one card.
+NTT (K-b), the scan kernel and K7 (the openings' contractions) against their
+plain versions, and time them alone at the proof's shapes on one card.
 
     python3 tools/torch_ntt_scan_bench.py [--define NTT_PORTABLE ...]
         [--layouts 11:10:512,11:8:512,10:10:256] [--reps 5] [--no-check]
+        [--parts ntt,scan,open]
 
 It prints the card's name and power limit, the registers and spills ptxas
-reports for csrc/ntt.cu and csrc/scan.cu, and one JSON line for each
-measurement.  A layout is TILE_LOG:MAX_STAGES:THREADS of ops/ntt.py; every
-layout listed is timed with the one build.  The defines the sources know:
-NTT_PORTABLE (csrc/ntt.cu: the portable Montgomery bodies on the device),
-NTT_MIN_BLOCKS=n and NTT_MAX_THREADS=n (its launch bounds), FLD_PORTABLE
-(csrc/field.cuh, every kernel).  Run it once for each set of defines, all on
-one card one after another; times from two cards do not compare.
+reports for csrc/ntt.cu, csrc/scan.cu and csrc/open.cu, and one JSON line for
+each measurement: "ms" by CUDA events over back-to-back calls (the wrapper's
+host path included where it is the slower), "device_ms" the kernel's own
+time a call from torch.profiler.  A layout is TILE_LOG:MAX_STAGES:THREADS of
+ops/ntt.py; every layout listed is timed with the one build.  The defines
+the sources know: NTT_PORTABLE (csrc/ntt.cu: the portable Montgomery bodies
+on the device), NTT_MIN_BLOCKS=n and NTT_MAX_THREADS=n (its launch bounds),
+SCAN_MIN_TILES=n (csrc/scan.cu: the large tile from n blocks on; 0 takes it
+always, a large n never), FLD_PORTABLE (csrc/field.cuh, every kernel).  Run
+it once for each set of defines, all on one card one after another; times
+from two cards do not compare.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from delay_enc_tpu_torch.ops import _cuda  # noqa: E402
 from delay_enc_tpu_torch.ops import limbs as L  # noqa: E402
 from delay_enc_tpu_torch.ops import ntt as N  # noqa: E402
 from delay_enc_tpu_torch.ops import poly as P  # noqa: E402
+from delay_enc_tpu_torch.plonk import kernels as K  # noqa: E402
 from delay_enc_tpu_torch.plonk.domain import Domain  # noqa: E402
 
 MUL_OPS = 128 * 2  # integer multiply-adds in one Montgomery product
@@ -49,12 +55,29 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, symbol: str):
+    """The device time a call of the kernels whose names hold `symbol`, from
+    torch.profiler; None where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if symbol in e.key)
+    return us / 1e3 / reps if us else None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--layouts", default=f"{N.TILE_LOG}:{N.MAX_STAGES}:{N.THREADS}")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--no-check", action="store_true")
+    ap.add_argument("--parts", default="ntt,scan,open")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -68,7 +91,8 @@ def main() -> int:
 
     _cuda.NVCC_FLAGS.extend(f"-D{d}" for d in args.define)
     _cuda.build(force=True)
-    for name in ("ntt", "scan"):
+    parts = args.parts.split(",")
+    for name in ("ntt", "scan", "open"):
         with open(os.path.join(_cuda.BUILD, f"{name}.log")) as f:
             for line in f:
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -86,6 +110,17 @@ def main() -> int:
         return bool(torch.equal(a, b))
 
     d = Domain(16)
+    ok = True
+    if "ntt" in parts:
+        ok = ntt_part(args, dev, d, rand, same, rate)
+    if "scan" in parts:
+        ok = scan_part(rand, same, rate) and ok
+    if "open" in parts:
+        ok = open_part(dev, rand, same, rate) and ok
+    return 0 if ok else 1
+
+
+def ntt_part(args, dev, d, rand, same, rate) -> bool:
     plan, plan_ext = d.plan(dev), d.plan_ext(dev)
     zeta = N.powers(CTX, d.zeta, d.n_ext, dev)
     big = rand(19, 1 << 19)
@@ -123,36 +158,71 @@ def main() -> int:
                 "agrees": agrees, "ms": timed(fn, args.reps),
                 "bound_ms": batch * k * (1 << (k - 1)) * MUL_OPS / rate * 1e3}), flush=True)
     del big, col, six, one, wants
+    return ok
 
-    # field_scan: every form at (5, 2^16), the powers of one element, and the
-    # ladders of elementwise launches (the plain versions) beside them
-    x5 = rand(5, 1 << 16)
-    n = 1 << 16
-    for op in ("mul", "add"):
-        for exclusive in (False, True):
-            for reverse in (False, True):
-                fn = lambda: P.scan(CTX, x5, op, "block", exclusive=exclusive, reverse=reverse)
-                plain = lambda: P.scan_plain(CTX, x5, op, "block", exclusive=exclusive,
-                                             reverse=reverse)
-                agrees = None if args.no_check else same(fn(), plain())
-                ok = ok and agrees is not False
-                print(json.dumps({
-                    "kernel": "field_scan", "shape": "(5, 2^16)", "op": op,
-                    "exclusive": exclusive, "reverse": reverse, "agrees": agrees,
-                    "ms": timed(fn, 20), "plain_ms": timed(plain, 3),
-                    "bound_ms": max(2 * x5.numel() * 4 / HBM,
-                                    5 * (n - 1) * (MUL_OPS if op == "mul" else 0) / rate) * 1e3,
-                }), flush=True)
-    x = x5[0, 7].contiguous()
-    for count in (n, n + 1):
+
+def scan_part(rand, same, rate) -> bool:
+    """field_scan: every form at (5, 2^16), one row of 2^16 and of 2^20, the
+    powers of one element, and the plain versions (ladders over K-a) beside
+    them."""
+    ok = True
+    for rows, n in ((5, 1 << 16), (1, 1 << 16), (1, 1 << 20)):
+        x = rand(rows, n)
+        for op in ("mul", "add"):
+            for exclusive in (False, True):
+                for reverse in (False, True):
+                    fn = lambda: P.scan(CTX, x, op, "block", exclusive=exclusive, reverse=reverse)
+                    plain = lambda: P.scan_plain(CTX, x, op, "block", exclusive=exclusive,
+                                                 reverse=reverse)
+                    agrees = same(fn(), plain())
+                    ok = ok and agrees
+                    print(json.dumps({
+                        "kernel": "field_scan", "shape": f"({rows}, {n})", "op": op,
+                        "exclusive": exclusive, "reverse": reverse, "tile": P.tile_for(rows, n),
+                        "agrees": agrees, "ms": timed(fn, 20),
+                        "device_ms": device_ms(fn, 20, "scan_kernel"),
+                        "plain_ms": timed(plain, 3),
+                        "bound_ms": max(2 * x.numel() * 4 / HBM,
+                                        rows * (n - 1) * (MUL_OPS if op == "mul" else 0)
+                                        / rate) * 1e3,
+                    }), flush=True)
+    x = rand(1)[0]
+    for count in (1 << 16, (1 << 16) + 1):
         fn = lambda: P.powers_of(CTX, x, count)
         plain = lambda: P.powers_of_plain(CTX, x, count)
-        agrees = None if args.no_check else same(fn(), plain())
-        ok = ok and agrees is not False
+        agrees = same(fn(), plain())
+        ok = ok and agrees
         print(json.dumps({"kernel": "field_scan", "shape": f"powers, n={count}",
-                          "agrees": agrees, "ms": timed(fn, 20), "plain_ms": timed(plain, 3),
+                          "tile": P.tile_for(1, count), "agrees": agrees,
+                          "ms": timed(fn, 20), "device_ms": device_ms(fn, 20, "scan_kernel"),
+                          "plain_ms": timed(plain, 3),
                           "bound_ms": (count - 1) * MUL_OPS / rate * 1e3}), flush=True)
-    return 0 if ok else 1
+    return ok
+
+
+def open_part(dev, rand, same, rate) -> bool:
+    """K7 at the delay_enc k=16 openings: 47, 6 and 4 rows of 2^16 over
+    three points, eval and combine, against open_stack_plain."""
+    n = 1 << 16
+    counts = (47, 6, 4)
+    stacks = [list(rand(m, n)) for m in counts]
+    pows = [rand(n) for _ in counts]
+    v_pows = rand(max(counts))
+    rows = sum(counts)
+    ok = True
+    for kind, products, symbol in (("eval", rows, "open_eval_kernel"),
+                                   ("combine", rows + len(counts), "open_combine_kernel")):
+        fn = lambda: K.open_stack(kind, stacks, pows, v_pows)
+        plain = lambda: K.open_stack_plain(kind, stacks, pows, v_pows)
+        agrees = same(fn(), plain())
+        ok = ok and agrees
+        nbytes = (rows + len(counts)) * n * 32 + (len(counts) * n * 32 if kind == "combine" else 0)
+        print(json.dumps({"kernel": f"open_{kind}", "shape": "(47, 6, 4) rows of 2^16",
+                          "agrees": agrees, "ms": timed(fn, 20),
+                          "device_ms": device_ms(fn, 20, symbol), "plain_ms": timed(plain, 3),
+                          "bound_ms": max(nbytes / HBM, products * n * MUL_OPS / rate) * 1e3}),
+              flush=True)
+    return ok
 
 
 if __name__ == "__main__":
