@@ -333,12 +333,12 @@ def phase1(rep: Report, dev):
             nbytes=2 * x5.numel() * 4, int_ops=5 * ((1 << 16) - 1) * MONT_MULS * WIDE,
             device_ms=device_ms(fn, 20, "scan_kernel"),
             note=f" (inclusive forward product over (5, 2^16), one launch, tiles of "
-                 f"{P.tile_for(5, 1 << 16)} threads x elements)")
+                 f"{P.kernel_plan(5, 1 << 16)[0]} threads x elements)")
     forms = [(op, ex, rv) for op in ("mul", "add") for ex in (False, True) for rv in (False, True)]
 
     def repeats(rows, n):
         """50 runs where a row is more than one tile: the look-back is a race."""
-        threads, items = P.tile_for(rows, n)
+        threads, items = P.kernel_plan(rows, n)[0]
         return SCAN_REPEATS if n > threads * items else 1
 
     def scan_err(x):
@@ -371,7 +371,7 @@ def phase1(rep: Report, dev):
                  int_ops=x.shape[0] * (n_ - 1) * MONT_MULS * WIDE,
                  note=f" (time of the exclusive reverse product; device time "
                       f"{ms_text(device_ms(fn, 10, 'scan_kernel'))}; tiles of "
-                      f"{P.tile_for(x.shape[0], n_)}; each form {runs} times, every result "
+                      f"{P.kernel_plan(x.shape[0], n_)[0]}; each form {runs} times, every result "
                       f"compared)")
     for count in (1, 2, 1000, 1 << 16, (1 << 16) + 1, 1 << 20):
         x = x5[1, 3].contiguous()

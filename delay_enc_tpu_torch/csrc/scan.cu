@@ -29,12 +29,9 @@
 //
 // About 2.6 products an element (7/8 to reduce, 5/8 in the warp scan, 1/8
 // to combine the thread's prefix, 1 to apply), against about 8 in the
-// earlier three-launch design.  Two tile sizes, both of 8 elements a thread:
-// 256 threads, and 128 where the large tiles would give fewer than
-// SCAN_MIN_TILES blocks.  A thread's products run one after another, so the
-// chain of a tile, not the count of blocks, sets the time of a short scan:
-// the 1024-element tile beat the 2048 and those of 512 and 256 at (5, 2^16)
-// and (1, 2^16) (tools/torch_ntt_scan_bench.py).
+// earlier three-launch design.  The tile a shape takes, and the scratch its
+// call needs, are scan::plan's (csrc/scan_tile.cuh), which the wrapper reads
+// through field_scan_plan.
 //
 // Bound: operations.  At (5, 2^16) the call moves 21 MB (6 us at
 // 3.35 TB/s) and needs 3.3e5 products (5 us at the integer rate).
@@ -42,16 +39,6 @@
 #include <cuda_runtime.h>
 
 #include "scan_tile.cuh"
-
-#ifndef SCAN_MIN_TILES
-#define SCAN_MIN_TILES 264
-#endif
-#ifndef SCAN_SMALL_THREADS  // the small tile (at least 256 elements: ops/poly.py's scratch)
-#define SCAN_SMALL_THREADS 128
-#endif
-#ifndef SCAN_SMALL_ITEMS
-#define SCAN_SMALL_ITEMS 8
-#endif
 
 namespace {
 
@@ -213,12 +200,13 @@ scan_kernel(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t n,
 }
 
 template <int F, int OP, int THREADS, int ITEMS>
-int launch(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t rows, uint32_t n,
+int launch(const uint32_t* in, uint32_t* out, uint32_t* scratch, const scan::Plan& p, uint32_t n,
            uint32_t flags, cudaStream_t s) {
+  static_assert(THREADS % 32 == 0 && THREADS / 32 <= 32, "one warp scans the warps' totals");
   constexpr uint32_t TILE = THREADS * ITEMS;
   constexpr size_t SMEM = scan::tile_words<THREADS, ITEMS>() * 4;
   const uint32_t nt = (n + TILE - 1) / TILE;
-  const size_t tiles = (size_t)rows * nt;
+  const size_t tiles = p.tiles;
   if (tiles > 0x7fffffffu) return (int)cudaErrorInvalidValue;
   static bool sized = false;  // above 48 KB of shared memory only when asked for
   if (!sized) {
@@ -228,7 +216,7 @@ int launch(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t rows, 
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  if (nt > 1 && !(flags & scan::CONSTANT)) {
+  if (p.scratch_words != 0) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     const cudaError_t e = cudaMemsetAsync(scratch, 0, scan::reset_words(tiles) * 4, s);
     if (e != cudaSuccess) return (int)e;
@@ -241,19 +229,28 @@ int launch(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t rows, 
 template <int F, int OP>
 int run(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t rows, uint32_t n,
         uint32_t flags, cudaStream_t s) {
-  constexpr uint32_t LARGE = 256 * 8;
-  if ((size_t)rows * ((n + LARGE - 1) / LARGE) >= SCAN_MIN_TILES)
-    return launch<F, OP, 256, 8>(in, out, scratch, rows, n, flags, s);
-  return launch<F, OP, SCAN_SMALL_THREADS, SCAN_SMALL_ITEMS>(in, out, scratch, rows, n, flags, s);
+  const scan::Plan p = scan::plan(rows, n, flags);
+  if (scan::large_tile(rows, n))
+    return launch<F, OP, scan::LARGE_THREADS, scan::LARGE_ITEMS>(in, out, scratch, p, n, flags, s);
+  return launch<F, OP, scan::SMALL_THREADS, scan::SMALL_ITEMS>(in, out, scratch, p, n, flags, s);
 }
 
 }  // namespace
 
+// The tile (threads, elements a thread) that field_scan takes for `rows`
+// rows of n elements, and the words of scratch the call needs (0: none).
+extern "C" int field_scan_plan(unsigned rows, unsigned n, unsigned flags, unsigned* tile,
+                               unsigned long long* scratch_words) {
+  const scan::Plan p = scan::plan(rows, n, flags);
+  tile[0] = p.threads;
+  tile[1] = p.items;
+  *scratch_words = p.scratch_words;
+  return 0;
+}
+
 // in: (rows, n, 8), or one element (8 words) with the CONSTANT flag, which
 // stands for every element of every row; out: (rows, n, 8); scratch: the
-// look-back records, scan::records_words(rows * ceil(n / 256)) words (the
-// count of tiles of 256, which bounds that of any tile from 256 elements
-// on), used when a row is more than one tile and the input is not constant.
+// look-back records, field_scan_plan's words of them (null where it says 0).
 extern "C" int field_scan(int op, int field, const void* in, void* out, void* scratch,
                           unsigned rows, unsigned n, unsigned flags, void* stream) {
   if (rows == 0 || n == 0) return 0;

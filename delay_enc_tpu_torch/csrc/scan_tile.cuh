@@ -22,7 +22,9 @@
 //   power                    base combined with itself t times: the prefix
 //                            of tile t in the CONSTANT form, from c^TILE;
 //   Records, window_value    the look-back records in the scratch, and what a
-//                            lane of a look-back window contributes.
+//                            lane of a look-back window contributes;
+//   plan                     the tile the kernel takes for a shape, and the
+//                            scratch the call needs.
 //
 // The kernel scans the threads' totals across the block with warp shuffles
 // and walks the look-back with one lane a predecessor.  The functions here
@@ -171,6 +173,40 @@ struct Records {
         total(scratch + reset_words(tiles)),
         prefix(scratch + reset_words(tiles) + 8 * tiles) {}
 };
+
+// The kernel's two tiles, both of 8 elements a thread: 256 threads, and 128
+// where the large tiles would give fewer than MIN_TILES blocks (two for each
+// of the H100's 132 SMs), so that one row of 2^16 still fills the card.  A
+// thread's products run one after another, so the chain of a tile, not the
+// count of blocks, sets the time of a short scan: the 1024-element tile beat
+// the 2048 and those of 512 and 256 at (5, 2^16) and (1, 2^16)
+// (tools/torch_ntt_scan_bench.py).  To try another, change it here: the
+// wrapper takes the tile and the scratch from `plan` (field_scan_plan).
+constexpr int LARGE_THREADS = 256, LARGE_ITEMS = 8;
+constexpr int SMALL_THREADS = 128, SMALL_ITEMS = 8;
+constexpr size_t MIN_TILES = 264;
+
+struct Plan {
+  unsigned threads, items;
+  size_t tiles;          // of all rows
+  size_t scratch_words;  // the records where a row is more than one tile, else 0
+};
+
+FDEV bool large_tile(size_t rows, uint32_t n) {
+  constexpr size_t LARGE = (size_t)LARGE_THREADS * LARGE_ITEMS;
+  return rows * ((n + LARGE - 1) / LARGE) >= MIN_TILES;
+}
+
+FDEV Plan plan(size_t rows, uint32_t n, uint32_t flags) {
+  const bool large = large_tile(rows, n);
+  Plan p;
+  p.threads = large ? LARGE_THREADS : SMALL_THREADS;
+  p.items = large ? LARGE_ITEMS : SMALL_ITEMS;
+  const size_t tile = (size_t)p.threads * p.items, nt = (n + tile - 1) / tile;
+  p.tiles = rows * nt;
+  p.scratch_words = nt > 1 && !(flags & CONSTANT) ? records_words(p.tiles) : 0;
+  return p;
+}
 
 // one element written by another block: from L2, past this SM's L1
 FDEV void ld8_shared_by_blocks(uint32_t r[8], const uint32_t* p) {

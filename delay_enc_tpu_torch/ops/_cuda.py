@@ -38,6 +38,7 @@ _SIGNATURES = {
     "field_binary": ("field", [_I, _I, _P, _P, _P, _U, _U, _U, _U, _U, _P]),
     "ntt_fused": ("ntt", [_P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _U, _U, _U, _U, _P]),
     "field_scan": ("scan", [_I, _I, _P, _P, _P, _U, _U, _U, _P]),
+    "field_scan_plan": ("scan", [_U, _U, _U, _P, _P]),
     "plane_sums": ("msm", [_P, _P, _P, _U, _U, _U, _U, _U, _I, _P]),
     "plane_sums16": ("msm", [_P, _P, _P, _U, _U, _U, _U, _U, _I, _P]),
     "pair_sel": ("msm", [_P, _P, _U, _U, _U, _P]),
@@ -113,6 +114,27 @@ def _lib(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+_fns: dict = {}
+
+
+def _bind(symbol: str):
+    if symbol not in _fns:
+        libname, argtypes = _SIGNATURES[symbol]
+        fn = getattr(_lib(libname), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return _fns[symbol]
+
+
+def query(symbol: str, *args) -> None:
+    """Call a C entry point that launches nothing (a kernel's plan for a
+    shape); it counts as no launch."""
+    rc = _bind(symbol)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: error {rc}")
+
+
 class Kernel:
     """One CUDA entry point with its launch count."""
 
@@ -122,16 +144,9 @@ class Kernel:
         self.replaces = replaces
         self.source = source
         self.launches = 0
-        self._fn = None
 
     def __call__(self, *args) -> None:
-        if self._fn is None:
-            libname, argtypes = _SIGNATURES[self.symbol]
-            fn = getattr(_lib(libname), self.symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        rc = self._fn(*args)
+        rc = _bind(self.symbol)(*args)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {rc}")
         self.launches += 1

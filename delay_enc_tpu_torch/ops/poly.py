@@ -21,6 +21,8 @@ others.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _cuda
@@ -29,10 +31,6 @@ from .limbs import FieldCtx
 
 SCAN_BLOCK = 16  # rows per block of the "block" scan
 SCANS = ("block", "hs")
-# the kernel's tiles (csrc/scan.cu): (threads, elements a thread); the small
-# one where the large would give fewer than MIN_TILES blocks
-LARGE_TILE, SMALL_TILE, MIN_TILES = (256, 8), (128, 8), 264
-SCRATCH_TILE = 256  # elements of the smallest tile the scratch is sized for
 EXCLUSIVE, REVERSE, CONSTANT = 1, 2, 4  # flag bits of the kernel
 OPS = {"mul": 0, "add": 1}
 
@@ -112,12 +110,6 @@ def scan_plain(ctx: FieldCtx, a: torch.Tensor, op: str, impl: str, *,
     return x.flip(-2) if reverse else x
 
 
-def tile_for(rows: int, n: int) -> tuple:
-    """The tile the kernel takes for `rows` rows of n elements."""
-    threads, items = LARGE_TILE
-    return LARGE_TILE if rows * -(-n // (threads * items)) >= MIN_TILES else SMALL_TILE
-
-
 def _power_plain(fn, identity: torch.Tensor, base: torch.Tensor, t: torch.Tensor):
     """base (…, 8) combined with itself t (…,) times, by squaring."""
     r = identity.expand_as(base)
@@ -129,11 +121,11 @@ def _power_plain(fn, identity: torch.Tensor, base: torch.Tensor, t: torch.Tensor
     return r
 
 
-def scan_tiles_plain(ctx: FieldCtx, a: torch.Tensor, op: str, *, tile: tuple | None = None,
+def scan_tiles_plain(ctx: FieldCtx, a: torch.Tensor, op: str, *, tile: tuple,
                      exclusive: bool = False, reverse: bool = False,
                      n: int | None = None) -> torch.Tensor:
     """The scan in the kernel's own steps, with tiles of `tile` = (threads,
-    elements a thread), by default the kernel's for this shape.  Element j in
+    elements a thread); `kernel_plan` gives the kernel's.  Element j in
     scan order is index j, or n - 1 - j in reverse; elements from n on count
     as the identity.  Each thread combines its elements one after another;
     the threads' totals are scanned across the tile, which gives the tile's
@@ -152,7 +144,7 @@ def scan_tiles_plain(ctx: FieldCtx, a: torch.Tensor, op: str, *, tile: tuple | N
         n, lead = a.shape[-2], a.shape[:-2]
     if n == 0:
         return a.new_empty(*lead, 0, L.NW)
-    threads, items = tile or tile_for(int(torch.Size(lead).numel()), n)
+    threads, items = tile
     size = threads * items
     nt = -(-n // size)
     j = torch.arange(n, device=a.device)
@@ -191,11 +183,15 @@ def scan_tiles_plain(ctx: FieldCtx, a: torch.Tensor, op: str, *, tile: tuple | N
 
 # ------------------------------------------------------------------ dispatch
 
-def scratch_words(tiles: int) -> int:
-    """Words of the kernel's look-back records for `tiles` tiles
-    (csrc/scan_tile.cuh records_words): a counter, a state a tile, a total
-    and an inclusive prefix a tile."""
-    return 8 + -(-tiles // 8) * 8 + 16 * tiles
+def kernel_plan(rows: int, n: int, flags: int = 0) -> tuple:
+    """The kernel's tile (threads, elements a thread) for `rows` rows of n
+    elements, and the words of scratch its call needs (0: none), from the
+    kernel's own build (csrc/scan_tile.cuh plan)."""
+    tile = (ctypes.c_uint * 2)()
+    words = ctypes.c_ulonglong()
+    _cuda.query("field_scan_plan", rows, n, flags, ctypes.addressof(tile),
+                ctypes.addressof(words))
+    return (tile[0], tile[1]), words.value
 
 
 def _launch(ctx: FieldCtx, src: torch.Tensor, shape, op: str, flags: int) -> torch.Tensor:
@@ -211,10 +207,8 @@ def _launch(ctx: FieldCtx, src: torch.Tensor, shape, op: str, flags: int) -> tor
     if n >= 1 << 31:
         raise ValueError("row too long for the scan kernel")
     src = src.contiguous()
-    scratch = None
-    tiles = rows * -(-n // SCRATCH_TILE)  # at least the kernel's count of tiles
-    if tiles > rows and not flags & CONSTANT:
-        scratch = torch.empty(scratch_words(tiles), dtype=torch.int32, device=src.device)
+    _, words = kernel_plan(rows, n, flags)
+    scratch = torch.empty(words, dtype=torch.int32, device=src.device) if words else None
     K_SCAN(OPS[op], ctx.fid, src.data_ptr(), out.data_ptr(), _cuda.ptr(scratch), rows, n,
            flags, _cuda.stream())
     return out
@@ -272,18 +266,11 @@ def powers_of(ctx: FieldCtx, x: torch.Tensor, n: int) -> torch.Tensor:
     return _launch(ctx, x, (n, L.NW), "mul", EXCLUSIVE | CONSTANT)
 
 
-def divide_by_linear(ctx: FieldCtx, coeffs: torch.Tensor, z_powers: torch.Tensor,
-                     zinv_powers: torch.Tensor) -> torch.Tensor:
-    """(f(X) - f(z)) / (X - z) in coefficient form:
-    b_i = (sum of a_j z^j over j > i) * z^-(i+1).  Returns the n-1
-    coefficients padded with a zero to length n."""
-    n = coeffs.shape[-2]
-    return divide_scaled(ctx, L.mont_mul(ctx, coeffs, z_powers[:n]), zinv_powers)
-
-
 def divide_scaled(ctx: FieldCtx, t: torch.Tensor, zinv_powers: torch.Tensor) -> torch.Tensor:
-    """`divide_by_linear` from t_j = a_j z^j: the exclusive suffix sums of t
-    times z^-(i+1)."""
+    """(f(X) - f(z)) / (X - z) in coefficient form, from t_j = a_j z^j
+    (delay_enc_tpu/ops/poly.py divide_by_linear, whose product by the powers
+    of z is K7's): b_i = (sum of t_j over j > i) * z^-(i+1), the n-1
+    coefficients padded with a zero to length n."""
     n = t.shape[-2]
     above = suffix_sum(ctx, t, "block", exclusive=True)
     return L.mont_mul(ctx, above, zinv_powers[1 : n + 1])

@@ -8,7 +8,9 @@ products, and `quotient_h` (K6, `csrc/quotient.cu`), the y-folded quotient
 expression times 1/Z_H.  The openings' contractions of coefficient rows with
 the powers of a point are K7 (`open_stack`, `csrc/open.cu`): one launch
 evaluates every opened row at its point, one forms every point's v-weighted
-sum times z^i.  On CPU tensors they run their plain versions, which are the
+sum times z^i, so `_eval_stack` and `_gwc_witness` take the stacks of all
+the points at once, where the JAX package calls them a point at a time.
+On CPU tensors they run their plain versions, which are the
 functions below them.  Field arithmetic goes through `ops.limbs`
 (kernel K-a on a card), transforms through `ops.ntt.stockham` (kernel K-b,
 with the coset scaling, the zero padding, 1/n or zeta^-i / n_ext fused into
@@ -506,21 +508,22 @@ def open_stack(kind: str, stacks, pows, v_pows=None) -> torch.Tensor:
     return out
 
 
-def _eval_stack(stacked: torch.Tensor, x_m: torch.Tensor,
-                pows: torch.Tensor | None = None) -> torch.Tensor:
-    """Evaluate every poly of (m, n, 8) at the point x -> (m, 8).  `pows`,
-    where the caller has them, are the powers x^0 .. x^(n-1) or more."""
-    n = stacked.shape[1]
-    pows = P.powers_of(CTX, x_m, n) if pows is None else pows
-    return open_stack("eval", [list(stacked)], [pows])
+def _eval_stack(stacks, pows) -> torch.Tensor:
+    """Evaluate every poly of every stack at its point -> (rows, 8), the rows
+    of every point in order.  stacks[s]: the (n, 8) polys opened at point
+    x_s (an (m, n, 8) tensor or a list of rows); pows[s]: x_s^0 .. x_s^(n-1)
+    or more.  One launch of K7 for all the points."""
+    return open_stack("eval", stacks, pows)
 
 
-def _gwc_witness(stacked: torch.Tensor, v_m, z_m, zinv_m,
-                 z_pows: torch.Tensor | None = None) -> torch.Tensor:
-    """W = (Q - Q(z)) / (X - z) with Q = sum_i v^i p_i over the stack.
-    `z_pows`, where the caller has them, are the powers z^0 .. z^(n-1)."""
-    m, n, _ = stacked.shape
-    v_pows = P.powers_of(CTX, v_m, m)
-    zp = P.powers_of(CTX, z_m, n) if z_pows is None else z_pows
-    t = open_stack("combine", [list(stacked)], [zp], v_pows)[0]
-    return P.divide_scaled(CTX, t, P.powers_of(CTX, zinv_m, n + 1))
+def _gwc_witness(stacks, pows, v_m: torch.Tensor, zinv_ms) -> list:
+    """W_s = (Q_s - Q_s(z_s)) / (X - z_s) with Q_s = sum_j v^j p_{s,j} over
+    stack s, for every point z_s at once -> one (n, 8) a point.  pows[s]:
+    z_s^0 .. z_s^(n-1) or more; v_m and zinv_ms[s] = 1/z_s: (8,) Montgomery
+    elements.  One launch of K7 for all the points, then for each point the
+    exclusive suffix sums times z_s^-(i+1)."""
+    n = stacks[0][0].shape[0]
+    v_pows = P.powers_of(CTX, v_m, max(len(rows) for rows in stacks))
+    scaled = open_stack("combine", stacks, pows, v_pows)
+    return [P.divide_scaled(CTX, t, P.powers_of(CTX, zinv_m, n + 1))
+            for t, zinv_m in zip(scaled, zinv_ms)]

@@ -32,7 +32,7 @@ from ..cs.range import build_table
 from ..fields.bn254 import FR
 from ..ops import limbs as L
 from ..ops.ntt import powers
-from ..ops.poly import divide_scaled, powers_of
+from ..ops.poly import powers_of
 from ..utils.device import resolve, synchronize
 from ..utils.timers import GLOBAL_METRICS
 from .domain import MAX_DEGREE, QUOTIENT_PIECES
@@ -40,14 +40,15 @@ from .keygen import ALL_FIXED, LOOKUPS, ProvingKey
 from .kernels import (
     _canon_batch,
     _coeff,
+    _eval_stack,
     _evals_batch,
     _ext,
     _gp_finish,
     _gp_partials,
+    _gwc_witness,
     challenge_words,
     gp_fracs,
     msm_commit_batch,
-    open_stack,
     quotient_stacked,
 )
 from .transcript import Transcript
@@ -321,17 +322,15 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     stacks = [opens_x, opens_wx, opens_winvx]
     points = [x, x_w, x_winv]
     point_pows = [powers_of(ctx, mont1(p)[0], n) for p in points]
-    for e in L.from_device_mont(ctx, open_stack("eval", stacks, point_pows)):
+    for e in L.from_device_mont(ctx, _eval_stack(stacks, point_pows)):
         tr.write_scalar(e)
     _phase("evals")
 
     # ---- 7. GWC multiopen ---------------------------------------------
     # the three W commitments share one challenge, so their MSMs batch
     v = tr.challenge()
-    v_pows = powers_of(ctx, mont1(v)[0], max(len(rows) for rows in stacks))
-    scaled = open_stack("combine", stacks, point_pows, v_pows)
-    ws = [divide_scaled(ctx, t, powers_of(ctx, mont1(pow(p, -1, FR.p))[0], n + 1))
-          for t, p in zip(scaled, points)]
+    ws = _gwc_witness(stacks, point_pows, mont1(v)[0],
+                      [mont1(pow(p, -1, FR.p))[0] for p in points])
     for pt in commit_many(ws):
         tr.write_point(pt)
     _phase("gwc")

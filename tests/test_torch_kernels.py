@@ -14,6 +14,7 @@ from delay_enc_tpu.plonk import kernels as JK
 from delay_enc_tpu.plonk.domain import Domain as JDomain
 from delay_enc_tpu.plonk.keygen import ALL_FIXED
 from delay_enc_tpu_torch.ops import limbs as TL
+from delay_enc_tpu_torch.ops import poly as TP
 from delay_enc_tpu_torch.plonk import kernels as TK
 from delay_enc_tpu_torch.plonk.domain import Domain as TDomain
 
@@ -125,7 +126,8 @@ def test_quotient_matches_jax():
 def test_eval_stack_matches_jax():
     x = Inputs(5)
     stack, pt = x.words(9, N), x.words(1)[0]
-    assert same(TK._eval_stack(t(stack), t(pt)), JK._jit_eval_stack(j(stack), j(pt)))
+    got = TK._eval_stack([t(stack)], [TP.powers_of(CTX, t(pt), N)])
+    assert same(got, JK._jit_eval_stack(j(stack), j(pt)))
 
 
 def test_gwc_witness_matches_jax():
@@ -133,6 +135,6 @@ def test_gwc_witness_matches_jax():
     stack = x.words(6, N)
     v, z = FR.random(x.rng), FR.random(x.rng)
     vm, zm, zim = (CTX.to_mont_np([c])[0] for c in (v, z, pow(z, -1, FR.p)))
-    got = TK._gwc_witness(t(stack), t(vm), t(zm), t(zim))
+    got = TK._gwc_witness([t(stack)], [TP.powers_of(CTX, t(zm), N)], t(vm), [t(zim)])
     want = JK._jit_gwc_witness(j(stack), j(vm), j(zm), j(zim))
-    assert same(got, want)
+    assert len(got) == 1 and same(got[0], want)

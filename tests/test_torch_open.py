@@ -51,8 +51,8 @@ def test_eval_stack_matches_jax_at(m, n):
     rng = np.random.default_rng(m * 7 + n)
     stack, x = _words(rng, m, n), _words(rng, 1)[0]
     want = JK._jit_eval_stack(_j(stack), _j(x))
-    assert _same(TK._eval_stack(_t(stack), _t(x)), want)
     pows = TP.powers_of_plain(CTX, _t(x), n + 3)  # more powers than rows: the first n count
+    assert _same(TK._eval_stack([_t(stack)], [pows]), want)
     assert _same(TK.open_stack_plain("eval", [list(_t(stack))], [pows]), want)
 
 
@@ -63,16 +63,18 @@ def test_gwc_witness_matches_jax_at(m, n):
     v, z = FR.random(rng), FR.random(rng)
     vm, zm, zim = (CTX.to_mont_np([c])[0] for c in (v, z, pow(z, -1, FR.p)))
     want = JK._jit_gwc_witness(_j(stack), _j(vm), _j(zm), _j(zim))
-    assert _same(TK._gwc_witness(_t(stack), _t(vm), _t(zm), _t(zim)), want)
-    # through the plain contraction and divide_scaled, as the prover calls them
     zp = TP.powers_of_plain(CTX, _t(zm), n)
+    got = TK._gwc_witness([_t(stack)], [zp], _t(vm), [_t(zim)])
+    assert len(got) == 1 and _same(got[0], want)
+    # the plain contraction itself, then divide_scaled
     scaled = TK.open_stack_plain("combine", [list(_t(stack))], [zp],
                                  TP.powers_of_plain(CTX, _t(vm), m))
     assert _same(TP.divide_scaled(CTX, scaled[0], TP.powers_of_plain(CTX, _t(zim), n + 1)), want)
 
 
 def test_points_in_one_call_match_one_call_each():
-    """Three points with 5, 2 and 1 rows, as the prover passes them."""
+    """Three points with 5, 2 and 1 rows, as the prover passes them: the
+    contractions and the GWC witnesses."""
     rng = np.random.default_rng(5)
     n = 100
     stacks = [list(_t(_words(rng, m, n))) for m in (5, 2, 1)]
@@ -87,6 +89,12 @@ def test_points_in_one_call_match_one_call_each():
         assert torch.equal(evals[row : row + len(stacks[s])], one)
         row += len(stacks[s])
         assert torch.equal(scaled[s], TK.open_stack("combine", [stacks[s]], [pows[s]], v_pows)[0])
+    # the GWC witnesses of the three points, as one call and one call a point
+    vm = _t(_words(rng, 1)[0])
+    zinvs = [_t(w) for w in _words(rng, 3)]
+    ws = TK._gwc_witness(stacks, pows, vm, zinvs)
+    for s in range(3):
+        assert torch.equal(ws[s], TK._gwc_witness([stacks[s]], [pows[s]], vm, [zinvs[s]])[0])
 
 
 def test_bad_tables_raise():

@@ -1,5 +1,6 @@
-"""Port parity: the scans, powers_of and divide_by_linear of
-delay_enc_tpu_torch.ops.poly against delay_enc_tpu.ops.poly at n = 16384
+"""Port parity: the scans, powers_of and divide_scaled of
+delay_enc_tpu_torch.ops.poly against delay_enc_tpu.ops.poly (divide_scaled
+against divide_by_linear) at n = 16384
 (the size tests/test_poly.py pins), bit-exact.  Every JAX comparison of a
 scan is a case of `test_matches_jax`; each case also runs `scan_tiles_plain`,
 the kernel's own steps, at the kernel's tile and at a small one.  The JAX
@@ -21,6 +22,7 @@ from delay_enc_tpu_torch.ops import poly as TP
 
 N = 16384
 SHORT = 2048  # elements the ladder ("hs") cases scan
+KERNEL_TILE = (128, 8)  # the kernel's tile for one row of N (tests/test_torch_scan.py)
 JCTX, TCTX = JL.FR_CTX, TL.FR_CTX
 CASES = ([(name, impl, ex) for name in ("prefix_product", "suffix_product", "suffix_sum")
           for impl in ("block", "hs") for ex in (False, True)]
@@ -69,17 +71,16 @@ def _divide_by_linear(column):
     z = FR.random(np.random.default_rng(7))
     zp = TCTX.to_mont_np([pow(z, i, FR.p) for i in range(N)])
     zinv = TCTX.to_mont_np([pow(z, -i, FR.p) for i in range(N + 1)])
-    got = TP.divide_by_linear(TCTX, TL.to_tensor(column, "cpu"), TL.to_tensor(zp, "cpu"),
-                              TL.to_tensor(zinv, "cpu"))
     want = np.asarray(jax.jit(lambda c, a, b: JP.divide_by_linear(JCTX, c, a, b))(
         TL.words_to_limbs_np(column), TL.words_to_limbs_np(zp), TL.words_to_limbs_np(zinv)))
+    # the port's divide_scaled takes a_j z^j, the product that K7 makes
+    t = TL.mont_mul(TCTX, TL.to_tensor(column, "cpu"), TL.to_tensor(zp, "cpu"))
+    got = TP.divide_scaled(TCTX, t, TL.to_tensor(zinv, "cpu"))
     assert np.array_equal(_limbs(got), want)
     # and through the kernel's steps: the exclusive reverse sum of a_j z^j
-    t = TL.mont_mul(TCTX, TL.to_tensor(column, "cpu"), TL.to_tensor(zp, "cpu"))
-    above = TP.scan_tiles_plain(TCTX, t, "add", exclusive=True, reverse=True)
+    above = TP.scan_tiles_plain(TCTX, t, "add", tile=KERNEL_TILE, exclusive=True, reverse=True)
     scaled = TL.mont_mul(TCTX, above, TL.to_tensor(zinv, "cpu")[1:])
-    assert np.array_equal(_limbs(scaled), want)
-    assert torch.equal(TP.divide_scaled(TCTX, t, TL.to_tensor(zinv, "cpu")), scaled)
+    assert torch.equal(scaled, got)
 
 
 @pytest.mark.parametrize("name,impl,exclusive", CASES,
@@ -92,7 +93,7 @@ def test_matches_jax(column, jax_results, name, impl, exclusive):
         x = TL.to_tensor(column[5], "cpu")
         want = jax_results(name)[:impl]
         assert np.array_equal(_limbs(TP.powers_of(TCTX, x, impl)), want)
-        for tile in (None, (4, 2)):
+        for tile in (KERNEL_TILE, (4, 2)):
             got = TP.scan_tiles_plain(TCTX, x, "mul", tile=tile, exclusive=True, n=impl)
             assert np.array_equal(_limbs(got), want), tile
         return
@@ -108,7 +109,7 @@ def test_matches_jax(column, jax_results, name, impl, exclusive):
     a = TL.to_tensor(a, "cpu")
     got = getattr(TP, name)(TCTX, a, impl, exclusive=exclusive)
     assert np.array_equal(_limbs(got), want)
-    for tile in (None, (4, 2)):
+    for tile in (KERNEL_TILE, (4, 2)):
         tiled = TP.scan_tiles_plain(TCTX, a, op, tile=tile, exclusive=exclusive, reverse=reverse)
         assert np.array_equal(_limbs(tiled), want), tile
 

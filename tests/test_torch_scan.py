@@ -27,6 +27,9 @@ CTX = TL.FR_CTX
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "delay_enc_tpu_torch", "csrc")
 N = 64
+# the kernel's tiles, (threads, elements a thread), which csrc/scan_tile.cuh
+# holds and test_kernel_tile_choice reads back from it
+SMALL, LARGE = (128, 8), (256, 8)
 FORMS = list(itertools.product(("mul", "add"), (False, True), (False, True)))
 
 
@@ -55,18 +58,9 @@ def test_tiles_plain_matches_block_and_ladder(op, exclusive, reverse, n):
     a = _t(_rand_mont(rng, 3, n))
     want = TP.scan(CTX, a, op, "block", exclusive=exclusive, reverse=reverse)
     assert torch.equal(TP.scan(CTX, a, op, "hs", exclusive=exclusive, reverse=reverse), want)
-    for tile in ((1, 1), (2, 2), (4, 2), TP.SMALL_TILE):
+    for tile in ((1, 1), (2, 2), (4, 2), SMALL):
         got = TP.scan_tiles_plain(CTX, a, op, tile=tile, exclusive=exclusive, reverse=reverse)
         assert torch.equal(got, want), tile
-
-
-def test_kernel_tile_choice():
-    """The large tile where it gives at least MIN_TILES blocks: (5, 2^16)
-    does not, (5, 2^20) does."""
-    assert TP.tile_for(1, 1 << 16) == TP.SMALL_TILE
-    assert TP.tile_for(5, 1 << 16) == TP.SMALL_TILE
-    assert TP.tile_for(1, 1 << 20) == TP.LARGE_TILE
-    assert TP.tile_for(264, 1) == TP.LARGE_TILE
 
 
 def test_zero_inside_a_product_scan():
@@ -100,7 +94,8 @@ HARNESS = r"""
 #include <vector>
 #include "scan_tile.cuh"
 // stdin: op field rows n flags threads items seed, then the input's words
-// (one element with the CONSTANT flag); op 9 prints records_words(n).  The
+// (one element with the CONSTANT flag); op 9 prints the kernel's plan for
+// rows, n and flags: threads, elements a thread, tiles, scratch words.  The
 // blocks of csrc/scan.cu with `threads` threads of `items` elements: first
 // every block up to its published total, in tile order; then every block's
 // look-back, prefix and stores, in an order drawn from `seed`, so that a
@@ -193,7 +188,8 @@ int main() {
   if (scanf("%u %u %u %u %u %u %u %u", &op, &f, &rows, &n, &flags, &threads, &it, &seed) != 8)
     return 1;
   if (op == 9) {
-    printf("%zu\n", scan::records_words(n));
+    const scan::Plan p = scan::plan(rows, n, flags);
+    printf("%u %u %zu %zu\n", p.threads, p.items, p.tiles, p.scratch_words);
     return 0;
   }
   std::vector<uint32_t> in(((flags & scan::CONSTANT) ? 1 : (size_t)rows * n) * 8);
@@ -230,7 +226,7 @@ def scan_harness(tmp_path_factory):
         out = subprocess.run([str(exe)], input=text, text=True, capture_output=True,
                              check=True, timeout=300).stdout
         if op == 9:
-            return int(out)
+            return tuple(map(int, out.split()))
         return np.array([list(map(int, ln.split())) for ln in out.strip().split("\n")],
                         dtype=np.uint32).reshape(rows, n, 8)
 
@@ -252,7 +248,7 @@ def _scan_ints(row, p, op, exclusive, reverse):
 @pytest.mark.parametrize("fid,field", [(0, FR), (1, FQ)], ids=["fr", "fq"])
 @pytest.mark.parametrize("n,tile", [(1, (2, 1)), (2, (2, 1)), (5, (1, 1)), (16, (2, 2)),
                                     (37, (2, 4)), (100, (1, 1)), (300, (4, 2)),
-                                    (3000, TP.SMALL_TILE), (4500, TP.LARGE_TILE)])
+                                    (3000, SMALL), (4500, LARGE)])
 def test_thread_body_matches_python_ints(scan_harness, fid, field, n, tile):
     """Every form of the scan through the C++ that the card runs, at one,
     a few and many tiles a row (100 tiles of one element walk four look-back
@@ -289,7 +285,26 @@ def test_lookback_in_any_order(scan_harness, seed):
         assert CTX.from_mont_np(got) == want
 
 
+def test_kernel_tile_choice(scan_harness):
+    """The large tile where it gives at least 264 blocks: (5, 2^16) does
+    not, (1, 2^20) and 264 rows of one do."""
+    plan = lambda rows, n: scan_harness(9, 0, rows, n, 0, (1, 1), 0)[:2]
+    assert plan(1, 1 << 16) == SMALL
+    assert plan(5, 1 << 16) == SMALL
+    assert plan(263, 1) == SMALL
+    assert plan(1, 1 << 20) == LARGE
+    assert plan(264, 1) == LARGE
+
+
 def test_scratch_size_matches_records(scan_harness):
-    """The wrapper's scratch is the records' size in csrc/scan_tile.cuh."""
-    for tiles in (1, 2, 7, 8, 9, 1280, 4097):
-        assert TP.scratch_words(tiles) == scan_harness(9, 0, 1, tiles, 0, (1, 1), 0)
+    """The plan's scratch, which the wrapper allocates: a counter, a state a
+    tile rounded up to 8 words, a total and an inclusive prefix a tile, where
+    a row is more than one tile and the input is not constant; else none."""
+    for rows, n, flags in ((1, 1, 0), (3, 1024, 0), (3, 1025, 0), (1, 1 << 16, 0),
+                           (5, 1 << 16, TP.REVERSE), (1, 1 << 20, TP.EXCLUSIVE),
+                           (7, 9000, 0), (1, 1 << 16, TP.CONSTANT | TP.EXCLUSIVE)):
+        threads, items, tiles, words = scan_harness(9, 0, rows, n, flags, (1, 1), 0)
+        nt = -(-n // (threads * items))
+        assert tiles == rows * nt
+        records = 8 + -(-tiles // 8) * 8 + 16 * tiles
+        assert words == (records if nt > 1 and not flags & TP.CONSTANT else 0)

@@ -3,21 +3,20 @@ NTT (K-b), the scan kernel and K7 (the openings' contractions) against their
 plain versions, and time them alone at the proof's shapes on one card.
 
     python3 tools/torch_ntt_scan_bench.py [--define NTT_PORTABLE ...]
-        [--layouts 11:10:512,11:8:512,10:10:256] [--reps 5] [--no-check]
-        [--parts ntt,scan,open]
+        [--layouts 11:10:512,11:8:512,10:10:256] [--reps 5] [--parts ntt,scan,open]
 
 It prints the card's name and power limit, the registers and spills ptxas
 reports for csrc/ntt.cu, csrc/scan.cu and csrc/open.cu, and one JSON line for
-each measurement: "ms" by CUDA events over back-to-back calls (the wrapper's
-host path included where it is the slower), "device_ms" the kernel's own
-time a call from torch.profiler.  A layout is TILE_LOG:MAX_STAGES:THREADS of
-ops/ntt.py; every layout listed is timed with the one build.  The defines
-the sources know: NTT_PORTABLE (csrc/ntt.cu: the portable Montgomery bodies
-on the device), NTT_MIN_BLOCKS=n and NTT_MAX_THREADS=n (its launch bounds),
-SCAN_MIN_TILES=n (csrc/scan.cu: the large tile from n blocks on; 0 takes it
-always, a large n never), FLD_PORTABLE (csrc/field.cuh, every kernel).  Run
-it once for each set of defines, all on one card one after another; times
-from two cards do not compare.
+each measurement, with whether it agrees with the plain version: "ms" by
+CUDA events over back-to-back calls (the wrapper's host path included where
+it is the slower), "device_ms" the kernel's own time a call from
+torch.profiler.  A layout is TILE_LOG:MAX_STAGES:THREADS of ops/ntt.py;
+every layout listed is timed with the one build.  The defines the sources
+know: NTT_PORTABLE (csrc/ntt.cu: the portable Montgomery bodies on the
+device), NTT_MIN_BLOCKS=n and NTT_MAX_THREADS=n (its launch bounds),
+FLD_PORTABLE (csrc/field.cuh, every kernel).  The scan's tiles are the
+constants of csrc/scan_tile.cuh.  Run it once for each variant, all on one
+card one after another; times from two cards do not compare.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import device_ms  # noqa: E402
 from delay_enc_tpu_torch.ops import _cuda  # noqa: E402
 from delay_enc_tpu_torch.ops import limbs as L  # noqa: E402
 from delay_enc_tpu_torch.ops import ntt as N  # noqa: E402
@@ -55,28 +55,11 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, symbol: str):
-    """The device time a call of the kernels whose names hold `symbol`, from
-    torch.profiler; None where the profiler saw none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages() if symbol in e.key)
-    return us / 1e3 / reps if us else None
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--layouts", default=f"{N.TILE_LOG}:{N.MAX_STAGES}:{N.THREADS}")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--no-check", action="store_true")
     ap.add_argument("--parts", default="ntt,scan,open")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -146,12 +129,10 @@ def ntt_part(args, dev, d, rand, same, rate) -> bool:
     for layout in args.layouts.split(","):
         N.TILE_LOG, N.MAX_STAGES, N.THREADS = (int(v) for v in layout.split(":"))
         for name, k, batch, n_in, fn, plain in shapes:
-            agrees = None
-            if not args.no_check:
-                if name not in wants:
-                    wants[name] = plain()
-                agrees = same(fn(), wants[name])
-                ok = ok and agrees
+            if name not in wants:
+                wants[name] = plain()
+            agrees = same(fn(), wants[name])
+            ok = ok and agrees
             print(json.dumps({
                 "kernel": "ntt_fused", "shape": name, "layout": layout,
                 "passes": [(p.s, p.c_log, p.nz, p.threads) for p in N.plan(k, n_in)],
@@ -178,7 +159,7 @@ def scan_part(rand, same, rate) -> bool:
                     ok = ok and agrees
                     print(json.dumps({
                         "kernel": "field_scan", "shape": f"({rows}, {n})", "op": op,
-                        "exclusive": exclusive, "reverse": reverse, "tile": P.tile_for(rows, n),
+                        "exclusive": exclusive, "reverse": reverse, "tile": P.kernel_plan(rows, n)[0],
                         "agrees": agrees, "ms": timed(fn, 20),
                         "device_ms": device_ms(fn, 20, "scan_kernel"),
                         "plain_ms": timed(plain, 3),
@@ -193,7 +174,7 @@ def scan_part(rand, same, rate) -> bool:
         agrees = same(fn(), plain())
         ok = ok and agrees
         print(json.dumps({"kernel": "field_scan", "shape": f"powers, n={count}",
-                          "tile": P.tile_for(1, count), "agrees": agrees,
+                          "tile": P.kernel_plan(1, count)[0], "agrees": agrees,
                           "ms": timed(fn, 20), "device_ms": device_ms(fn, 20, "scan_kernel"),
                           "plain_ms": timed(plain, 3),
                           "bound_ms": (count - 1) * MUL_OPS / rate * 1e3}), flush=True)
