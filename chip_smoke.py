@@ -20,7 +20,10 @@ Phases, one line each (stderr carries detail):
     proof's own shapes, at a ragged width, at one lane and at one row; the
     selector kernel at both digit widths with 0, 1, r - 1 and 2^253 among
     the scalars; the fractions (K5) and quotient (K6) kernels also at small
-    sizes against their plain versions on the CPU;
+    sizes against their plain versions on the CPU; the split quotient's forms
+    at k=18: K6's coset form (rot 1, stored at 8i + j of a 2^21 h_ext) at
+    cosets 0 and 7, K-b over (43, 2^18) with a coset's power table and the
+    2^21 inverse with the unscale table;
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
     pose_enc that must reproduce the committed vk, the committed proof;
  3. pose_enc at k=11: keygen, two proofs from default_rng(0) that must be
@@ -38,8 +41,15 @@ Phases, one line each (stderr carries detail):
  5. mod_pow at k=17 (bench.py's draw): SRS setup, keygen, two proofs from
     default_rng(0) that must be byte-identical, verify, with its own launch
     counts a proof held to the same plan;
+ 6. delay_enc at k=18 (bench.py's draw, |T| = 31, 241,348 rows): SRS setup,
+    a keygen that picks the split quotient, two split proofs from
+    default_rng(0) that must be byte-identical and verify, their launch
+    counts held to the split plan (8 launches of K6's coset form), one more
+    under torch.profiler; then keygen(split=False), which must give the same
+    vk, and one fused proof that must equal the split ones, with both peaks
+    of device memory;
 then the kernels' JSON line (launches of phase 4's base-4 and base-16 runs
-together), the card's line, and the result line.  Any
+and phase 6's split run together), the card's line, and the result line.  Any
 failure raises and exits non-zero.  Without a CUDA device it exits
 non-zero before printing a result.
 """
@@ -496,6 +506,7 @@ def phase1(rep: Report, dev):
     phase1_b16(rep, dev, gen, pts, affine_err)
     del pts
     phase1_fused(rep, dev, rand_field, carry_heavy)
+    phase1_split(rep, dev, rand_field, carry_heavy)
     phase1_open(rep, dev, rand_field, carry_heavy)
 
 
@@ -673,6 +684,128 @@ def phase1_fused(rep: Report, dev, rand_field, carry_heavy):
                  int_ops=n_small * QUOTIENT_MULS * MONT_MULS * WIDE)
 
 
+def phase1_split(rep: Report, dev, rand_field, carry_heavy):
+    """K9's forms at delay_enc k=18 (n = 2^18): K6's coset form (rot 1, one
+    value of 1/Z_H, rows stored at stride 8 and offset j of a 2^21 h_ext) at
+    cosets 0 and 7 against its plain version on the card, the places it does
+    not own left as they were, and at small sizes with carry-heavy words
+    against the plain version on the CPU; the fused form again at rot 8 and
+    stride 1; K-b over the 43 stacked rows with a coset's power table in its
+    first load, and the 2^21 inverse with the unscale table in its last
+    store, against the plain transform on a sample of rows."""
+    from delay_enc_tpu_torch.fields import FR
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.ops import ntt as N
+    from delay_enc_tpu_torch.plonk import kernels as K
+    from delay_enc_tpu_torch.plonk.domain import MAX_DEGREE, Domain
+    from delay_enc_tpu_torch.plonk.keygen import KEY_ROWS, coset_tables
+
+    rng = np.random.default_rng(5)
+    consts = K.challenge_words(*(int(v) for v in rng.integers(1, 2**62, 4)),
+                               [int(v) for v in rng.integers(1, 2**62, 6)])
+    heavy_a, heavy_b = carry_heavy(L.FR_CTX)
+    heavy = torch.cat([heavy_a, heavy_b])
+    d = Domain(18)
+    n, rows = d.n, K.WIT_ROWS + len(KEY_ROWS)
+
+    def stack(count, length, with_heavy=False):
+        w = rand_field(L.FR_CTX, count * length - 3).reshape(count, length, 8)
+        if with_heavy:
+            flat = w.reshape(-1, 8)
+            at = torch.randperm(flat.shape[0], device=dev)[: heavy.shape[0]]
+            flat[at] = heavy[: at.shape[0]]
+        return w
+
+    def sentinel(length):
+        return torch.full((length, 8), -1, dtype=torch.int32, device=dev)
+
+    # K6's coset form: cosets 0 and 7 of one h_ext, against the plain version
+    # (the composition over K-a) storing into its own
+    ev = stack(rows, n, True)
+    x, zh = stack(1, n)[0], stack(1, 8)[0, 5:6].contiguous()
+    coset = lambda j, out: K.quotient_h(ev[: K.WIT_ROWS], ev[K.WIT_ROWS:], x, zh, consts,
+                                        rot=1, out=out, out_stride=MAX_DEGREE, out_offset=j)
+    got, want = sentinel(MAX_DEGREE * n), sentinel(MAX_DEGREE * n)
+    t0 = time.time()
+    for j in (0, 7):
+        K.quotient_h_plain(ev[: K.WIT_ROWS], ev[K.WIT_ROWS:], x, zh, consts, rot=1, out=want,
+                           out_stride=MAX_DEGREE, out_offset=j)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3 / 2
+    for j in (0, 7):
+        coset(j, got)
+    err = max_err(got, want)
+    untouched = got.reshape(n, MAX_DEGREE, 8)[:, 1:7]
+    if not bool((untouched == -1).all()):
+        raise AssertionError("the coset form stored outside its places")
+    ms = timed(lambda: coset(7, got), 5)
+    rep.add("quotient_h_coset", err=err, ms=ms, plain_ms=plain_ms,
+            nbytes=(44 + 1) * n * 32, int_ops=n * QUOTIENT_MULS * MONT_MULS * WIDE,
+            note=" (2^18 rows of one coset, rot 1, stored at 8i + j of a 2^21 h_ext, cosets 0 "
+                 "and 7, carry-heavy words among the operands, the places of cosets 1-6 left "
+                 "as they were; plain: the composition over K-a)")
+    for n_small in (1 << 9, 8):
+        small = [stack(K.WIT_ROWS, n_small, True), stack(len(KEY_ROWS), n_small, True),
+                 stack(1, n_small, True)[0], heavy[3:4].contiguous()]
+        cpu = [t.cpu() for t in small]
+        err = 0
+        for j in (0, 7):
+            out = sentinel(MAX_DEGREE * n_small)
+            K.quotient_h(*small, consts, rot=1, out=out, out_stride=MAX_DEGREE, out_offset=j)
+            want = K.quotient_h(*cpu, consts, rot=1, out=sentinel(MAX_DEGREE * n_small).cpu(),
+                                out_stride=MAX_DEGREE, out_offset=j)
+            err = max(err, max_err(out.cpu(), want))
+        ms = timed(lambda: K.quotient_h(*small, consts, rot=1, out=out, out_stride=MAX_DEGREE,
+                                        out_offset=7), 10)
+        rep.also("quotient_h_coset", f"{n_small} rows, cosets 0 and 7, carry-heavy words, "
+                 f"against the CPU plain version", err=err, ms=ms, nbytes=45 * n_small * 32,
+                 int_ops=n_small * QUOTIENT_MULS * MONT_MULS * WIDE)
+    # the fused form on the same words, now that rot and the store are arguments
+    n_f = 1 << 12
+    fused = [ev[: K.WIT_ROWS, :n_f].contiguous(), ev[K.WIT_ROWS:, :n_f].contiguous(),
+             x[:n_f].contiguous(), stack(1, MAX_DEGREE)[0]]
+    err = max_err(K.quotient_h(*fused, consts), K.quotient_h_plain(*fused, consts))
+    rep.also("quotient_h", "2^12 rows, rot 8, stride 1, after the coset form's launches",
+             err=err, ms=timed(lambda: K.quotient_h(*fused, consts), 10),
+             int_ops=n_f * QUOTIENT_MULS * MONT_MULS * WIDE)
+    del ev, got, want, fused
+
+    def ntt_ops(batch, k):
+        return batch * k * (1 << max(0, k - 1)) * MONT_MULS * WIDE
+
+    # K-b: the coset evaluations of 43 coefficient rows (coset 7's powers in
+    # the first load), a sample of the rows against the plain transform
+    plan, plan_ext = d.plan(dev), d.plan_ext(dev)
+    pows = coset_tables(d, dev)[0][7].contiguous()
+    coeff = stack(rows, n, True)
+    got = N.stockham(L.FR_CTX, coeff, plan.tw, in_table=pows)
+    pick = sorted({0, K.WIT_ROWS - 1, K.WIT_ROWS, rows - 1, *rng.integers(0, rows, 4).tolist()})
+    t0 = time.time()
+    want = N.stockham_sides_plain(L.FR_CTX, coeff[pick], plan.tw, n, pows, None)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max_err(got[pick], want)
+    ms = timed(lambda: N.stockham(L.FR_CTX, coeff, plan.tw, in_table=pows), 3)
+    rep.also("ntt_fused", f"(43, 2^18) with a coset's power table in the first load "
+             f"(_jit_coset_evals)", err=err, ms=ms,
+             int_ops=ntt_ops(rows, 18) + rows * n * MONT_MULS * WIDE,
+             nbytes=2 * coeff.numel() * 4 + n * 32 + (n // 2) * 32,
+             note=f" (rows {pick} compared, plain {plain_ms:.1f} ms for them; passes "
+                  f"{[(p.s, p.c_log) for p in N.plan(18)]})")
+    del coeff, got, want
+    # the interleaved inverse of length 2^21 with zeta^-i / n_ext in its last store
+    unscale = N.powers(L.FR_CTX, FR.inv(d.zeta), d.n_ext, dev, start=FR.inv(d.n_ext))
+    h_ext = stack(1, d.n_ext, True)[0]
+    got = N.stockham(L.FR_CTX, h_ext, plan_ext.tw_inv, out_scale=unscale)
+    want = N.stockham_sides_plain(L.FR_CTX, h_ext, plan_ext.tw_inv, d.n_ext, None, unscale)
+    ms = timed(lambda: N.stockham(L.FR_CTX, h_ext, plan_ext.tw_inv, out_scale=unscale), 5)
+    rep.also("ntt_fused", "(1, 2^21) inverse, zeta^-i / n_ext in the last store "
+             "(_jit_interleave_intt)", err=max_err(got, want), ms=ms,
+             int_ops=ntt_ops(1, 21) + d.n_ext * MONT_MULS * WIDE,
+             nbytes=3 * d.n_ext * 32 + (d.n_ext // 2) * 32,
+             note=f" (every element compared; passes {[(p.s, p.c_log) for p in N.plan(21)]})")
+
+
 def phase1_open(rep: Report, dev, rand_field, carry_heavy):
     """K7 at the delay_enc k=16 openings (47, 6 and 4 rows of 2^16, carry-
     heavy words among them) against its plain version on the card, 50 times
@@ -756,8 +889,15 @@ def rand_bits(rng, bits: int) -> int:
     return v
 
 
-def delay_enc_circuit(seed: int = 42):
-    """bench.py build_circuit("delay_enc", k=16): the default 5-bit window."""
+# bench.py T_BITS: the exponent bits of the delay_enc and mod_pow rows of each k
+DELAY_ENC_T_BITS = {16: 5, 18: 31}
+MOD_POW_T_BITS = {17: 8}
+
+
+def delay_enc_circuit(k: int = 16, seed: int = 42):
+    """bench.py build_circuit("delay_enc", k): at k=16 the default 5-bit
+    window, at k=18 an exponent of T_BITS[("delay_enc", 18)] = 31 bits with
+    the top bit set."""
     from delay_enc_tpu_torch.fields import FR
     from delay_enc_tpu_torch.models import DelayEncryptCircuit
     from delay_enc_tpu_torch.poseidon import get_spec
@@ -766,15 +906,15 @@ def delay_enc_circuit(seed: int = 42):
     cc = CircuitConfig()
     rng = np.random.default_rng(seed)
     spec = get_spec(FR, cc.t, cc.rate, cc.r_f, cc.r_p)
+    t_bits = DELAY_ENC_T_BITS[k]
     n = rand_bits(rng, cc.bits_len)
-    e = int(rng.integers(1, 1 << cc.exp_limb_bits))
+    if t_bits == cc.exp_limb_bits:
+        e = int(rng.integers(1, 1 << t_bits))
+    else:
+        e = rand_bits(rng, t_bits) | (1 << (t_bits - 1))
     x = rand_bits(rng, cc.bits_len) % n
     return DelayEncryptCircuit(n=n, e=e, x=x, spec=spec, num_input=2, message=[0, 0],
-                               exp_limb_bits=cc.exp_limb_bits).build()
-
-
-# bench.py T_BITS: the exponent bits of the mod_pow row of each k
-MOD_POW_T_BITS = {17: 8}
+                               exp_limb_bits=t_bits).build()
 
 
 def mod_pow_circuit(k: int = 17, seed: int = 42):
@@ -859,7 +999,8 @@ def spans(prefix=""):
 
 KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
     "field_binary_kernel": "field (K-a)", "ntt_fused_kernel": "ntt_fused (K-b)",
-    "scan_kernel": "field_scan", "quotient_kernel": "quotient_h (K6)",
+    "scan_kernel": "field_scan",
+    "quotient_kernel": "quotient_h (K6, and its coset form for K9)",
     "fracs_kernel": "gp_fracs (K5)",
     "open_eval_kernel": "open_eval (K7)", "open_combine_kernel": "open_combine (K7)",
     "plane_sums_kernel": "plane_sums (K-c)", "plane_sums16_kernel": "plane_sums16",
@@ -923,22 +1064,28 @@ def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4") -> 
 # 4 products in the grand products' finish, and the product by z^-(i+1) in
 # each of the 3 GWC divisions; no longer a function of k
 PLANNED_ELEMENTWISE = COMMIT_BATCHES + 4 + 3
-# field_scan calls, each one launch: the grand products' prefix, suffix and
-# finishing products, the powers of the 3 points, of v (one table for the
-# three stacks) and of the 3 inverse points, and the 3 GWC suffix sums
-PLANNED_SCANS = 3 + 3 + 1 + 3 + 3
+# field_scan calls, each one launch: the powers of omega, the grand
+# products' prefix, suffix and finishing products, the powers of the 3
+# points, of v (one table for the three stacks) and of the 3 inverse points,
+# and the 3 GWC suffix sums
+PLANNED_SCANS = 1 + 3 + 3 + 1 + 3 + 3
 
 
-def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4") -> None:
-    """One proof at k: four transforms of length 2^k, the coset transform
-    and the quotient's inverse at 2^(k+3), each a launch a pass; 13 scans and
-    ladders of powers, each one launch (39 launches in 15 calls before the
-    single-pass scan); one launch of K5, of K6 and of each of K7's two
+def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4",
+                         split: bool = False) -> None:
+    """One proof at k: four transforms of length 2^k, then the quotient's
+    transforms, each a launch a pass: on the fused path the coset transform
+    and the inverse at 2^(k+3), in split mode the 8 cosets' transforms of
+    length 2^k and the inverse at 2^(k+3); 14 scans and ladders of powers,
+    each one launch (the powers of omega made on the card since PR 7; 39
+    launches in 15 calls before the single-pass scan); one launch of K5, of
+    K6 (fused) or 8 of its coset form (split), and of each of K7's two
     contractions, no subtraction, and the 13 elementwise launches that are
     left (81 before K7, 235 before K5 and K6, 910 before the scans); one
     selector launch a commitment batch, and the plane sums of the proof's base
     only."""
     from delay_enc_tpu_torch.ops import ntt as N
+    from delay_enc_tpu_torch.plonk.domain import MAX_DEGREE
 
     tree, other = ("plane_sums16", "plane_sums") if msm == "b16" else ("plane_sums", "plane_sums16")
     if proof_launches["pair_sel"] != COMMIT_BATCHES:
@@ -948,17 +1095,26 @@ def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4") -> None:
         raise AssertionError(f"a {msm} proof launched {tree} {proof_launches[tree]} and {other} "
                              f"{proof_launches[other]} times")
 
-    want_ntt = 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3))
+    if split:
+        want_ntt = (4 + MAX_DEGREE) * len(N.plan(k)) + len(N.plan(k + 3))
+        quotient = {"quotient_h": 0, "quotient_h_coset": MAX_DEGREE}
+    else:
+        want_ntt = 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3))
+        quotient = {"quotient_h": 1, "quotient_h_coset": 0}
+        if want_ntt > 20:
+            raise AssertionError(f"the fused path plans {want_ntt} NTT launches, allowed 20")
     elementwise = proof_launches["field_mont_mul"]
-    if proof_launches["ntt_fused"] != want_ntt or want_ntt > 20:
+    if proof_launches["ntt_fused"] != want_ntt:
         raise AssertionError(f"a proof launched the NTT kernel {proof_launches['ntt_fused']} "
-                             f"times, planned {want_ntt}, allowed 20")
+                             f"times, planned {want_ntt}")
     if proof_launches["field_scan"] != PLANNED_SCANS:
         raise AssertionError(f"a proof launched the scan kernel {proof_launches['field_scan']} "
                              f"times, planned {PLANNED_SCANS}")
-    for name in ("gp_fracs", "quotient_h", "open_eval", "open_combine"):
-        if proof_launches[name] != 1:
-            raise AssertionError(f"a proof launched {name} {proof_launches[name]} times")
+    for name, want in (("gp_fracs", 1), ("open_eval", 1), ("open_combine", 1),
+                       *quotient.items()):
+        if proof_launches[name] != want:
+            raise AssertionError(f"a proof launched {name} {proof_launches[name]} times, "
+                                 f"planned {want}")
     for name in OFF_PATH:
         if proof_launches[name] != 0:
             raise AssertionError(f"a proof launched {name} {proof_launches[name]} times")
@@ -1017,6 +1173,105 @@ def mod_pow_phase(dev, card: str) -> None:
         raise AssertionError(f"SRS setup and pair tables launched {launches}")
     check_proof_launches(proof_launches, k)
     profile_proof(srs, pk, b, proofs[0], dev, "phase 5")
+
+
+def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
+    """delay_enc at k=18, bench.py's draw (|T| = 31): SRS setup and a keygen
+    that must pick the split quotient on its own, two split proofs from one
+    rng seed that must be byte-identical and verify, their launch counts held
+    to the split plan, one more under the profiler; then a fused keygen
+    (split=False) on the same SRS and circuit that must give the same vk,
+    and one fused proof that must equal the split proofs, with its peak
+    device memory beside theirs.  Returns the launch counts of the split run,
+    set to 0 just before the SRS setup and read just after the two proofs."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen, verify_proof
+    from delay_enc_tpu_torch.plonk.keygen import min_k
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    torch.cuda.empty_cache()
+    GLOBAL_METRICS.spans.clear()
+    t0 = time.time()
+    b = delay_enc_circuit(k)
+    t_build = time.time() - t0
+    if min_k(b) != k:
+        raise AssertionError(f"delay_enc for k={k} needs k={min_k(b)}")
+    _cuda.reset_launches()
+    t0 = time.time()
+    srs = SRS.setup(k, tau=0x5EED_0F_DE1A7_18, device=dev)
+    t_srs = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pk, vk = keygen(b, srs, device=dev)
+    torch.cuda.synchronize()
+    t_key = time.time() - t0
+    if not pk.split or pk.ext_stack is not None:
+        raise AssertionError(f"keygen at k={k} did not pick the split quotient")
+    key_spans, key_peak = spans("keygen/"), torch.cuda.max_memory_allocated()
+    before = _cuda.launch_counts()
+    proofs, t_prove, prove_spans = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        GLOBAL_METRICS.spans.clear()
+        t0 = time.time()
+        proofs.append(create_proof(srs, pk, b, np.random.default_rng(0), device=dev))
+        torch.cuda.synchronize()
+        t_prove.append(time.time() - t0)
+        prove_spans.append(spans("prove/"))
+    split_peak = torch.cuda.max_memory_allocated()
+    launches = _cuda.launch_counts()
+    proof_launches = {name: (launches[name] - before[name]) // 2 for name in launches}
+    if proofs[0] != proofs[1]:
+        raise AssertionError(f"delay_enc k={k} split proofs from one rng seed differ")
+    t0 = time.time()
+    if not verify_proof(srs, vk, proofs[0]):
+        raise AssertionError(f"delay_enc k={k} split proof does not verify")
+    t_ver = time.time() - t0
+    print(f"phase 6 delay_enc k={k} split on {card}: rows={b.rows} circuit build {t_build:.3f} s "
+          f"(host), SRS setup {t_srs:.3f} s, keygen {t_key:.3f} s (split picked; peak device "
+          f"memory {key_peak / 2**30:.3f} GiB), prove {t_prove[0]:.3f} s then {t_prove[1]:.3f} s "
+          f"(identical bytes), verify {t_ver:.3f} s (host), proof {len(proofs[0])} B, peak "
+          f"device memory over the two proofs {split_peak / 2**30:.3f} GiB; keygen spans "
+          f"{json.dumps(key_spans)}; a proof's spans {json.dumps(prove_spans)}; launches "
+          f"{json.dumps(launches)}; a proof's {json.dumps(proof_launches)}", flush=True)
+    if launches["g1_fixed_base_mul"] != 1 or launches["g1_complete_add"] != 3:
+        raise AssertionError(f"SRS setup and pair tables launched {launches}")
+    check_proof_launches(proof_launches, k, split=True)
+    profile_proof(srs, pk, b, proofs[0], dev, "phase 6 split")
+
+    # the fused path on the same SRS and circuit: the same vk, the same bytes
+    del pk
+    torch.cuda.empty_cache()
+    GLOBAL_METRICS.spans.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pk_f, vk_f = keygen(b, srs, split=False, device=dev)
+    torch.cuda.synchronize()
+    t_key_f = time.time() - t0
+    if pk_f.split:
+        raise AssertionError("keygen(split=False) built a split key")
+    check_vk(vk_f, vk, f"keygen(split=False) at k={k}")
+    key_f_spans, key_f_peak = spans("keygen/"), torch.cuda.max_memory_allocated()
+    GLOBAL_METRICS.spans.clear()
+    torch.cuda.reset_peak_memory_stats()
+    before = _cuda.launch_counts()
+    t0 = time.time()
+    proof_f = create_proof(srs, pk_f, b, np.random.default_rng(0), device=dev)
+    torch.cuda.synchronize()
+    t_fused = time.time() - t0
+    fused_peak = torch.cuda.max_memory_allocated()
+    after = _cuda.launch_counts()
+    if proof_f != proofs[0]:
+        raise AssertionError(f"the delay_enc k={k} fused proof differs from the split proofs")
+    print(f"phase 6 delay_enc k={k} fused: keygen {t_key_f:.3f} s (peak device memory "
+          f"{key_f_peak / 2**30:.3f} GiB), the split key's vk; prove {t_fused:.3f} s, the split "
+          f"proofs' bytes; peak device memory over the proof {fused_peak / 2**30:.3f} GiB "
+          f"against split {split_peak / 2**30:.3f} GiB; keygen spans {json.dumps(key_f_spans)}; "
+          f"spans {json.dumps(spans('prove/'))}", flush=True)
+    check_proof_launches({name: after[name] - before[name] for name in after}, k)
+    profile_proof(srs, pk_f, b, proof_f, dev, "phase 6 fused")
+    del pk_f, srs
+    return launches
 
 
 def main() -> int:
@@ -1199,9 +1454,12 @@ def main() -> int:
     # ---- 5. mod_pow k=17 ----------------------------------------------
     mod_pow_phase(dev, card)
 
+    # ---- 6. delay_enc k=18, the split quotient --------------------------
+    split_launches = delay_enc_split_phase(dev, card)
+
     # ---- kernels --------------------------------------------------------
     for name, row in rep.rows.items():
-        row["launches"] = launches.get(name, 0) + b16_launches.get(name, 0)
+        row["launches"] = sum(run.get(name, 0) for run in (launches, b16_launches, split_launches))
     # K5 and K6 took the last subtractions of a proof, K7 the last sums (0
     # launches, asserted): K-a's subtraction and sum are checked in phase 1
     # but are no kernels of the path

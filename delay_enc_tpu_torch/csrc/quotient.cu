@@ -7,6 +7,15 @@
 // The inverse transform that follows (csrc/ntt.cu, with zeta^-i / n_ext in
 // its last store) is unchanged.
 //
+// The same kernel is K9's per-coset quotient, _jit_quotient_coset (:337):
+// the split quotient (k >= 18) runs it once on each of the 8 size-n cosets
+// with rot = 1 and one value of 1/Z_H, and each launch stores its rows at
+// stride 8 and offset j straight into the interleaved extended coset, so the
+// swapaxes copy of _jit_interleave_intt (:361) has no counterpart here.  A
+// row's 32 bytes are one whole sector, so the strided store moves no more
+// bytes than a dense one.  At k=18 the 8 coset launches make the products of
+// one fused launch of 2^21 rows, 3.72 ms at the integer rate.
+//
 // One thread a row, the body in csrc/quotient_row.cuh: it reads 43 columns
 // of the witness and key stacks and X at its row (and 6 columns at the next
 // or previous row, which the neighbouring block has read into L2), folds
@@ -37,27 +46,33 @@ quotient_kernel(const __grid_constant__ prow::QuotientIn in,
   for (int t = threadIdx.x; t < prow::NCONST * prow::NW; t += THREADS) (&c.w[0][0])[t] = src[t];
   __syncthreads();
   const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i < in.n_ext) prow::quotient_row(i, in, c);
+  if (i < in.n) prow::quotient_row(i, in, c);
 }
 
 }  // namespace
 
-// wit (19, n_ext, 8), key (24, n_ext, 8), x (n_ext, 8), zh_inv (8, 8) on the
-// card; consts: host memory, prow::Consts; h (n_ext, 8).
+// wit (19, n, 8), key (24, n, 8), x (n, 8), zh_inv (rot, 8) on the card;
+// consts: host memory, prow::Consts; h: row i at i * out_stride + out_offset.
+// rot: 8 on the fused extended coset, 1 on a coset of the split quotient.
 extern "C" int quotient_h(const void* wit, const void* key, const void* x, const void* zh_inv,
-                          const void* consts, void* h, unsigned long long n_ext,
-                          void* stream) {
-  if (n_ext == 0) return 0;
-  if (n_ext < prow::ROT) return (int)cudaErrorInvalidValue;
+                          const void* consts, void* h, unsigned long long n,
+                          unsigned long long rot, unsigned long long out_stride,
+                          unsigned long long out_offset, void* stream) {
+  if (n == 0) return 0;
+  if (rot == 0 || (rot & (rot - 1)) || n < rot || out_stride == 0)
+    return (int)cudaErrorInvalidValue;
   prow::QuotientIn in;
   in.wit = static_cast<const uint32_t*>(wit);
   in.key = static_cast<const uint32_t*>(key);
   in.x = static_cast<const uint32_t*>(x);
   in.zh_inv = static_cast<const uint32_t*>(zh_inv);
   in.h = static_cast<uint32_t*>(h);
-  in.n_ext = n_ext;
+  in.n = n;
+  in.rot = rot;
+  in.out_stride = out_stride;
+  in.out_offset = out_offset;
   const prow::Consts c = *static_cast<const prow::Consts*>(consts);
-  const unsigned long long blocks = (n_ext + THREADS - 1) / THREADS;
+  const unsigned long long blocks = (n + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffull) return (int)cudaErrorInvalidValue;
   quotient_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(in, c);
   return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
 // The per-row body of the fused quotient kernel (csrc/quotient.cu).
 //
-// Row i of the extended coset (n_ext = 8n rows) gives
+// Row i gives
 //     h[i] = (sum_j y^(23 - j) e_j[i]) / Z_H[i],
 // the y-folded constraint expressions of delay_enc_tpu/plonk/kernels.py
 // _quotient_expr in the verifier's order: the gate, the permutation's three
@@ -10,10 +10,17 @@
 // leaves one reduced field element, so the words equal the JAX package's
 // weighted sum.
 //
-// "The next row" of the row domain is MAX_DEGREE = 8 rows on in the
-// extended coset, (i + 8) mod n_ext, for e, z_perm and the z_l; "the
-// previous row" is (i - 8) mod n_ext for the permuted inputs A'_l.  Both are
-// read straight from the stacks.  1/Z_H has period 8 in i.
+// The rows are those of one domain of n rows: the fused extended coset
+// (n = n_ext = 8 * 2^k), or one size-2^k coset zeta g^j H of the split
+// quotient (K9, delay_enc_tpu/plonk/kernels.py _jit_quotient_coset).  "The
+// next row" of the row domain is `rot` rows on, (i + rot) mod n, for e,
+// z_perm and the z_l; "the previous row" is (i - rot) mod n for the permuted
+// inputs A'_l.  rot is MAX_DEGREE = 8 on the fused coset, which interleaves
+// the row domain 8 times, and 1 on a coset of the split quotient.  Both rows
+// are read straight from the stacks.  1/Z_H has period rot in i: 8 values on
+// the fused coset, one constant on a split coset.  Row i is stored at
+// h[i * out_stride + out_offset]: coset j of the split quotient writes its
+// places 8i + j of the interleaved extended coset (stride 8, offset j).
 //
 // The functions are __host__ __device__, so a host C++ compiler can build
 // them and run the rows one after another.
@@ -24,20 +31,21 @@
 
 namespace prow {
 
-constexpr size_t ROT = 8;  // MAX_DEGREE: one row of the row domain
-
-// rows of the prover's (19, n_ext, 8) witness stack (plonk/prover.py)
+// rows of the prover's (19, n, 8) witness stack (plonk/prover.py)
 enum { W_ADV = 0, W_INSTANCE = 5, W_Z_PERM = 6, W_Z_L = 7, W_AP = 11, W_SP = 15, WIT_ROWS = 19 };
 
-// The inputs: the witness and key stacks on the extended coset, X there,
-// the 8 values of 1/Z_H (rows 0..7 of the key's zh_inv_ext), and h.
+// The inputs: the witness and key stacks on the domain of n rows, X there,
+// the rot values of 1/Z_H, and where h goes.  rot is a power of two <= n.
 struct QuotientIn {
   const uint32_t* wit;
   const uint32_t* key;
   const uint32_t* x;
   const uint32_t* zh_inv;
   uint32_t* h;
-  size_t n_ext;
+  size_t n;
+  size_t rot;
+  size_t out_stride;
+  size_t out_offset;
 };
 
 // acc = acc * y + e
@@ -50,7 +58,7 @@ FDEV void fold(uint32_t acc[NW], const uint32_t e[NW], const Consts& c) {
 FDEV void gate_term(uint32_t acc[NW], const QuotientIn& in, int q_row, size_t i,
                     const uint32_t v[NW]) {
   uint32_t q[NW];
-  fld::ld8(q, at(in.key, q_row, in.n_ext, i));
+  fld::ld8(q, at(in.key, q_row, in.n, i));
   fld::mont_mul<FR>(q, q, v);
   fld::add<FR>(acc, acc, q);
 }
@@ -70,9 +78,9 @@ FDEV void first_term(uint32_t r[NW], const uint32_t l[NW], const uint32_t z[NW])
 }
 
 FDEV void quotient_row(size_t i, const QuotientIn& in, const Consts& c) {
-  const size_t n = in.n_ext;
-  const size_t next = i + ROT < n ? i + ROT : i + ROT - n;
-  const size_t prev = i >= ROT ? i - ROT : i + n - ROT;
+  const size_t n = in.n, rot = in.rot;
+  const size_t next = i + rot < n ? i + rot : i + rot - n;
+  const size_t prev = i >= rot ? i - rot : i + n - rot;
   const uint32_t* W = in.wit;
   const uint32_t* K = in.key;
   uint32_t acc[NW], u[NW], v[NW], t[NW];
@@ -179,10 +187,10 @@ FDEV void quotient_row(size_t i, const QuotientIn& in, const Consts& c) {
     fold(acc, t, c);
   }
 
-  // ---- times 1/Z_H, period 8
-  fld::ld8(t, in.zh_inv + (i % ROT) * NW);
+  // ---- times 1/Z_H, period rot
+  fld::ld8(t, in.zh_inv + (i & (rot - 1)) * NW);
   fld::mont_mul<FR>(acc, acc, t);
-  fld::st8(in.h + i * NW, acc);
+  fld::st8(in.h + (i * in.out_stride + in.out_offset) * NW, acc);
 }
 
 }  // namespace prow

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "pair_sel": ("msm", [_P, _P, _U, _U, _U, _P]),
     "g1_complete_add": ("msm", [_P, _P, _P, _U, _U, _P]),
     "g1_fixed_base_mul": ("msm", [_P, _P, _P, _U, _U, _P]),
-    "quotient_h": ("quotient", [_P, _P, _P, _P, _P, _P, _Q, _P]),
+    "quotient_h": ("quotient", [_P, _P, _P, _P, _P, _P, _Q, _Q, _Q, _Q, _P]),
     "gp_fracs": ("fracs", [_P, _P, _P, _P, _P, _P, _P, _P, _Q, _Q, _P]),
     "open_eval": ("open", [_P, _P]),
     "open_combine": ("open", [_P, _P]),

@@ -31,6 +31,7 @@ import torch
 from . import _cuda
 from . import limbs as L
 from .limbs import FieldCtx
+from .poly import powers_of
 
 K_FUSED = _cuda.kernel("ntt_fused", "ntt_fused",
                        "delay_enc_tpu/ops/ntt.py:85 stockham",
@@ -58,6 +59,8 @@ class NTTPlan:
 
     @staticmethod
     def make(ctx: FieldCtx, k: int, device, omega: int | None = None) -> "NTTPlan":
+        """The plan of length 2^k on `device`; the twiddle tables are made
+        there (`powers`)."""
         f = ctx.field
         n = 1 << k
         if omega is None:
@@ -65,10 +68,7 @@ class NTTPlan:
         omega_inv = f.inv(omega)
 
         def table(w):
-            pows = [1] * max(1, n // 2)
-            for i in range(1, len(pows)):
-                pows[i] = pows[i - 1] * w % f.p
-            return L.to_device_mont(ctx, pows, device)
+            return powers(ctx, w, max(1, n // 2), device)
 
         return NTTPlan(
             ctx=ctx, k=k, omega=omega, tw=table(omega), tw_inv=table(omega_inv),
@@ -360,11 +360,10 @@ def intt(plan: NTTPlan, a: torch.Tensor) -> torch.Tensor:
 
 
 def powers(ctx: FieldCtx, base: int, n: int, device, start: int = 1) -> torch.Tensor:
-    """(n, 8) Montgomery words of [start, start*base, start*base^2, ...]
-    (host precompute)."""
-    f = ctx.field
-    vals, cur = [], start % f.p
-    for _ in range(n):
-        vals.append(cur)
-        cur = cur * base % f.p
-    return L.to_device_mont(ctx, vals, device)
+    """(n, 8) Montgomery words of [start, start*base, start*base^2, ...],
+    made on `device`: `powers_of` (one `field_scan` launch on a card), then
+    one product by `start` unless it is 1."""
+    pw = powers_of(ctx, L.to_device_mont(ctx, [base], device)[0], n)
+    if start % ctx.p == 1:
+        return pw
+    return L.mont_mul(ctx, pw, L.to_device_mont(ctx, [start], device))

@@ -19,8 +19,9 @@ MAX_DEGREE = 8  # extended domain multiplier (next pow2 >= max constraint deg)
 EXT_LOG = 3  # log2(MAX_DEGREE)
 QUOTIENT_PIECES = 7
 BLINDING_ROWS = 6
-# From this k on the JAX package builds the quotient on separate size-n
-# cosets; the port has only the fused 8n path and refuses such k.
+# From this k on, keygen picks the split quotient: MAX_DEGREE separate
+# size-n cosets instead of one fused 8n domain (halo2's strategy), which
+# keeps one coset's evaluations live at a time.
 SPLIT_QUOTIENT_K = 18
 
 
@@ -63,6 +64,13 @@ class Domain:
     def zeta(self) -> int:
         """Coset generator for the extended domain (the field generator)."""
         return FR.generator
+
+    def coset_shift(self, j: int) -> int:
+        """Shift of the j-th size-n coset of the split quotient: the cosets
+        zeta*g^j*H (g = omega_ext) together are the extended coset
+        zeta*H_ext, with coset j's element i at extended index
+        MAX_DEGREE*i + j."""
+        return self.zeta * pow(self.omega_ext, j, FR.p) % FR.p
 
     def plan(self, device) -> NTTPlan:
         """NTT plan of the row domain on `device`."""

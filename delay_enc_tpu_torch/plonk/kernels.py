@@ -1,11 +1,13 @@
 """Prover building blocks: the fused kernels and plain PyTorch over the others.
 
-Counterpart of `delay_enc_tpu/plonk/kernels.py`, fused 8n quotient only.
-Each function keeps its JAX name; the JAX `vmap`s are a leading batch axis
-here.  Two blocks are one kernel each on a card: `gp_fracs` (K5,
-`csrc/fracs.cu`), the numerators and denominators of the five grand
-products, and `quotient_h` (K6, `csrc/quotient.cu`), the y-folded quotient
-expression times 1/Z_H.  The openings' contractions of coefficient rows with
+Counterpart of `delay_enc_tpu/plonk/kernels.py`, the fused 8n quotient and
+the split one (`split_quotient`, from k = 18 on).  Each function keeps its
+JAX name; the JAX `vmap`s are a leading batch axis here.  Two blocks are
+one kernel each on a card: `gp_fracs` (K5, `csrc/fracs.cu`), the
+numerators and denominators of the five grand products, and `quotient_h`
+(K6, `csrc/quotient.cu`), the y-folded quotient expression times 1/Z_H, on
+the fused 8n coset or, in its coset form, on one size-n coset of the split
+quotient (K9).  The openings' contractions of coefficient rows with
 the powers of a point are K7 (`open_stack`, `csrc/open.cu`): one launch
 evaluates every opened row at its point, one forms every point's v-weighted
 sum times z^i, so `_eval_stack` and `_gwc_witness` take the stacks of all
@@ -56,6 +58,10 @@ K_FRACS = _cuda.kernel(
 K_QUOTIENT = _cuda.kernel(
     "quotient_h", "quotient_h",
     _REPLACES + "192 _quotient_expr and the * zh_inv_ext of :294 _jit_quotient (K6)",
+    "delay_enc_tpu_torch/csrc/quotient.cu")
+K_QUOTIENT_COSET = _cuda.kernel(
+    "quotient_h_coset", "quotient_h",
+    _REPLACES + "337 _jit_quotient_coset and the swapaxes of :361 _jit_interleave_intt (K9)",
     "delay_enc_tpu_torch/csrc/quotient.cu")
 K_OPEN_EVAL = _cuda.kernel(
     "open_eval", "open_eval", _REPLACES + "396 _jit_eval_stack (K7)",
@@ -192,13 +198,15 @@ def _tree_sum(x):
 
 
 def _quotient_expr(advice_ext, instance_ext, z_perm_ext, z_l_ext, ap_ext, sp_ext,
-                   fe, sigma_ext, masks, chals, delta_ms, y_pows_rev):
-    """The y-folded constraint expression evaluated pointwise on the fused
-    8n extended coset, where "the next row" is MAX_DEGREE indices on.
+                   fe, sigma_ext, masks, chals, delta_ms, y_pows_rev, rot_step=MAX_DEGREE):
+    """The y-folded constraint expression evaluated pointwise on a domain.
 
+    rot_step is the index distance of "the next row" there: MAX_DEGREE on
+    the fused 8n extended coset, which interleaves the row domain MAX_DEGREE
+    times, 1 on one size-n coset of the split quotient.
     masks = (l0, l_last, l_blind, x) evals on the domain;
     chals = (theta_m, beta_m, gamma_m); y_pows_rev[i] = y^(n_exprs-1-i)."""
-    rot = MAX_DEGREE
+    rot = rot_step
     l0_ext, l_last_ext, l_blind_ext, x_ext = masks
     theta_m, beta_m, gamma_m = chals
     one = CTX.one_mont(advice_ext[0].device)
@@ -379,35 +387,63 @@ def _quotient_args(wit_ext, key_ext, x_ext, consts):
             y_pows_rev)
 
 
-def quotient_h_plain(wit_ext, key_ext, x_ext, zh_inv8, consts):
-    """`quotient_h` as `_quotient_expr` times 1/Z_H (period MAX_DEGREE)."""
-    total = _quotient_expr(*_quotient_args(wit_ext, key_ext, x_ext, consts))
-    return _mul(total.reshape(-1, MAX_DEGREE, L.NW), zh_inv8).reshape(-1, L.NW)
+QUOTIENT_ROTS = (MAX_DEGREE, 1)  # "the next row": the fused coset, a split coset
 
 
-def quotient_h(wit_ext, key_ext, x_ext, zh_inv8, consts):
-    """The y-folded constraint expression on the fused 8n coset, divided by
-    Z_H: (n_ext, 8).  wit_ext (19, n_ext, 8): the prover's witness stack
-    (W_* rows); key_ext (24, n_ext, 8): `ProvingKey.ext_stack`; x_ext
-    (n_ext, 8): X there; zh_inv8 (8, 8): 1/Z_H, which has period
-    MAX_DEGREE; consts: `challenge_words`.  One launch of K6 on CUDA
-    tensors."""
-    n_ext = wit_ext.shape[1]
+def quotient_h_plain(wit_ext, key_ext, x_ext, zh_inv, consts, *, rot=MAX_DEGREE, out=None,
+                     out_stride=1, out_offset=0):
+    """`quotient_h` as `_quotient_expr` times 1/Z_H (period `rot`), stored
+    at out[i * out_stride + out_offset]."""
+    total = _quotient_expr(*_quotient_args(wit_ext, key_ext, x_ext, consts), rot_step=rot)
+    h = _mul(total.reshape(-1, rot, L.NW), zh_inv).reshape(-1, L.NW)
+    if out is None:
+        return h
+    out[out_offset : out_offset + (h.shape[0] - 1) * out_stride + 1 : out_stride] = h
+    return out
+
+
+def quotient_h(wit_ext, key_ext, x_ext, zh_inv, consts, *, rot=MAX_DEGREE, out=None,
+               out_stride=1, out_offset=0):
+    """The y-folded constraint expression on a domain of n rows, divided by
+    Z_H.  wit_ext (19, n, 8): the prover's witness stack (W_* rows);
+    key_ext (24, n, 8): the key's rows (KEY_ROWS); x_ext (n, 8): X there;
+    zh_inv (rot, 8): 1/Z_H, which has period `rot`; consts:
+    `challenge_words`.  `rot` is the distance of "the next row": MAX_DEGREE
+    on the fused 8n coset, 1 on one coset of the split quotient, where Z_H
+    is one constant.  Row i goes to out[i * out_stride + out_offset] of an
+    (m, 8) `out`, or of a new (n, 8) tensor, which is returned.  One launch
+    of K6 on CUDA tensors (counted as `quotient_h_coset` where rot is 1)."""
+    n = wit_ext.shape[1]
+    if rot not in QUOTIENT_ROTS:
+        raise ValueError(f"the next row is {QUOTIENT_ROTS} rows on, not {rot}")
     consts = _check_operands({
-        "wit_ext": (wit_ext, (WIT_ROWS, n_ext, L.NW)),
-        "key_ext": (key_ext, (len(KEY_ROWS), n_ext, L.NW)),
-        "x_ext": (x_ext, (n_ext, L.NW)),
-        "zh_inv8": (zh_inv8, (MAX_DEGREE, L.NW)),
+        "wit_ext": (wit_ext, (WIT_ROWS, n, L.NW)),
+        "key_ext": (key_ext, (len(KEY_ROWS), n, L.NW)),
+        "x_ext": (x_ext, (n, L.NW)),
+        "zh_inv": (zh_inv, (rot, L.NW)),
     }, consts)
-    if n_ext % MAX_DEGREE:
-        raise ValueError(f"{n_ext} rows are no multiple of {MAX_DEGREE}")
+    if n % rot or n == 0:
+        raise ValueError(f"{n} rows are no multiple of {rot}")
+    if out is None:
+        if (out_stride, out_offset) != (1, 0):
+            raise ValueError("a strided store needs its `out`")
+    else:
+        _check_shapes({"x_ext": (x_ext, (n, L.NW)), "out": (out, (len(out), L.NW))})
+        if out_stride < 1 or out_offset < 0 or (n - 1) * out_stride + out_offset >= out.shape[0] \
+                or not out.is_contiguous():
+            raise ValueError(f"a contiguous out of {out.shape[0]} rows does not take {n} rows "
+                             f"at stride {out_stride} from {out_offset}")
     if wit_ext.device.type == "cpu":
-        return quotient_h_plain(wit_ext, key_ext, x_ext, zh_inv8, consts)
+        return quotient_h_plain(wit_ext, key_ext, x_ext, zh_inv, consts, rot=rot, out=out,
+                                out_stride=out_stride, out_offset=out_offset)
     _cuda.require_cuda(wit_ext)
-    ins = [t.contiguous() for t in (wit_ext, key_ext, x_ext, zh_inv8)]
-    h = torch.empty((n_ext, L.NW), dtype=torch.int32, device=wit_ext.device)
-    K_QUOTIENT(*_pointers(ins), consts.ctypes.data, h.data_ptr(), n_ext, _cuda.stream())
-    return h
+    ins = [t.contiguous() for t in (wit_ext, key_ext, x_ext, zh_inv)]
+    if out is None:
+        out = torch.empty((n, L.NW), dtype=torch.int32, device=wit_ext.device)
+    kernel = K_QUOTIENT if rot == MAX_DEGREE else K_QUOTIENT_COSET
+    kernel(*_pointers(ins), consts.ctypes.data, _pointers([out])[0], n, rot, out_stride,
+           out_offset, _cuda.stream())
+    return out
 
 
 def quotient_stacked(wit_ext, key_ext, x_ext, zh_inv8, consts, unscale,
@@ -417,6 +453,30 @@ def quotient_stacked(wit_ext, key_ext, x_ext, zh_inv8, consts, unscale,
     pass multiplies in."""
     h_ext = quotient_h(wit_ext, key_ext, x_ext, zh_inv8, consts)
     return stockham(CTX, h_ext, plan_ext.tw_inv, out_scale=unscale)
+
+
+def split_quotient(witness_coeffs, pk, consts, plan: NTTPlan, plan_ext: NTTPlan) -> torch.Tensor:
+    """The quotient's coefficients through MAX_DEGREE separate size-n
+    cosets zeta*g^j*H (JAX `plonk/prover.py:224 _split_quotient`): only one
+    coset's evaluations are live at a time.  witness_coeffs: the 19 (n, 8)
+    witness rows (W_* order); pk: a split-mode key's `coeff_stack` (KEY_ROWS
+    order), `coset_powers` (8, n, 8) shift_j^i, `coset_x` (8, n, 8) X on each
+    coset, `coset_zh_inv` (8, 8) 1/(shift_j^n - 1) and `quotient_unscale`.
+    For each coset, one K-b launch set over the 43 stacked rows with shift_j^i
+    in its first load (`_jit_coset_evals`), then K6 with rot 1 stores its
+    rows at 8i + j of the extended coset (`_jit_quotient_coset`); one inverse
+    of length 8n with zeta^-i / n_ext in its last store ends it
+    (`_jit_interleave_intt`)."""
+    coeffs = torch.stack(list(witness_coeffs) + list(pk.coeff_stack))
+    n = coeffs.shape[1]
+    h_ext = torch.empty((MAX_DEGREE * n, L.NW), dtype=torch.int32, device=coeffs.device)
+    for j in range(MAX_DEGREE):
+        evals = stockham(CTX, coeffs, plan.tw, in_table=pk.coset_powers[j])
+        quotient_h(evals[:WIT_ROWS], evals[WIT_ROWS:], pk.coset_x[j], pk.coset_zh_inv[j : j + 1],
+                   consts, rot=1, out=h_ext, out_stride=MAX_DEGREE, out_offset=j)
+        del evals
+    del coeffs
+    return stockham(CTX, h_ext, plan_ext.tw_inv, out_scale=pk.quotient_unscale)
 
 
 # ------------------------------------------------------ evaluations and GWC

@@ -1,10 +1,12 @@
 """Keygen: compile a built circuit (cs.Builder) into proving/verifying keys.
 
-Counterpart of `delay_enc_tpu/plonk/keygen.py`, fused 8n quotient path
-only.  The vk holds KZG commitments to every fixed polynomial (selectors,
-lookup tags, table columns) and the permutation sigma polynomials; the pk
-additionally holds device-resident coefficient forms and extended-coset
-evaluations of everything the quotient construction needs.
+Counterpart of `delay_enc_tpu/plonk/keygen.py`.  The vk holds KZG
+commitments to every fixed polynomial (selectors, lookup tags, table
+columns) and the permutation sigma polynomials; the pk additionally holds
+device-resident coefficient forms and what the quotient construction
+needs: on the fused path (k < 18) the extended-coset evaluations of every
+key column, in split-quotient mode (k >= 18) the tables of the 8 size-n
+cosets, whose evaluations the prover makes a coset at a time.
 
 Permutation sigma encoding (halo2-style): cell (col c, row r) is labelled
 delta^c * omega^r with delta a non-root-of-unity (generator^(2^s)); copy
@@ -56,30 +58,43 @@ class VerifyingKey:
 @dataclass
 class ProvingKey:
     vk: VerifyingKey
-    # device tensors, all (n, 8) Montgomery unless noted
+    # device tensors, all (n, 8) Montgomery unless noted; the extended-coset
+    # ones (n_ext, 8) are None in split-quotient mode
     fixed_raw: dict
     fixed_coeff: dict
-    fixed_ext: dict  # (n_ext, 8)
+    fixed_ext: dict | None
     sigma_coeff: list
-    sigma_ext: list
-    l0_ext: torch.Tensor
-    l_last_ext: torch.Tensor
-    l_blind_ext: torch.Tensor
-    x_ext: torch.Tensor  # identity poly X on the extended coset
-    zeta_powers: torch.Tensor  # (n_ext, 8) coset scale
+    sigma_ext: list | None
+    l0_ext: torch.Tensor | None
+    l_last_ext: torch.Tensor | None
+    l_blind_ext: torch.Tensor | None
+    x_ext: torch.Tensor | None  # identity poly X on the extended coset
+    zeta_powers: torch.Tensor | None  # (n_ext, 8) coset scale
     quotient_unscale: torch.Tensor  # (n_ext, 8) zeta^-i / n_ext: undoes scale and transform
-    zh_inv_ext: torch.Tensor  # (n_ext, 8) 1/(X^n - 1) on the extended coset
+    zh_inv_ext: torch.Tensor | None  # (n_ext, 8) 1/(X^n - 1) on the extended coset
     delta_powers: list  # host ints delta^0 .. delta^5
     # the stacks the fused kernels read, rows in KEY_ROWS order: the fixed
     # columns' row evaluations (len(ALL_FIXED), n, 8), and every column's
     # extended-coset evaluations (len(KEY_ROWS), n_ext, 8).  fixed_raw,
     # fixed_ext, sigma_ext and the l*_ext are views of their rows.
     raw_stack: torch.Tensor
-    ext_stack: torch.Tensor
+    ext_stack: torch.Tensor | None
+    # split-quotient mode (k >= SPLIT_QUOTIENT_K): the coefficient forms of
+    # every KEY_ROWS column (len(KEY_ROWS), n, 8), of which fixed_coeff,
+    # sigma_coeff and the l*_coeff are views, and the cosets' tables
+    # (`coset_tables`)
+    split: bool = False
+    coeff_stack: torch.Tensor | None = None
+    l0_coeff: torch.Tensor | None = None
+    l_last_coeff: torch.Tensor | None = None
+    l_blind_coeff: torch.Tensor | None = None
+    coset_powers: torch.Tensor | None = None  # (8, n, 8) shift_j^i
+    coset_x: torch.Tensor | None = None  # (8, n, 8) X on coset j: shift_j omega^i
+    coset_zh_inv: torch.Tensor | None = None  # (8, 8) 1/(shift_j^n - 1)
 
     @property
     def device(self) -> torch.device:
-        return self.x_ext.device
+        return self.raw_stack.device
 
 
 def _host_powers(base: int, count: int, start: int) -> list:
@@ -165,15 +180,53 @@ def min_k(builder: Builder) -> int:
     return k
 
 
+def _row(stack, i: int):
+    """Row i of a key stack, or None for a stack the key's mode lacks."""
+    return None if stack is None else stack[i]
+
+
+def use_split(k: int, split: bool | None = None) -> bool:
+    """Whether keygen at k builds a split-quotient key: as asked, else from
+    SPLIT_QUOTIENT_K on."""
+    return k >= SPLIT_QUOTIENT_K if split is None else bool(split)
+
+
+def ext_tables(domain: Domain, device):
+    """The fused quotient's tables on the extended coset zeta*H_ext, each
+    (n_ext, 8): zeta^i, X there (zeta omega_ext^i), and 1/(X^n - 1), a
+    sequence of period MAX_DEGREE."""
+    zeta_powers = powers(L.FR_CTX, domain.zeta, domain.n_ext, device)
+    x_ext = powers(L.FR_CTX, domain.omega_ext, domain.n_ext, device, start=domain.zeta)
+    w_n = pow(domain.omega_ext, domain.n, FR.p)  # order MAX_DEGREE
+    zh = [FR.inv((c - 1) % FR.p)
+          for c in _host_powers(w_n, MAX_DEGREE, start=pow(domain.zeta, domain.n, FR.p))]
+    zh_inv_ext = L.to_device_mont(L.FR_CTX, zh, device).repeat(domain.n_ext // MAX_DEGREE, 1)
+    return zeta_powers, x_ext, zh_inv_ext
+
+
+def coset_tables(domain: Domain, device):
+    """The split quotient's tables: (MAX_DEGREE, n, 8) shift_j^i, (MAX_DEGREE,
+    n, 8) X on coset j (shift_j omega^i) and (MAX_DEGREE, 8) 1/(shift_j^n - 1),
+    the constant 1/Z_H there, for shift_j = `domain.coset_shift(j)`."""
+    ctx, n = L.FR_CTX, domain.n
+    shifts = [domain.coset_shift(j) for j in range(MAX_DEGREE)]
+    pows = torch.stack([powers(ctx, sh, n, device) for sh in shifts])
+    xs = L.mont_mul(ctx, powers(ctx, domain.omega, n, device)[None],
+                    L.to_device_mont(ctx, shifts, device)[:, None])
+    zh = L.to_device_mont(ctx, [FR.inv((pow(sh, n, FR.p) - 1) % FR.p) for sh in shifts], device)
+    return pows, xs, zh
+
+
 def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = None,
            device="cuda", msm: str = "b4"):
     """Compile the circuit structure; returns (pk, vk).
 
     Only the builder's structure is used (fixed columns, copies, lookup
-    widths), never its witness.  The port has the fused 8n quotient path
-    only: k >= SPLIT_QUOTIENT_K or split=True raise.  `msm` picks the
-    commitments' pair tables, "b4" or "b16" (`SRS.msm_tables`); both give
-    the same vk."""
+    widths), never its witness.  `split` picks the split-quotient key
+    (per-coset evaluation in the prover, no extended-coset tables); None
+    means from k = SPLIT_QUOTIENT_K on.  Both modes give the same vk and the
+    same proof bytes.  `msm` picks the commitments' pair tables, "b4" or
+    "b16" (`SRS.msm_tables`); both give the same vk."""
     from .kernels import _canon_batch, _coeff, _ext, msm_commit_batch
 
     device = resolve(device)
@@ -181,9 +234,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
         raise ValueError("proving backend is BN254-Fr only")
     if k is None:
         k = min_k(builder)
-    if split or k >= SPLIT_QUOTIENT_K:
-        raise NotImplementedError(
-            f"the split-quotient path (k >= {SPLIT_QUOTIENT_K}) is not ported")
+    split = use_split(k, split)
     if srs.device != device:
         raise ValueError(f"SRS is on {srs.device}, keygen asked for {device}")
     ctx = L.FR_CTX
@@ -194,6 +245,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
     if srs.n < n:
         raise ValueError(f"SRS too small: {srs.n} < {n}")
     srs = srs.truncated(k)
+    # both plans in both modes: the split prover's inverse runs at n_ext too
     plan, plan_ext = domain.plan(device), domain.plan_ext(device)
 
     # ---- fixed columns (padded to n) + table columns ------------------
@@ -235,25 +287,21 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
     )
     with GLOBAL_METRICS.span("keygen/to_mont"):
         dev_stack = L.to_tensor(np.stack([ctx.to_mont_np(col) for col in host_cols]), device)
-        zeta_powers = powers(ctx, domain.zeta, domain.n_ext, device)
-        quotient_unscale = powers(ctx, FR.inv(domain.zeta), domain.n_ext, device,
-                                  start=FR.inv(domain.n_ext))
-        # identity poly X on the extended coset: zeta * omega_ext^j
-        x_ext = L.to_device_mont(
-            ctx, _host_powers(domain.omega_ext, domain.n_ext, start=domain.zeta), device)
-        # 1/(X^n - 1) on the extended coset: a period-MAX_DEGREE sequence
-        w_n = pow(domain.omega_ext, n, FR.p)  # order MAX_DEGREE
-        zh = [FR.inv((c - 1) % FR.p)
-              for c in _host_powers(w_n, MAX_DEGREE, start=pow(domain.zeta, n, FR.p))]
-        zh_inv_ext = L.to_device_mont(ctx, zh, device).repeat(domain.n_ext // MAX_DEGREE, 1)
 
-    # ---- device transforms: one stacked launch for all 24 columns -----
-    with GLOBAL_METRICS.span("keygen/transforms", device):
-        coeff_stack = _coeff(dev_stack, plan)
-        ext_stack = _ext(coeff_stack, zeta_powers, plan_ext)
-
+    # ---- device tables and transforms: one stacked launch for all 24 columns
     nf = len(ALL_FIXED)
     nm = nf + NUM_PERM_COLS
+    with GLOBAL_METRICS.span("keygen/transforms", device):
+        quotient_unscale = powers(ctx, FR.inv(domain.zeta), domain.n_ext, device,
+                                   start=FR.inv(domain.n_ext))
+        coeff_stack = _coeff(dev_stack, plan)
+        if split:
+            coset = coset_tables(domain, device)
+            ext_stack = zeta_powers = x_ext = zh_inv_ext = None
+        else:
+            coset = (None, None, None)
+            zeta_powers, x_ext, zh_inv_ext = ext_tables(domain, device)
+            ext_stack = _ext(coeff_stack, zeta_powers, plan_ext)
 
     # ---- commitments (one batched MSM over the shared pair tables) ----
     with GLOBAL_METRICS.span("keygen/commit", device):
@@ -263,16 +311,17 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
 
     vk = VerifyingKey(domain, fixed_comms, sigma_comms,
                       transcript_repr(domain, fixed_comms, sigma_comms))
+    kept = coeff_stack if split else None
     pk = ProvingKey(
         vk=vk,
         fixed_raw={name: dev_stack[i] for i, name in enumerate(ALL_FIXED)},
         fixed_coeff={name: coeff_stack[i] for i, name in enumerate(ALL_FIXED)},
-        fixed_ext={name: ext_stack[i] for i, name in enumerate(ALL_FIXED)},
+        fixed_ext=None if split else {name: ext_stack[i] for i, name in enumerate(ALL_FIXED)},
         sigma_coeff=[coeff_stack[nf + c] for c in range(NUM_PERM_COLS)],
-        sigma_ext=[ext_stack[nf + c] for c in range(NUM_PERM_COLS)],
-        l0_ext=ext_stack[nm],
-        l_last_ext=ext_stack[nm + 1],
-        l_blind_ext=ext_stack[nm + 2],
+        sigma_ext=None if split else [ext_stack[nf + c] for c in range(NUM_PERM_COLS)],
+        l0_ext=_row(ext_stack, nm),
+        l_last_ext=_row(ext_stack, nm + 1),
+        l_blind_ext=_row(ext_stack, nm + 2),
         x_ext=x_ext,
         zeta_powers=zeta_powers,
         quotient_unscale=quotient_unscale,
@@ -280,5 +329,13 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
         delta_powers=delta_powers,
         raw_stack=dev_stack[:nf],
         ext_stack=ext_stack,
+        split=split,
+        coeff_stack=kept,
+        l0_coeff=_row(kept, nm),
+        l_last_coeff=_row(kept, nm + 1),
+        l_blind_coeff=_row(kept, nm + 2),
+        coset_powers=coset[0],
+        coset_x=coset[1],
+        coset_zh_inv=coset[2],
     )
     return pk, vk

@@ -1,6 +1,7 @@
 """create_proof: the proving pipeline on the card.
 
-Counterpart of `delay_enc_tpu/plonk/prover.py`, fused 8n quotient path.
+Counterpart of `delay_enc_tpu/plonk/prover.py`: the fused 8n quotient, or
+the split one for a split-mode key (k >= 18).
 Protocol (transcript order is the spec; the verifier mirrors it exactly):
 
  1. commit the 5 advice columns (blinding rows randomized),
@@ -11,7 +12,8 @@ Protocol (transcript order is the spec; the verifier mirrors it exactly):
     lookup grand products Z_l,
  4. commit a random masking polynomial,
  5. y; build the quotient h = (sum_i y^i expr_i) / (X^n - 1) on the 8n
-    extended coset, split into 7 size-n pieces, commit each,
+    extended coset (fused, or a size-n coset at a time in split mode),
+    split into 7 size-n pieces, commit each,
  6. x; batch-evaluate every opened polynomial at x / omega*x / omega^-1*x,
  7. v; GWC multiopen: one witness commitment per point, W = (Q - Q(z))/(X-z).
 
@@ -50,6 +52,7 @@ from .kernels import (
     gp_fracs,
     msm_commit_batch,
     quotient_stacked,
+    split_quotient,
 )
 from .transcript import Transcript
 
@@ -286,13 +289,18 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
         + [ap_coeff[l] for l in LOOKUPS]
         + [sp_coeff[l] for l in LOOKUPS]
     )
-    # one batched extended-coset NTT for every opened witness polynomial
-    ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_ext)
-    h_coeff = quotient_stacked(
-        ext_stack, pk.ext_stack, pk.x_ext, pk.zh_inv_ext[:MAX_DEGREE],
-        challenge_words(theta, beta, gamma, y, pk.delta_powers), pk.quotient_unscale, plan_ext)
-    # the extended-domain arrays are not needed by the openings
-    del ext_stack, lk_raw, num_a, pre, suf, omega_dev, sigma_raw
+    del lk_raw, num_a, pre, suf, omega_dev, sigma_raw
+    consts = challenge_words(theta, beta, gamma, y, pk.delta_powers)
+    if pk.split:
+        h_coeff = split_quotient(witness_coeffs, pk, consts, plan, plan_ext)
+    else:
+        # one batched extended-coset NTT for every opened witness polynomial
+        ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_ext)
+        h_coeff = quotient_stacked(ext_stack, pk.ext_stack, pk.x_ext,
+                                   pk.zh_inv_ext[:MAX_DEGREE], consts, pk.quotient_unscale,
+                                   plan_ext)
+        # the extended-domain arrays are not needed by the openings
+        del ext_stack
     h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]
     for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW)):
         tr.write_point(pt)

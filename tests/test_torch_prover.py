@@ -190,14 +190,6 @@ def test_port_verifies_committed_jax_proof():
     assert not verify_proof(srs, vk, proof[:-1] + bytes([proof[-1] ^ 1]))
 
 
-def test_keygen_refuses_split_quotient(port):
-    from delay_enc_tpu_torch.plonk import keygen
-
-    srs, _, _, b, _ = port
-    with pytest.raises(NotImplementedError):
-        keygen(b, srs, split=True, device="cpu")
-
-
 @pytest.mark.slow
 def test_golden_matches_jax(golden):
     want = jax_golden()

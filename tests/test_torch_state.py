@@ -109,3 +109,40 @@ def test_keygen_stacks_are_its_columns():
         assert torch.equal(v, pk.ext_stack[row]), KEY_ROWS[row]
     for row, name in enumerate(ALL_FIXED):
         assert torch.equal(pk.fixed_raw[name], pk.raw_stack[row])
+
+
+def test_proving_key_from_jax_split_fields():
+    """A JAX split-mode key's fields: coefficient rows and no extended-coset
+    arrays.  The coefficient stack holds them in KEY_ROWS order, the named
+    columns are views of its rows, and the coset tables are keygen's."""
+    from delay_enc_tpu_torch.plonk.domain import Domain
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED, KEY_ROWS, coset_tables
+
+    rng = np.random.default_rng(4)
+    arr = lambda *s: rng.integers(0, 1 << 16, (*s, 16), dtype=np.uint32)
+    fields = {
+        "k": 3, "split": True, "fixed_commitments": {n: None for n in ALL_FIXED},
+        "sigma_commitments": [None] * 6, "transcript_repr": 7, "delta_powers": [1, 2],
+        "fixed_raw": {n: arr(8) for n in ALL_FIXED}, "fixed_coeff": {n: arr(8) for n in ALL_FIXED},
+        "fixed_ext": None, "sigma_coeff": [arr(8) for _ in range(6)], "sigma_ext": None,
+        "l0_ext": None, "l_last_ext": None, "l_blind_ext": None, "x_ext": None,
+        "zeta_powers": None, "zh_inv_ext": None, "zeta_inv_powers": arr(64),
+        "l0_coeff": arr(8), "l_last_coeff": arr(8), "l_blind_coeff": arr(8),
+    }
+    pk = state.proving_key_from_jax(fields, device="cpu")
+    assert pk.split and pk.ext_stack is None and pk.fixed_ext is None and pk.sigma_ext is None
+    assert pk.x_ext is None and pk.zeta_powers is None and pk.zh_inv_ext is None
+    assert pk.l0_ext is None and pk.device.type == "cpu"
+    want = ([fields["fixed_coeff"][n] for n in ALL_FIXED] + fields["sigma_coeff"]
+            + [fields["l0_coeff"], fields["l_last_coeff"], fields["l_blind_coeff"]])
+    assert pk.coeff_stack.shape == (len(KEY_ROWS), 8, 8)
+    for row, w in enumerate(want):
+        assert np.array_equal(state.to_jax_limbs(pk.coeff_stack[row]), w), KEY_ROWS[row]
+    nf = len(ALL_FIXED)
+    views = ([pk.fixed_coeff[n] for n in ALL_FIXED] + pk.sigma_coeff
+             + [pk.l0_coeff, pk.l_last_coeff, pk.l_blind_coeff])
+    assert [v.data_ptr() for v in views] == [pk.coeff_stack[i].data_ptr() for i in range(nf + 9)]
+    for got, want in zip((pk.coset_powers, pk.coset_x, pk.coset_zh_inv),
+                         coset_tables(Domain(3), "cpu")):
+        assert torch.equal(got, want)
+    assert pk.quotient_unscale.shape == (64, 8)
