@@ -6,6 +6,9 @@ Phases, one line each (stderr carries detail):
  0. the card's name and power limit; build the CUDA kernels; then SRS setup,
     keygen and create_proof of the k=7 test circuit on the card, whose vk
     and proof bytes must equal the JAX package's (tests/data/torch_port_k7.npz);
+    the batched proofs of two witnesses in both MSM bases, which must equal
+    the JAX package's batch (tests/data/torch_port_batch_k7.npz), and three
+    proofs pipelined two deep, which must equal the serial ones;
  1. each kernel against its plain PyTorch version on the card, bit-exact
     (points as affine), at the main path's shapes and on carry-heavy
     operands, with both times; the multi-stage NTT also at small and odd k,
@@ -23,7 +26,11 @@ Phases, one line each (stderr carries detail):
     sizes against their plain versions on the CPU; the split quotient's forms
     at k=18: K6's coset form (rot 1, stored at 8i + j of a 2^21 h_ext) at
     cosets 0 and 7, K-b over (43, 2^18) with a coset's power table and the
-    2^21 inverse with the unscale table;
+    2^21 inverse with the unscale table; K5, K6 and K7 over an instance axis
+    (B = 4 at the path's shapes, each instance with its own challenges, and
+    at small ragged sizes against the CPU) and against their single
+    launches; every kernel's device time from torch.profiler beside its
+    CUDA-event time;
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
     pose_enc that must reproduce the committed vk, the committed proof;
  3. pose_enc at k=11: keygen, two proofs from default_rng(0) that must be
@@ -48,8 +55,17 @@ Phases, one line each (stderr carries detail):
     under torch.profiler; then keygen(split=False), which must give the same
     vk, and one fused proof that must equal the split ones, with both peaks
     of device memory;
-then the kernels' JSON line (launches of phase 4's base-4 and base-16 runs
-and phase 6's split run together), the card's line, and the result line.  Any
+ 7. (run after phase 4's base-4 proof, on its SRS and key) delay_enc k=16,
+    B = 4 (four builds of phase 4's statement: a delay_enc circuit has one
+    witness): create_proofs_batched twice from one rng seed (identical
+    bytes, all verify, launches asserted: one K5, K6, open_eval and
+    open_combine a batch, one pair_sel a commitment call), its peak device
+    memory; create_proofs_pipelined two deep (seeds 1..4) against four
+    serial proofs; the three walls and proofs a second; bench.py's own draw
+    (four puzzles under the first one's key: only the first verifies); one
+    batch under torch.profiler;
+then the kernels' JSON line (launches of phase 4's base-4 and base-16 runs,
+phase 6's split run and phase 7's first batch together), the card's line, and the result line.  Any
 failure raises and exits non-zero.  Without a CUDA device it exits
 non-zero before printing a result.
 """
@@ -79,6 +95,7 @@ QUOTIENT_MULS = 116  # Montgomery products a row of K6 (csrc/quotient_row.cuh)
 COMMIT_BATCHES = 6  # commitment batches a proof: 5, 8, 5, 1, 7 and 3 columns
 SCAN_REPEATS = 50  # runs of each multi-tile scan and of K7 in phase 1, every result compared
 OPEN_ROWS = (47, 6, 4)  # rows a delay_enc proof opens at x, omega x and omega^-1 x
+BATCH = 4  # instances of phase 7's batch and of phase 1's batched kernels (bench.py's B)
 
 
 def log(*a):
@@ -102,21 +119,47 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, symbol: str):
+def device_ms(fn, reps: int, symbol: str, tries: int = 3):
     """The device time a call of the kernels whose names hold `symbol`, from
-    torch.profiler over reps calls; None where the profiler saw none.  For
-    small launches `timed` measures the wrapper's host path as well."""
+    torch.profiler over reps calls; None where the profiler saw none.  fn
+    launches only such kernels of the port.  The profiler can lose the last
+    kernel records of a session (on an H100: 0 to 4 of 5 long launches, 18
+    of 20 short ones), so a call's time is the mean recorded launch times
+    the launches a call made (the wrappers' counts), from the best of
+    `tries` sessions.  For small launches `timed` measures the wrapper's
+    host path as well."""
     from torch.profiler import ProfilerActivity, profile
+
+    from delay_enc_tpu_torch.ops import _cuda
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages() if symbol in e.key)
-    return us / 1e3 / reps if us else None
+    best = (0, 0.0, 0)
+    for _ in range(tries):
+        before = sum(_cuda.launch_counts().values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(_cuda.launch_counts().values()) - before
+        seen = [e for e in prof.key_averages() if symbol in e.key]
+        recorded = sum(e.count for e in seen)
+        us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0) for e in seen)
+        if recorded > best[0]:
+            best = (recorded, us, launched)
+        if recorded == launched:
+            break
+    recorded, us, launched = best
+    log(f"  device_ms {symbol}: {recorded} of {launched} launches recorded over {reps} calls, "
+        f"{us / 1e3:.4f} ms")
+    return us / 1e3 / recorded * launched / reps if recorded else None
+
+
+def sum_ms(times):
+    """The sum of device times, None where one was not measured."""
+    times = list(times)
+    return None if None in times else sum(times)
 
 
 def ms_text(ms) -> str:
@@ -168,14 +211,17 @@ class Report:
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
 
-    def also(self, name, shape, *, err, ms, int_ops, nbytes=0, note=""):
+    def also(self, name, shape, *, err, ms, int_ops, nbytes=0, note="", device_ms=None):
         """One more shape of a kernel that has its row: printed, and kept
         under the row's `other_shapes`."""
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
         ops_ms = int_ops / self.int_rate * 1e3
         bound, by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
-        self.rows[name].setdefault("other_shapes", []).append(
-            {"shape": shape, "max_abs_err": err, "ms": ms, "bound_ms": bound, "bound_by": by})
+        other = {"shape": shape, "max_abs_err": err, "ms": ms, "bound_ms": bound, "bound_by": by}
+        if device_ms is not None:
+            other["device_ms"] = device_ms
+            note = f" (device time {device_ms:.4f} ms a call, torch.profiler){note}"
+        self.rows[name].setdefault("other_shapes", []).append(other)
         print(f"phase 1 {name} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
               f"bound {bound:.4f} ms ({by}){note}", flush=True)
         if err != 0:
@@ -235,7 +281,9 @@ def phase1(rep: Report, dev):
         elems = a.shape[0]
         rep.add(name, err=err, ms=ms, plain_ms=plain_ms, nbytes=96 * elems,
                 int_ops=elems * (MONT_MULS * WIDE if op is L.mont_mul else 0),
-                note=f" (Fr and Fq, 2^20 + {elems - n} elements, carry-heavy pairs among them)")
+                device_ms=device_ms(lambda: op(ctx, a, b), 20, "field_binary_kernel"),
+                note=f" (Fr and Fq, 2^20 + {elems - n} elements, carry-heavy pairs among them; "
+                     f"device time over Fq)")
 
     # K-a again at (19, 2^19) elements, where the card and not the wrapper's
     # host path sets the time; a sample of the rows against the plain version
@@ -276,6 +324,8 @@ def phase1(rep: Report, dev):
         ops += ntt_ops(b_, n_.bit_length() - 1)
         nbytes += 2 * x.numel() * 4 + (n_ // 2) * 32
     rep.add("ntt_fused", err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes, int_ops=ops,
+            device_ms=sum_ms(device_ms(lambda: N.stockham(L.FR_CTX, x, tw), 3, "ntt_fused_kernel")
+                             for x, tw in ((ext_in, plan_ext.tw), (inv_in, plan.tw_inv))),
             note=f" (whole transforms: (19, 2^19) forward + (6, 2^16) inverse; passes "
                  f"{[(p.s, p.c_log) for p in N.plan(19)]} and {[(p.s, p.c_log) for p in N.plan(16)]})")
     del ext_in
@@ -411,13 +461,15 @@ def phase1(rep: Report, dev):
     ms = timed(lambda: M.complete_add(p, q), 20)
     npts = 1 << 16
     rep.add("g1_complete_add", err=err, ms=ms, plain_ms=plain_ms, nbytes=3 * 96 * npts,
-            int_ops=npts * ADD_MULS * MONT_MULS * WIDE, note=" (2^16 pairs)")
+            int_ops=npts * ADD_MULS * MONT_MULS * WIDE, note=" (2^16 pairs)",
+            device_ms=device_ms(lambda: M.complete_add(p, q), 20, "g1_add_kernel"))
     # and at 2^20 pairs, where the card and not the host's launch path sets the time
     p20, q20 = p.repeat(16, 1, 1), q.repeat(16, 1, 1)
     err = max_err(M.complete_add(p20, q20)[-npts:], want)
     ms = timed(lambda: M.complete_add(p20, q20), 10)
     rep.also("g1_complete_add", "2^20 pairs", err=err, ms=ms, nbytes=3 * 96 * 16 * npts,
-             int_ops=16 * npts * ADD_MULS * MONT_MULS * WIDE)
+             int_ops=16 * npts * ADD_MULS * MONT_MULS * WIDE,
+             device_ms=device_ms(lambda: M.complete_add(p20, q20), 10, "g1_add_kernel"))
     del p20, q20
 
     # fixed base: 2^10 scalars with 0, 1, r - 1 and a power of two against the
@@ -448,6 +500,8 @@ def phase1(rep: Report, dev):
     rep.add("g1_fixed_base_mul", err=err, ms=ms, plain_ms=plain_ms,
             nbytes=npts * (32 + 96) + M.SCALAR_BITS * 96,
             int_ops=npts * M.SCALAR_BITS * ADD_MULS * MONT_MULS * WIDE,
+            device_ms=device_ms(lambda: M.fixed_base_batch_mul(table_g, scal), 3,
+                                "fixed_base_kernel"),
             note=f" (2^16 scalars, {M.fixed_base_split(npts)} threads a scalar; 2^10 with "
                  f"0, 1, r - 1 and powers of two also agree; compared affine)")
 
@@ -472,6 +526,7 @@ def phase1(rep: Report, dev):
     rep.add("plane_sums", err=err, ms=ms, plain_ms=plain_ms,
             nbytes=16 * w + 16 * w * 96 + 16 * 96,
             int_ops=16 * (w - 1) * ADD_MULS * MONT_MULS * WIDE,
+            device_ms=device_ms(lambda: MT.tree_reduce(table, sel), 5, "plane_sums_kernel"),
             note=" (selector mode, C=16, W=2^15, compared affine)")
 
     # K-c alone at the proof's shapes: one column and the largest batch; the
@@ -508,6 +563,7 @@ def phase1(rep: Report, dev):
     phase1_fused(rep, dev, rand_field, carry_heavy)
     phase1_split(rep, dev, rand_field, carry_heavy)
     phase1_open(rep, dev, rand_field, carry_heavy)
+    phase1_batch(rep, dev, rand_field, carry_heavy)
 
 
 def phase1_b16(rep: Report, dev, gen, pts, affine_err):
@@ -543,6 +599,7 @@ def phase1_b16(rep: Report, dev, gen, pts, affine_err):
     rep.add("plane_sums16", err=err, ms=ms, plain_ms=plain_ms,
             nbytes=16 * w + 16 * w * 96 + 16 * 96,
             int_ops=16 * (w - 1) * ADD_MULS * MONT_MULS * WIDE,
+            device_ms=device_ms(lambda: MT.tree_reduce(table, sel), 5, "plane_sums16_kernel"),
             note=" (256-option table, C=16, W=2^15, every selector value, the identity "
                  "option and 255 among the rows; compared affine)")
     # the proof's shapes, one column and the largest batch of 64 planes each;
@@ -591,16 +648,18 @@ def phase1_b16(rep: Report, dev, gen, pts, affine_err):
             torch.cuda.synchronize()
             plain_ms = (time.time() - t0) * 1e3
             err = max_err(got, want)
-            ms = timed(lambda: M.pair_sel(x, bits), 20)
+            fn = lambda: M.pair_sel(x, bits)
+            ms, dev_ms = timed(fn, 20), device_ms(fn, 20, "pair_sel_kernel")
             nbytes = batch * n * 32 + batch * planes * n // 2
             what = f"B={batch}, n=2^16, {bits}-bit digits ({planes} planes)"
             if (batch, bits) == (8, 2):
                 rep.add("pair_sel", err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes, int_ops=0,
+                        device_ms=dev_ms,
                         note=f" ({what}: the base-4 path's largest batch; 0, 1, r - 1, 2^253 "
                              f"among the scalars)")
             else:
                 rep.also("pair_sel", what, err=err, ms=ms, nbytes=nbytes, int_ops=0,
-                         note=f" (plain {plain_ms:.4f} ms)")
+                         device_ms=dev_ms, note=f" (plain {plain_ms:.4f} ms)")
 
 
 def phase1_fused(rep: Report, dev, rand_field, carry_heavy):
@@ -643,6 +702,7 @@ def phase1_fused(rep: Report, dev, rand_field, carry_heavy):
     # read: 6 + 6 + 1 columns, 6 key rows (tags, table), 8 lookup columns; write 10
     rep.add("gp_fracs", err=err, ms=ms, plain_ms=plain_ms, nbytes=(27 + 10) * n * 32,
             int_ops=usable * FRACS_MULS * MONT_MULS * WIDE,
+            device_ms=device_ms(lambda: K.gp_fracs(*fr_in, consts, usable), 20, "fracs_kernel"),
             note=f" (2^16 rows, {n - usable} inactive; plain: the composition over K-a)")
     del fr_in, got, want
     for n_small, usable in ((1000, 993), (8, 1)):
@@ -671,6 +731,7 @@ def phase1_fused(rep: Report, dev, rand_field, carry_heavy):
     # read: 19 witness and 24 key columns and X; write h
     rep.add("quotient_h", err=err, ms=ms, plain_ms=plain_ms, nbytes=(44 + 1) * n_ext * 32,
             int_ops=n_ext * QUOTIENT_MULS * MONT_MULS * WIDE,
+            device_ms=device_ms(lambda: K.quotient_h(*q_in, consts), 5, "quotient_kernel"),
             note=" (2^19 rows; plain: the composition over K-a with its stack and roll copies)")
     del q_in, got
     for n_small in (1 << 9, 8):
@@ -741,6 +802,7 @@ def phase1_split(rep: Report, dev, rand_field, carry_heavy):
     ms = timed(lambda: coset(7, got), 5)
     rep.add("quotient_h_coset", err=err, ms=ms, plain_ms=plain_ms,
             nbytes=(44 + 1) * n * 32, int_ops=n * QUOTIENT_MULS * MONT_MULS * WIDE,
+            device_ms=device_ms(lambda: coset(7, got), 5, "quotient_kernel"),
             note=" (2^18 rows of one coset, rot 1, stored at 8i + j of a 2^21 h_ext, cosets 0 "
                  "and 7, carry-heavy words among the operands, the places of cosets 1-6 left "
                  "as they were; plain: the composition over K-a)")
@@ -860,6 +922,141 @@ def phase1_open(rep: Report, dev, rand_field, carry_heavy):
                      err=err, ms=timed(fn, 10), int_ops=products * n * MONT_MULS * WIDE)
 
 
+def phase1_batch(rep: Report, dev, rand_field, carry_heavy):
+    """K5, K6 and K7 over an instance axis, as the batched prover launches
+    them: B = 4 instances at delay_enc k=16's shapes (2^16 rows; 2^19 on the
+    extended coset; the openings' 47, 6 and 4 rows of 2^16 an instance),
+    each with its own challenges, against the plain versions (the single-
+    instance ones looped) on the card, K7 50 times over; at small ragged
+    sizes with carry-heavy words against the plain versions on the CPU; and
+    each batched launch against the same instances' single launches."""
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.plonk import kernels as K
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED, KEY_ROWS
+
+    B = BATCH
+    rng = np.random.default_rng(6)
+    heavy_a, heavy_b = carry_heavy(L.FR_CTX)
+    heavy = torch.cat([heavy_a, heavy_b])
+
+    def consts(count):
+        """Challenge words, other ones an instance."""
+        return np.stack([K.challenge_words(*(int(v) for v in rng.integers(1, 2**62, 4)),
+                                           [int(v) for v in rng.integers(1, 2**62, 6)])
+                         for _ in range(count)])
+
+    def stack(*shape, with_heavy=False):
+        count = int(np.prod(shape))
+        w = rand_field(L.FR_CTX, max(0, count - 3))[:count].reshape(*shape, 8)
+        if with_heavy:
+            flat = w.reshape(-1, 8)
+            at = torch.randperm(flat.shape[0], device=dev)[: heavy.shape[0]]
+            flat[at] = heavy[: at.shape[0]]
+        return w
+
+    def cpu(ts):
+        return [t.cpu() for t in ts]
+
+    # K5: (4, 6, 2^16) and (4, 8, 2^16) over one key
+    n = 1 << 16
+    c = consts(B)
+    usable = n - 7
+    fr_in = [stack(B, 6, n), stack(6, n), stack(n), stack(len(ALL_FIXED), n), stack(B, 8, n)]
+    got = K.gp_fracs(*fr_in, c, usable)
+    want = K.gp_fracs_plain(*fr_in, c, usable)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    for b in range(B):  # the single launches give the batch's rows
+        one = K.gp_fracs(fr_in[0][b], *fr_in[1:4], fr_in[4][b], c[b], usable)
+        err = max(err, *(max_err(o, g[5 * b : 5 * b + 5]) for o, g in zip(one, got)))
+    fn = lambda: K.gp_fracs(*fr_in, c, usable)
+    rep.also("gp_fracs", f"B={B} instances of 2^16 rows, one launch, each its own challenges",
+             err=err, ms=timed(fn, 20), device_ms=device_ms(fn, 20, "fracs_kernel"),
+             nbytes=(B * 24 + 13) * n * 32, int_ops=B * usable * FRACS_MULS * MONT_MULS * WIDE,
+             note=" (plain: the single-instance plain version looped; each instance also "
+                  "against its own single launch)")
+    del fr_in, got, want
+    n_small = 1003
+    c3 = consts(3)
+    small = [stack(3, 6, n_small, with_heavy=True), stack(6, n_small, with_heavy=True),
+             stack(n_small, with_heavy=True), stack(len(ALL_FIXED), n_small, with_heavy=True),
+             stack(3, 8, n_small, with_heavy=True)]
+    got = K.gp_fracs(*small, c3, n_small - 9)
+    want = K.gp_fracs(*cpu(small), c3, n_small - 9)
+    rep.also("gp_fracs", f"B=3 instances of {n_small} rows, carry-heavy words, against the CPU "
+             f"plain version", err=max(max_err(g.cpu(), w) for g, w in zip(got, want)),
+             ms=timed(lambda: K.gp_fracs(*small, c3, n_small - 9), 10),
+             int_ops=3 * n_small * FRACS_MULS * MONT_MULS * WIDE)
+
+    # K6: (4, 19, 2^19) over the shared key stack, one launch
+    n_ext = 1 << 19
+    q_in = [stack(B, K.WIT_ROWS, n_ext), stack(len(KEY_ROWS), n_ext), stack(n_ext), stack(8)]
+    got = K.quotient_h(*q_in, c)
+    want = K.quotient_h_plain(*q_in, c)
+    err = max_err(got, want)
+    del want
+    for b in range(B):
+        err = max(err, max_err(K.quotient_h(q_in[0][b], *q_in[1:], c[b]), got[b]))
+    fn = lambda: K.quotient_h(*q_in, c)
+    rep.also("quotient_h", f"B={B} instances of 2^19 rows, one launch, each its own challenges",
+             err=err, ms=timed(fn, 5), device_ms=device_ms(fn, 5, "quotient_kernel"),
+             nbytes=(B * 20 + 25) * n_ext * 32,
+             int_ops=B * n_ext * QUOTIENT_MULS * MONT_MULS * WIDE,
+             note=" (plain: the single-instance composition over K-a looped; each instance "
+                  "also against its own single launch)")
+    del q_in, got
+    n_small = 8 * 65
+    small = [stack(3, K.WIT_ROWS, n_small, with_heavy=True),
+             stack(len(KEY_ROWS), n_small, with_heavy=True), stack(n_small, with_heavy=True),
+             heavy[:8].contiguous()]
+    got = K.quotient_h(*small, c3)
+    rep.also("quotient_h", f"B=3 instances of {n_small} rows, carry-heavy words, against the "
+             f"CPU plain version", err=max_err(got.cpu(), K.quotient_h(*cpu(small), c3)),
+             ms=timed(lambda: K.quotient_h(*small, c3), 10),
+             int_ops=3 * n_small * QUOTIENT_MULS * MONT_MULS * WIDE)
+
+    # K7: four tables of the openings' stacks, one launch each contraction
+    def operands(counts_b, n):
+        stacks_b, pows_b, v_b = [], [], []
+        for counts in counts_b:
+            rows = list(stack(sum(counts), n, with_heavy=True))
+            stacks, first = [], 0
+            for m in counts:
+                stacks.append(rows[first : first + m])
+                first += m
+            stacks_b.append(stacks)
+            pows_b.append(list(stack(len(counts), n)))
+            v_b.append(stack(max(counts)))
+        return stacks_b, pows_b, v_b
+
+    counts_b = [OPEN_ROWS] * B
+    ops = operands(counts_b, 1 << 16)
+    rows = sum(OPEN_ROWS)
+    for kind, products, symbol in (("eval", rows, "open_eval_kernel"),
+                                   ("combine", rows + len(OPEN_ROWS), "open_combine_kernel")):
+        want = K.open_stacks_plain(kind, *ops)
+        err = max(max_err(K.open_stacks(kind, *ops), want) for _ in range(SCAN_REPEATS))
+        fn = lambda: K.open_stacks(kind, *ops)
+        rep.also(f"open_{kind}", f"B={B} tables of {OPEN_ROWS} rows of 2^16, one launch",
+                 err=err, ms=timed(fn, 20), device_ms=device_ms(fn, 20, symbol),
+                 nbytes=B * (rows + len(OPEN_ROWS)) * (1 << 16) * 32 + want.numel() * 4,
+                 int_ops=B * products * (1 << 16) * MONT_MULS * WIDE,
+                 note=f" ({SCAN_REPEATS} runs compared; plain: the single-instance plain "
+                      f"version looped)")
+        del want
+    del ops
+    ragged = [(5, 2, 1), (1,), (3, 3)]
+    for n in (1003, 3 * K.OPEN_EVAL_CHUNK + 5):
+        ops = operands(ragged, n)
+        cpu_ops = ([[cpu(r) for r in st] for st in ops[0]], [cpu(p) for p in ops[1]],
+                   cpu(ops[2]))
+        for kind in ("eval", "combine"):
+            fn = lambda: K.open_stacks(kind, *ops)
+            products = sum(map(sum, ragged)) + (sum(map(len, ragged)) if kind == "combine" else 0)
+            rep.also(f"open_{kind}", f"tables of {ragged} rows of {n}, one launch, against the "
+                     f"CPU plain version", err=max_err(fn().cpu(), K.open_stacks(kind, *cpu_ops)),
+                     ms=timed(fn, 10), int_ops=products * n * MONT_MULS * WIDE)
+
+
 def pose_enc_circuit(seed: int = 42):
     """bench.py build_circuit("pose_enc") with the utils/config.py defaults."""
     from delay_enc_tpu_torch.encryption import PoseidonCipher
@@ -933,28 +1130,35 @@ def mod_pow_circuit(k: int = 17, seed: int = 42):
     return RSACircuit(n=n, e=e, x=x, field=FR, exp_limb_bits=t_bits).build()
 
 
-def golden_k7(dev):
-    """SRS setup, keygen and create_proof of the k=7 circuit of
-    tests/test_torch_prover.py on the card, against the JAX package's bytes
-    for the same tau and rng seed (tests/data/torch_port_k7.npz)."""
+def k7_circuit(x0: int = 7, y0: int = 11):
+    """The k=7 circuit of tests/test_torch_prover.py for the witness (x0, y0)."""
     from delay_enc_tpu_torch import cs
-    from delay_enc_tpu_torch.curves.bn254 import g1_to_bytes
     from delay_enc_tpu_torch.fields import FR
-    from delay_enc_tpu_torch.ops import msm as M
-    from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen
-    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED
 
-    t0 = time.time()
     b = cs.Builder(FR)
     mg, rc = cs.MainGate(b), cs.RangeChip(b)
-    x, y = mg.assign_value(7), mg.assign_value(11)
+    x, y = mg.assign_value(x0), mg.assign_value(y0)
     s, m = mg.add(x, y), mg.mul(x, y)
     acc = mg.compose([cs.Term(x, 2), cs.Term(y, 3), cs.Term(s, 1), cs.Term(m, 5)], constant=9)
     sel = mg.select(s, m, mg.assign_bit(1))
     mg.assert_equal(sel, s)
     rc.assign(45, 2, 6)
     mg.assert_one(mg.is_equal(acc, mg.assign_value(acc.value)))
+    return b
 
+
+def golden_k7(dev):
+    """SRS setup, keygen and create_proof of the k=7 circuit of
+    tests/test_torch_prover.py on the card, against the JAX package's bytes
+    for the same tau and rng seed (tests/data/torch_port_k7.npz).  Returns
+    the SRS and the keys."""
+    from delay_enc_tpu_torch.curves.bn254 import g1_to_bytes
+    from delay_enc_tpu_torch.ops import msm as M
+    from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED
+
+    t0 = time.time()
+    b = k7_circuit()
     srs = SRS.setup(7, tau=123456789, device=dev)
     pk, vk = keygen(b, srs, device=dev)
     proof = create_proof(srs, pk, b, np.random.default_rng(42), device=dev)
@@ -976,6 +1180,38 @@ def golden_k7(dev):
           f"{len(vk.sigma_commitments)} sigma commitments, transcript_repr and the "
           f"{len(proof)} proof bytes equal the JAX package's ({time.time() - t0:.2f} s)",
           flush=True)
+    return srs, pk, vk
+
+
+def batch_k7(dev, srs, pk, vk) -> None:
+    """The batched k=7 proofs of the witnesses (7, 11) and (3, 5) from
+    default_rng(1), in both MSM bases, against the JAX package's
+    (tests/data/torch_port_batch_k7.npz); then three proofs pipelined two
+    deep against the serial ones for the same seeds."""
+    from delay_enc_tpu_torch.plonk import (create_proof, create_proofs_batched,
+                                           create_proofs_pipelined, verify_proof)
+
+    t0 = time.time()
+    with np.load(os.path.join(ROOT, "tests", "data", "torch_port_batch_k7.npz")) as z:
+        builders = [k7_circuit(*(int(v) for v in w)) for w in z["witnesses"]]
+        want, seed = [p.tobytes() for p in z["proofs"]], int(z["seed"])
+    for msm in ("b4", "b16"):
+        got = create_proofs_batched(srs, pk, builders, np.random.default_rng(seed), device=dev,
+                                    msm=msm)
+        if got != want:
+            raise AssertionError(f"the batched k=7 proofs ({msm}) differ from the JAX package's")
+    if not all(verify_proof(srs, vk, p) for p in want):
+        raise AssertionError("a batched k=7 proof does not verify")
+    seeds = [11, 22, 33]
+    three = [k7_circuit(*w) for w in ((4, 9), (6, 13), (2, 3))]
+    piped = create_proofs_pipelined(srs, pk, three, seeds=seeds, depth=2, device=dev)
+    serial = [create_proof(srs, pk, b, np.random.default_rng(s), device=dev)
+              for b, s in zip(three, seeds)]
+    if piped != serial or not all(verify_proof(srs, vk, p) for p in piped):
+        raise AssertionError("the pipelined k=7 proofs differ from the serial ones")
+    print(f"phase 0 batched k=7: B={len(builders)} proofs in both MSM bases equal the JAX "
+          f"package's batch, and verify; 3 proofs pipelined two deep equal the serial ones "
+          f"({time.time() - t0:.2f} s)", flush=True)
 
 
 def check_vk(vk, want, what: str) -> None:
@@ -994,7 +1230,7 @@ def check_vk(vk, want, what: str) -> None:
 def spans(prefix=""):
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
-    return {k: round(v, 4) for k, v in GLOBAL_METRICS.spans.items() if k.startswith(prefix)}
+    return {k: round(v, 4) for k, v in GLOBAL_METRICS.snapshot().items() if k.startswith(prefix)}
 
 
 KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
@@ -1009,25 +1245,25 @@ KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
 }
 
 
-def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4") -> dict:
-    """One more proof under torch.profiler: device kernel time by kernel (the
-    port's own, and PyTorch's copies and elementwise ops, the largest of
-    those by name) against the proof's wall time, so the device's idle share
-    shows.  Returns {kernel: [ms, launches]}, empty if the profiler saw no
-    device time."""
+def profile_run(run, phase: str, what: str) -> dict:
+    """One more run of `run` under torch.profiler: device kernel time by
+    kernel (the port's own, and PyTorch's copies and elementwise ops, the
+    largest of those by name) against the run's wall time, so the device's
+    idle share shows.  Returns {kernel: [ms, launches]}, empty if the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from delay_enc_tpu_torch.plonk import create_proof
+    from delay_enc_tpu_torch.ops import _cuda
 
     torch.cuda.synchronize()
+    before = sum(_cuda.launch_counts().values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        again = create_proof(srs, pk, builder, np.random.default_rng(0), device=dev, msm=msm)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    if again != proof:
-        raise AssertionError("the profiled proof differs from the first")
+    launched = sum(_cuda.launch_counts().values()) - before
     groups: dict = {}
     torch_own: dict = {}
 
@@ -1046,17 +1282,31 @@ def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4") -> 
             tally(torch_own, e.key[:90], us, e.count)
     busy = sum(g[0] for g in groups.values())
     if busy == 0:
-        print(f"{phase} profile: proof wall {wall_ms:.3f} ms; the profiler saw no device "
+        print(f"{phase} profile: {what} wall {wall_ms:.3f} ms; the profiler saw no device "
               f"time, idle share not measured", flush=True)
         return {}
     detail = {k: {"ms": round(v[0], 4), "kernels": v[1]} for k, v in sorted(groups.items())}
     top = sorted(torch_own.items(), key=lambda kv: -kv[1][0])[:6]
-    print(f"{phase} profile: proof wall {wall_ms:.3f} ms under the profiler, device kernels "
-          f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.4f}; {json.dumps(detail)}; "
+    recorded = sum(g[1] for name, g in groups.items() if name != "torch (other)")
+    print(f"{phase} profile: {what} wall {wall_ms:.3f} ms under the profiler, device kernels "
+          f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.4f} ({recorded} of the port's "
+          f"{launched} launches recorded); {json.dumps(detail)}; "
           f"largest of PyTorch's own: "
           f"{json.dumps({k: {'ms': round(v[0], 4), 'kernels': v[1]} for k, v in top})}",
           flush=True)
     return groups
+
+
+def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4") -> dict:
+    """One more proof from default_rng(0) under torch.profiler
+    (`profile_run`); it must equal `proof`."""
+    from delay_enc_tpu_torch.plonk import create_proof
+
+    def run():
+        if create_proof(srs, pk, builder, np.random.default_rng(0), device=dev, msm=msm) != proof:
+            raise AssertionError("the profiled proof differs from the first")
+
+    return profile_run(run, phase, "proof")
 
 
 # K-a launches a proof since K5, K6 and K7 took the fractions, the quotient
@@ -1069,6 +1319,13 @@ PLANNED_ELEMENTWISE = COMMIT_BATCHES + 4 + 3
 # points, of v (one table for the three stacks) and of the 3 inverse points,
 # and the 3 GWC suffix sums
 PLANNED_SCANS = 1 + 3 + 3 + 1 + 3 + 3
+# a batch, whatever B: the same canonical forms and finishing products, and
+# one product by the z^-(i+1) for every instance's three GWC divisions
+PLANNED_BATCH_ELEMENTWISE = COMMIT_BATCHES + 4 + 1
+# and one scan launch for each of: the powers of omega, the three grand
+# product scans, the powers of every point, of every v and of every inverse
+# point, and the GWC suffix sums of every point
+PLANNED_BATCH_SCANS = 1 + 3 + 1 + 1 + 1 + 1
 
 
 def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4",
@@ -1123,6 +1380,120 @@ def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4",
                              f"{PLANNED_ELEMENTWISE}")
 
 
+def check_batch_launches(launches: dict, k: int) -> None:
+    """One batch at k, base 4, fused quotient: one launch each of K5, K6 and
+    K7's two contractions for every instance, one selector launch a
+    commitment call, the transforms and scans of one proof (batched by
+    rows), and no plain version on the path: 11 K-a products, no sum, no
+    subtraction (a plain K5, K6 or K7 would launch dozens)."""
+    from delay_enc_tpu_torch.ops import ntt as N
+
+    want = {"gp_fracs": 1, "quotient_h": 1, "open_eval": 1, "open_combine": 1,
+            "quotient_h_coset": 0, "pair_sel": COMMIT_BATCHES, "plane_sums16": 0,
+            "field_scan": PLANNED_BATCH_SCANS, "field_mont_mul": PLANNED_BATCH_ELEMENTWISE,
+            "ntt_fused": 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3)),
+            "g1_complete_add": 0, "g1_fixed_base_mul": 0, **{name: 0 for name in OFF_PATH}}
+    wrong = {name: (launches[name], n) for name, n in want.items() if launches[name] != n}
+    if wrong or launches["plane_sums"] == 0:
+        raise AssertionError(f"a batch launched (got, planned) {wrong}, plane_sums "
+                             f"{launches['plane_sums']}")
+
+
+def batch_phase(dev, card: str, srs, pk, vk) -> dict:
+    """delay_enc k=16, B = 4, on phase 4's SRS and base-4 key.  A delay_enc
+    circuit has one witness: its puzzle (n, e, x) and the puzzle's answer
+    are constants of the circuit (q_constant rows), and the in-circuit
+    encryption equals the native one for the zero message only (README,
+    fidelity notes).  So the batch is four builds of phase 4's statement,
+    each proved with its own blinding.  create_proofs_batched twice from one rng seed
+    (identical bytes, every proof verifying, launches asserted, peak device
+    memory); create_proofs_pipelined two deep with seeds 1..4 against four
+    serial create_proof calls; walls and proofs a second of the three; then
+    bench.py's own batch draw (four puzzles, keyed on the first): only the
+    first proof verifies; one more batch under torch.profiler.  Returns the
+    launch counts of the first batch."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.plonk import (create_proof, create_proofs_batched,
+                                           create_proofs_pipelined, keygen, verify_proof)
+    from delay_enc_tpu_torch.plonk.keygen import circuit_shape
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    k = pk.vk.domain.k
+    t0 = time.time()
+    builders = [delay_enc_circuit(k) for _ in range(BATCH)]
+    t_build = time.time() - t0
+    if any(circuit_shape(b) != pk.shape for b in builders):
+        raise AssertionError("a batch instance is not of the key's circuit")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    GLOBAL_METRICS.clear()
+    _cuda.reset_launches()
+    walls, runs = [], []
+    for _ in range(2):
+        t0 = time.time()
+        runs.append(create_proofs_batched(srs, pk, builders, np.random.default_rng(0), device=dev))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        if len(runs) == 1:
+            launches, batch_spans = _cuda.launch_counts(), spans("prove_batch/")
+    peak = torch.cuda.max_memory_allocated()
+    proofs = runs[0]
+    if runs[1] != proofs:
+        raise AssertionError("two batches from one rng seed differ")
+    if len(set(proofs)) != BATCH or not all(verify_proof(srs, vk, p) for p in proofs):
+        raise AssertionError("a batched delay_enc proof does not verify")
+    check_batch_launches(launches, k)
+
+    seeds = list(range(1, BATCH + 1))
+    GLOBAL_METRICS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    piped = create_proofs_pipelined(srs, pk, builders, seeds=seeds, depth=2, device=dev)
+    torch.cuda.synchronize()
+    t_pipe = time.time() - t0
+    pipe_peak, pipe_spans = torch.cuda.max_memory_allocated(), spans("prove/")
+    GLOBAL_METRICS.clear()
+    t0 = time.time()
+    serial = [create_proof(srs, pk, b, np.random.default_rng(s), device=dev)
+              for b, s in zip(builders, seeds)]
+    torch.cuda.synchronize()
+    t_serial = time.time() - t0
+    serial_spans = spans("prove/")
+    if piped != serial or not all(verify_proof(srs, vk, p) for p in piped):
+        raise AssertionError("the pipelined delay_enc proofs differ from the serial ones")
+    rate = lambda wall: BATCH / wall
+    print(f"phase 7 batch delay_enc k={k} B={BATCH} on {card}: circuits {t_build:.3f} s (host); "
+          f"create_proofs_batched {walls[0]:.3f} s then {walls[1]:.3f} s (identical bytes, all "
+          f"{BATCH} verify), {rate(walls[0]):.4f} then {rate(walls[1]):.4f} proofs/s, peak "
+          f"device memory {peak / 2**30:.3f} GiB; create_proofs_pipelined depth 2 {t_pipe:.3f} s "
+          f"({rate(t_pipe):.4f} proofs/s, peak {pipe_peak / 2**30:.3f} GiB) against {BATCH} "
+          f"serial create_proof {t_serial:.3f} s ({rate(t_serial):.4f} proofs/s), the same "
+          f"bytes; batch spans {json.dumps(batch_spans)}; pipelined spans (summed over the "
+          f"workers) {json.dumps(pipe_spans)}; serial spans {json.dumps(serial_spans)}; a "
+          f"batch's launches {json.dumps(launches)}", flush=True)
+
+    # bench.py's batch draw: seeds 100..103 are four puzzles, and each
+    # puzzle's answer is a constant of its circuit: the first one's key
+    # proves the first only
+    drawn = [delay_enc_circuit(k, seed=100 + i) for i in range(BATCH)]
+    pk_b, vk_b = keygen(drawn[0], srs, device=dev)
+    verified = [verify_proof(srs, vk_b, p) for p in
+                create_proofs_batched(srs, pk_b, drawn, np.random.default_rng(0), device=dev)]
+    del pk_b
+    if verified != [True] + [False] * (BATCH - 1):
+        raise AssertionError(f"bench.py's batch draw under its first key verified {verified}")
+    print(f"phase 7 bench.py's batch draw (seeds 100..{99 + BATCH}, keyed on the first): the "
+          f"proofs verify {verified}: four puzzles are four circuits", flush=True)
+
+    def run():
+        if create_proofs_batched(srs, pk, builders, np.random.default_rng(0), device=dev) != proofs:
+            raise AssertionError("the profiled batch differs from the first")
+
+    profile_run(run, "phase 7", f"batch of {BATCH}")
+    return launches
+
+
 def mod_pow_phase(dev, card: str) -> None:
     """mod_pow at k=17, bench.py's draw: SRS setup, keygen, two proofs from
     one rng seed that must be byte-identical, verify; the launch counts are
@@ -1134,7 +1505,7 @@ def mod_pow_phase(dev, card: str) -> None:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    GLOBAL_METRICS.spans.clear()
+    GLOBAL_METRICS.clear()
     k = 17
     t0 = time.time()
     b = mod_pow_circuit(k)
@@ -1190,7 +1561,7 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
     torch.cuda.empty_cache()
-    GLOBAL_METRICS.spans.clear()
+    GLOBAL_METRICS.clear()
     t0 = time.time()
     b = delay_enc_circuit(k)
     t_build = time.time() - t0
@@ -1212,7 +1583,7 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     proofs, t_prove, prove_spans = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
-        GLOBAL_METRICS.spans.clear()
+        GLOBAL_METRICS.clear()
         t0 = time.time()
         proofs.append(create_proof(srs, pk, b, np.random.default_rng(0), device=dev))
         torch.cuda.synchronize()
@@ -1242,7 +1613,7 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     # the fused path on the same SRS and circuit: the same vk, the same bytes
     del pk
     torch.cuda.empty_cache()
-    GLOBAL_METRICS.spans.clear()
+    GLOBAL_METRICS.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     pk_f, vk_f = keygen(b, srs, split=False, device=dev)
@@ -1252,7 +1623,7 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
         raise AssertionError("keygen(split=False) built a split key")
     check_vk(vk_f, vk, f"keygen(split=False) at k={k}")
     key_f_spans, key_f_peak = spans("keygen/"), torch.cuda.max_memory_allocated()
-    GLOBAL_METRICS.spans.clear()
+    GLOBAL_METRICS.clear()
     torch.cuda.reset_peak_memory_stats()
     before = _cuda.launch_counts()
     t0 = time.time()
@@ -1297,7 +1668,7 @@ def main() -> int:
                 elif "registers" in line or "spill" in line:
                     log(f"  {name}:   {line.strip()}")
 
-    golden_k7(dev)
+    batch_k7(dev, *golden_k7(dev))
 
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -1327,7 +1698,7 @@ def main() -> int:
           f"committed proof verifies ({time.time() - t0:.2f} s)", flush=True)
 
     # ---- 3. pose_enc k=11 ---------------------------------------------
-    GLOBAL_METRICS.spans.clear()
+    GLOBAL_METRICS.clear()
     t0 = time.time()
     pk11, vk11 = keygen(b11, srs11, k=k11, device=dev)
     t_key = time.time() - t0
@@ -1374,7 +1745,7 @@ def main() -> int:
     # ---- 4. delay_enc k=16, the main path -----------------------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    GLOBAL_METRICS.spans.clear()
+    GLOBAL_METRICS.clear()
     t0 = time.time()
     b16 = delay_enc_circuit()
     t_build = time.time() - t0
@@ -1414,9 +1785,12 @@ def main() -> int:
 
     profile_proof(srs16, pk16, b16, proof16, dev, "phase 4")
 
+    # ---- 7. the batched and pipelined provers on phase 4's SRS and key ----
+    batch_launches = batch_phase(dev, card, srs16, pk16, vk16)
+
     # ---- 4, base 16: the same SRS and keys through the base-16 MSM ------
     torch.cuda.reset_peak_memory_stats()
-    GLOBAL_METRICS.spans.clear()
+    GLOBAL_METRICS.clear()
     _cuda.reset_launches()
     t0 = time.time()
     tab16 = srs16.pair_tables16()
@@ -1459,7 +1833,8 @@ def main() -> int:
 
     # ---- kernels --------------------------------------------------------
     for name, row in rep.rows.items():
-        row["launches"] = sum(run.get(name, 0) for run in (launches, b16_launches, split_launches))
+        row["launches"] = sum(run.get(name, 0)
+                              for run in (launches, b16_launches, split_launches, batch_launches))
     # K5 and K6 took the last subtractions of a proof, K7 the last sums (0
     # launches, asserted): K-a's subtraction and sum are checked in phase 1
     # but are no kernels of the path

@@ -14,6 +14,11 @@
 // reduced field element, so any order of the products gives the words of
 // the JAX package.
 //
+// A launch can serve several instances of one circuit (the batched prover):
+// each has its own witness columns and challenges, the key's rows, sigma and
+// omega are shared.  `fracs_instance` moves the per-instance pointers to
+// instance b of (B, ...) stacks; the row body is the same for every instance.
+//
 // The functions are __host__ __device__, so a host C++ compiler can build
 // them and run the rows one after another.  The loops over columns are kept
 // rolled: a Montgomery product is a few hundred instructions, and the
@@ -35,6 +40,14 @@ using fld::NW;
 enum { C_THETA = 0, C_BETA = 1, C_GAMMA = 2, C_Y = 3, C_DELTA = 4, C_BETA_DELTA = 10, NCONST = 16 };
 struct Consts {
   uint32_t w[NCONST][NW];
+};
+
+// Instances one launch of K5 or K6 takes: their challenge blocks go by value
+// as one kernel parameter of MAX_INSTANCES * 512 bytes (parameters above 4 KB
+// need CUDA 12.1 on sm_70 or later).  The wrappers split a larger batch.
+constexpr int MAX_INSTANCES = 16;
+struct Batch {
+  Consts c[MAX_INSTANCES];
 };
 
 constexpr int PERM_COLS = 6;  // 5 advice columns and the instance column
@@ -100,6 +113,18 @@ struct FracsIn {
   size_t n;
   size_t usable;
 };
+
+// in's per-instance stacks moved to instance b: raw6 (B, 6, n, 8), lk
+// (B, 8, n, 8), num and den (B, 5, n, 8); sigma, omega and the key shared
+FDEV FracsIn fracs_instance(const FracsIn& in, size_t b) {
+  const size_t col = in.n * NW;
+  FracsIn r = in;
+  r.raw6 += b * PERM_COLS * col;
+  r.lk += b * 2 * LOOKUPS * col;
+  r.num += b * (1 + LOOKUPS) * col;
+  r.den += b * (1 + LOOKUPS) * col;
+  return r;
+}
 
 FDEV void fracs_row(size_t i, const FracsIn& in, const Consts& c) {
   const size_t n = in.n;

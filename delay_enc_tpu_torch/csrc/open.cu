@@ -15,7 +15,11 @@
 // block of a row to finish, which an atomic ticket after a fence names (the
 // CUDA programming guide's "last block" pattern), sums the row's partials.
 // open_combine: a thread a column of one point; it walks the point's rows,
-// so a warp reads 32 neighbouring elements of each row.
+// so a warp reads 32 neighbouring elements of each row.  Both take one table
+// an instance of the batched prover (_jit_eval_stack_batch and
+// _jit_gwc_witness_batch, delay_enc_tpu/plonk/batch_prover.py:103-107), up to
+// opening::MAX_TABLES a launch, the instance from blockIdx.z: a block past
+// its own table's chunks, rows or points returns at once.
 //
 // Bound: operations.  At delay_enc k=16 (57 rows of 2^16 over 3 points)
 // eval makes 57 x 2^16 Montgomery products (0.057 ms at 1.673e13
@@ -23,6 +27,8 @@
 // combine makes (57 + 3) x 2^16 (0.060 ms).
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "open_row.cuh"
 
@@ -57,10 +63,12 @@ __device__ __forceinline__ void ld8_from_l2(uint32_t r[8], const uint32_t* p) {
 }
 
 __global__ void __launch_bounds__(opening::EVAL_THREADS)
-open_eval_kernel(const __grid_constant__ opening::Table t) {
+open_eval_kernel(const __grid_constant__ opening::Tables all) {
   __shared__ uint32_t red[opening::EVAL_THREADS][8];
   __shared__ bool last;
-  const uint32_t r = blockIdx.y, chunk = blockIdx.x, chunks = gridDim.x;
+  const opening::Table& t = all.t[blockIdx.z];
+  const uint32_t r = blockIdx.y, chunk = blockIdx.x, chunks = opening::chunks(t);
+  if (r >= opening::rows(t) || chunk >= chunks) return;
   uint32_t* out = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(t.out));
   uint32_t* partial = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(t.scratch));
   uint32_t acc[8];
@@ -90,9 +98,11 @@ open_eval_kernel(const __grid_constant__ opening::Table t) {
 }
 
 __global__ void __launch_bounds__(COMBINE_THREADS)
-open_combine_kernel(const __grid_constant__ opening::Table t) {
+open_combine_kernel(const __grid_constant__ opening::Tables all) {
   __shared__ __align__(16) uint32_t vp[opening::MAX_ROWS * 8];
-  const int s = blockIdx.y;
+  const opening::Table& t = all.t[blockIdx.z];
+  const uint32_t s = blockIdx.y;
+  if (s >= t.points || (size_t)blockIdx.x * COMBINE_THREADS >= t.n) return;
   const uint32_t words = (t.first[s + 1] - t.first[s]) * 8;
   const uint32_t* v = opening::at(t.vpows);
   for (uint32_t w = threadIdx.x; w < words; w += COMBINE_THREADS) vp[w] = v[w];
@@ -113,33 +123,54 @@ int check(const opening::Table& t) {
   return 0;
 }
 
+// `count` host tables into `all`, each checked; the grid's x and y: the
+// largest count of eval chunks (or combine blocks) and of rows (or points)
+int gather(opening::Tables& all, const void* tables, unsigned count, bool eval, uint32_t& x,
+           uint32_t& y) {
+  if (count == 0 || count > (unsigned)opening::MAX_TABLES) return (int)cudaErrorInvalidValue;
+  std::memcpy(all.t, tables, count * sizeof(opening::Table));
+  x = y = 0;
+  for (unsigned b = 0; b < count; b++) {
+    const opening::Table& t = all.t[b];
+    if (const int e = check(t)) return e;
+    const uint32_t bx = eval ? opening::chunks(t) : (t.n + COMBINE_THREADS - 1) / COMBINE_THREADS;
+    const uint32_t by = eval ? opening::rows(t) : t.points;
+    if (bx > x) x = bx;
+    if (by > y) y = by;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// table: host memory, an opening::Table; its scratch holds
+// tables: host memory, `count` opening::Table; each table's scratch holds
 // rows * chunks * 8 + rows words for eval (chunks = ceil(n / EVAL_CHUNK)).
-extern "C" int open_eval(const void* table, void* stream) {
-  const opening::Table t = *static_cast<const opening::Table*>(table);
-  if (const int e = check(t)) return e;
-  if (opening::rows(t) == 0 || t.n == 0) return 0;
+extern "C" int open_eval(const void* tables, unsigned count, void* stream) {
+  opening::Tables all;
+  uint32_t chunks, rows;
+  if (const int e = gather(all, tables, count, true, chunks, rows)) return e;
+  if (chunks == 0 || rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t chunks = opening::chunks(t);
-  if (chunks > 1) {
+  for (unsigned b = 0; b < count; b++) {
+    const opening::Table& t = all.t[b];
+    const uint32_t c = opening::chunks(t);
+    if (c <= 1 || opening::rows(t) == 0) continue;
     uint32_t* counters = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(t.scratch)) +
-                         (size_t)opening::rows(t) * chunks * 8;
+                         (size_t)opening::rows(t) * c * 8;
     const cudaError_t e = cudaMemsetAsync(counters, 0, opening::rows(t) * 4, s);
     if (e != cudaSuccess) return (int)e;
   }
-  open_eval_kernel<<<dim3(chunks, opening::rows(t)), opening::EVAL_THREADS, 0, s>>>(t);
+  open_eval_kernel<<<dim3(chunks, rows, count), opening::EVAL_THREADS, 0, s>>>(all);
   return (int)cudaGetLastError();
 }
 
-// table: host memory, an opening::Table; no scratch.
-extern "C" int open_combine(const void* table, void* stream) {
-  const opening::Table t = *static_cast<const opening::Table*>(table);
-  if (const int e = check(t)) return e;
-  if (t.n == 0) return 0;
-  const uint32_t blocks = (t.n + COMBINE_THREADS - 1) / COMBINE_THREADS;
-  open_combine_kernel<<<dim3(blocks, t.points), COMBINE_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(t);
+// tables: host memory, `count` opening::Table; no scratch.
+extern "C" int open_combine(const void* tables, unsigned count, void* stream) {
+  opening::Tables all;
+  uint32_t blocks, points;
+  if (const int e = gather(all, tables, count, false, blocks, points)) return e;
+  if (blocks == 0) return 0;
+  open_combine_kernel<<<dim3(blocks, points, count), COMBINE_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(all);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@
 //             takes it).
 //
 // The rows are given one address each, so the stacks are never copied
-// together.  An eval block sums one EVAL_CHUNK of one row, each thread every
+// together.  A launch takes one table an instance (`Tables`), the instance
+// from the grid's z; each table's eval partials and tickets lie in its own
+// scratch.  An eval block sums one EVAL_CHUNK of one row, each thread every
 // EVAL_THREADS-th element of it (`eval_thread`); a combine thread owns one
 // column i of one point (`combine_column`).  Sums mod r are exact, so the
 // order of the additions does not change a word.  The functions are
@@ -38,6 +40,15 @@ struct Table {
   uint64_t scratch;                // eval: (rows, chunks, 8) partial sums, a counter a row
   uint32_t first[MAX_POINTS + 1];  // the rows of point s: first[s] .. first[s + 1] - 1
   uint32_t points, n;
+};
+
+// Tables one launch takes, one an instance of the batched prover (each with
+// its own rows, points, powers of v, output and scratch), by value in one
+// kernel parameter of MAX_TABLES tables (above 4 KB: CUDA 12.1 on sm_70 or
+// later).  The wrapper splits a larger batch.
+constexpr int MAX_TABLES = 16;
+struct Tables {
+  Table t[MAX_TABLES];
 };
 
 FDEV const uint32_t* at(uint64_t address) {

@@ -22,6 +22,10 @@
 // h[i * out_stride + out_offset]: coset j of the split quotient writes its
 // places 8i + j of the interleaved extended coset (stride 8, offset j).
 //
+// A launch can serve a batch of instances of one circuit, each with its own
+// witness stack and challenges (`quotient_instance`; the challenge blocks in
+// prow::Batch), over the key's shared stack.
+//
 // The functions are __host__ __device__, so a host C++ compiler can build
 // them and run the rows one after another.
 
@@ -47,6 +51,15 @@ struct QuotientIn {
   size_t out_stride;
   size_t out_offset;
 };
+
+// in moved to instance b of a batch: the witness stack (B, 19, n, 8) and h,
+// whose instances lie n * out_stride rows apart; the key, X and 1/Z_H shared
+FDEV QuotientIn quotient_instance(const QuotientIn& in, size_t b) {
+  QuotientIn r = in;
+  r.wit += b * WIT_ROWS * in.n * NW;
+  r.h += b * in.n * in.out_stride * NW;
+  return r;
+}
 
 // acc = acc * y + e
 FDEV void fold(uint32_t acc[NW], const uint32_t e[NW], const Consts& c) {

@@ -23,9 +23,10 @@
 //      state before it reads the words;
 //   4. each thread applies its prefix to its elements one after another, and
 //      the block copies the tile out.
-// A row of one tile needs no record.  The constant form (powers of one
-// element) needs none either: every full tile's total is c^TILE, so tile t's
-// prefix is that tile total to the power t, by squaring.
+// A row of one tile needs no record.  The constant form (the powers of one
+// element, its own in each row) needs none either: every full tile's total
+// is c^TILE, so tile t's prefix is that tile total to the power t, by
+// squaring.
 //
 // About 2.6 products an element (7/8 to reduce, 5/8 in the warp scan, 1/8
 // to combine the thread's prefix, 1 to apply), against about 8 in the
@@ -161,7 +162,7 @@ scan_kernel(const uint32_t* in, uint32_t* out, uint32_t* scratch, uint32_t n,
     rec = number;
   }
   const uint32_t row = rec / tiles_a_row, t = rec - row * tiles_a_row;
-  const uint32_t* in_row = in + (size_t)row * ((flags & scan::CONSTANT) ? 0u : n) * 8;
+  const uint32_t* in_row = in + (size_t)row * ((flags & scan::CONSTANT) ? 1u : n) * 8;
   uint32_t* out_row = out + (size_t)row * n * 8;
   const uint32_t first = t * TILE;
   for (uint32_t q = threadIdx.x; q < 2 * TILE; q += THREADS)
@@ -248,8 +249,8 @@ extern "C" int field_scan_plan(unsigned rows, unsigned n, unsigned flags, unsign
   return 0;
 }
 
-// in: (rows, n, 8), or one element (8 words) with the CONSTANT flag, which
-// stands for every element of every row; out: (rows, n, 8); scratch: the
+// in: (rows, n, 8), or with the CONSTANT flag (rows, 8): one element a
+// row, which stands for every element of its row; out: (rows, n, 8); scratch: the
 // look-back records, field_scan_plan's words of them (null where it says 0).
 extern "C" int field_scan(int op, int field, const void* in, void* out, void* scratch,
                           unsigned rows, unsigned n, unsigned flags, void* stream) {

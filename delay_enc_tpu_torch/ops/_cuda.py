@@ -7,7 +7,10 @@ as `c_void_p`; each C entry point launches on the given stream and returns
 `cudaGetLastError()`, which `Kernel.__call__` turns into an exception.
 
 Each `Kernel` keeps a launch count, so a run can show which kernels its
-main path went through (`reset_launches`, `launch_counts`).
+main path went through (`reset_launches`, `launch_counts`).  The counts,
+the build and the bindings are shared by every thread (the pipelined
+prover launches from several) and kept under one lock; a launch goes to
+the calling thread's current stream (`stream`).
 """
 
 from __future__ import annotations
@@ -44,10 +47,10 @@ _SIGNATURES = {
     "pair_sel": ("msm", [_P, _P, _U, _U, _U, _P]),
     "g1_complete_add": ("msm", [_P, _P, _P, _U, _U, _P]),
     "g1_fixed_base_mul": ("msm", [_P, _P, _P, _U, _U, _P]),
-    "quotient_h": ("quotient", [_P, _P, _P, _P, _P, _P, _Q, _Q, _Q, _Q, _P]),
-    "gp_fracs": ("fracs", [_P, _P, _P, _P, _P, _P, _P, _P, _Q, _Q, _P]),
-    "open_eval": ("open", [_P, _P]),
-    "open_combine": ("open", [_P, _P]),
+    "quotient_h": ("quotient", [_P, _P, _P, _P, _P, _P, _Q, _Q, _Q, _Q, _U, _P]),
+    "gp_fracs": ("fracs", [_P, _P, _P, _P, _P, _P, _P, _P, _Q, _Q, _U, _P]),
+    "open_eval": ("open", [_P, _U, _P]),
+    "open_combine": ("open", [_P, _U, _P]),
 }
 
 _lock = threading.Lock()
@@ -118,13 +121,16 @@ _fns: dict = {}
 
 
 def _bind(symbol: str):
-    if symbol not in _fns:
+    fn = _fns.get(symbol)
+    if fn is None:
         libname, argtypes = _SIGNATURES[symbol]
-        fn = getattr(_lib(libname), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[symbol] = fn
-    return _fns[symbol]
+        lib = _lib(libname)
+        with _lock:
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _fns[symbol] = fn
+    return fn
 
 
 def query(symbol: str, *args) -> None:
@@ -149,7 +155,8 @@ class Kernel:
         rc = _bind(self.symbol)(*args)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {rc}")
-        self.launches += 1
+        with _lock:
+            self.launches += 1
 
 
 KERNELS: dict[str, Kernel] = {}
@@ -162,12 +169,14 @@ def kernel(name: str, symbol: str, replaces: str, source: str) -> Kernel:
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _lock:
+        for k in KERNELS.values():
+            k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+    with _lock:
+        return {name: k.launches for name, k in KERNELS.items()}
 
 
 def require_cuda(*tensors) -> None:

@@ -5,10 +5,10 @@ axis (dim -2) of a (…, n, 8) tensor, so a stack of columns scans in one
 call.  Each prefix is one reduced field element, so every way of scanning
 gives the same words.
 
-On CUDA tensors every scan, and `powers_of`, is one launch of the kernel
-`field_scan` (`csrc/scan.cu`): inclusive or exclusive, forward or reverse,
-with the Montgomery product or the modular sum as the operator, and with a
-constant input for the powers of one element.  On CPU tensors the plain
+On CUDA tensors every scan, `powers_of` and `powers_rows` is one launch of
+the kernel `field_scan` (`csrc/scan.cu`): inclusive or exclusive, forward
+or reverse, with the Montgomery product or the modular sum as the operator,
+and with a constant input, one element a row, for the powers of elements.  On CPU tensors the plain
 versions run: "block" is the work-efficient two-level form (about 2n
 operations), "hs" the Hillis-Steele ladder (n log n), with flips and shifts
 around them for the reverse and the exclusive forms.  Each call names its
@@ -266,11 +266,24 @@ def powers_of(ctx: FieldCtx, x: torch.Tensor, n: int) -> torch.Tensor:
     return _launch(ctx, x, (n, L.NW), "mul", EXCLUSIVE | CONSTANT)
 
 
+def powers_rows(ctx: FieldCtx, xs: torch.Tensor, n: int) -> torch.Tensor:
+    """(R, 8) Montgomery elements -> (R, n, 8), row r the powers
+    [1, x_r, ..., x_r^(n-1)]: one launch for every row (the exclusive product
+    scan of a constant input, one element a row)."""
+    if xs.dim() != 2 or xs.shape[-1] != L.NW:
+        raise ValueError(f"powers_rows takes (R, 8) elements, got {tuple(xs.shape)}")
+    if xs.device.type == "cpu":
+        return torch.stack([powers_of_plain(ctx, x, n) for x in xs]) if len(xs) \
+            else xs.new_empty((0, n, L.NW))
+    return _launch(ctx, xs, (xs.shape[0], n, L.NW), "mul", EXCLUSIVE | CONSTANT)
+
+
 def divide_scaled(ctx: FieldCtx, t: torch.Tensor, zinv_powers: torch.Tensor) -> torch.Tensor:
     """(f(X) - f(z)) / (X - z) in coefficient form, from t_j = a_j z^j
     (delay_enc_tpu/ops/poly.py divide_by_linear, whose product by the powers
     of z is K7's): b_i = (sum of t_j over j > i) * z^-(i+1), the n-1
-    coefficients padded with a zero to length n."""
+    coefficients padded with a zero to length n.  t (…, n, 8); zinv_powers
+    (…, n + 1, 8), z^-i for each row of t."""
     n = t.shape[-2]
     above = suffix_sum(ctx, t, "block", exclusive=True)
-    return L.mont_mul(ctx, above, zinv_powers[1 : n + 1])
+    return L.mont_mul(ctx, above, zinv_powers[..., 1 : n + 1, :])

@@ -13,7 +13,12 @@ evaluates every opened row at its point, one forms every point's v-weighted
 sum times z^i, so `_eval_stack` and `_gwc_witness` take the stacks of all
 the points at once, where the JAX package calls them a point at a time.
 On CPU tensors they run their plain versions, which are the
-functions below them.  Field arithmetic goes through `ops.limbs`
+functions below them.  The batched prover (`plonk/batch_prover.py`)
+gives K5, K6 and K7 a leading instance axis: one launch serves every
+instance of the batch (up to `MAX_INSTANCES`), each with its own witness
+rows and challenges over the key's shared rows, as the JAX package's vmaps
+do; their plain versions loop the single-instance ones over the instances.
+Field arithmetic goes through `ops.limbs`
 (kernel K-a on a card), transforms through `ops.ntt.stockham` (kernel K-b,
 with the coset scaling, the zero padding, 1/n or zeta^-i / n_ext fused into
 its first and last pass), scans and powers through `ops.poly` (kernel
@@ -49,6 +54,9 @@ W_INSTANCE, W_Z_PERM, W_Z_L, W_AP, W_SP, WIT_ROWS = 5, 6, 7, 11, 15, 19
 
 # rows of `challenge_words` (csrc/fracs_row.cuh Consts)
 C_THETA, C_BETA, C_GAMMA, C_Y, C_DELTA, C_BETA_DELTA, N_CONSTS = 0, 1, 2, 3, 4, 10, 16
+# instances one launch of K5, K6 or K7 takes (csrc/fracs_row.cuh
+# MAX_INSTANCES, csrc/open_row.cuh MAX_TABLES): the wrappers split a batch
+MAX_INSTANCES = 16
 
 _REPLACES = "delay_enc_tpu/plonk/kernels.py:"
 K_FRACS = _cuda.kernel(
@@ -295,14 +303,27 @@ def _check_shapes(shapes: dict):
         device = t.device
 
 
-def _check_operands(shapes: dict, consts) -> np.ndarray:
+def _check_operands(shapes: dict, consts, lead: tuple = ()) -> np.ndarray:
     """Check each named tensor against its (…, 8) shape: int32, one device;
-    return the challenge words, checked, as a contiguous array."""
+    return the challenge words, checked, as a contiguous array: (16, 8), or
+    (B, 16, 8) for a batch, lead = (B,)."""
     _check_shapes(shapes)
-    if not isinstance(consts, np.ndarray) or consts.dtype != np.uint32 \
-            or consts.shape != (N_CONSTS, L.NW):
-        raise ValueError(f"challenge words must be a ({N_CONSTS}, {L.NW}) uint32 array")
+    want = (*lead, N_CONSTS, L.NW)
+    if not isinstance(consts, np.ndarray) or consts.dtype != np.uint32 or consts.shape != want:
+        raise ValueError(f"challenge words must be a {want} uint32 array")
     return np.ascontiguousarray(consts)
+
+
+def _batch_of(t: torch.Tensor, dims: int) -> tuple:
+    """(B,) where t carries a leading instance axis over `dims` dimensions,
+    else ()."""
+    return tuple(t.shape[:1]) if t.dim() == dims + 1 else ()
+
+
+def _groups(count: int):
+    """(first, count) of each launch over `count` instances."""
+    for first in range(0, count, MAX_INSTANCES):
+        yield first, min(MAX_INSTANCES, count - first)
 
 
 def _pointers(tensors: list) -> list:
@@ -321,7 +342,12 @@ def _plain_consts(consts: np.ndarray, device) -> torch.Tensor:
 
 def gp_fracs_plain(raw6, sigma_raw, omega_dev, raw_stack, lk_raw, consts, usable: int):
     """`gp_fracs` over the plain functions `_compress`, `_perm_fracs` and
-    `_lookup_fracs`, stacked, with the rows from `usable` on set to one."""
+    `_lookup_fracs`, stacked, with the rows from `usable` on set to one; for
+    a batch, one instance after another."""
+    if raw6.dim() == 4:
+        outs = [gp_fracs_plain(r, sigma_raw, omega_dev, raw_stack, lk, c, usable)
+                for r, lk, c in zip(raw6, lk_raw, consts)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
     c = _plain_consts(consts, raw6.device)
     theta_m, beta_m, gamma_m = c[C_THETA], c[C_BETA], c[C_GAMMA]
     key = dict(zip(ALL_FIXED, raw_stack))
@@ -348,25 +374,37 @@ def gp_fracs(raw6, sigma_raw, omega_dev, raw_stack, lk_raw, consts, usable: int)
     `usable` on.  raw6 (6, n, 8): the advice columns and the instance column;
     sigma_raw (6, n, 8); omega_dev (n, 8): omega^i; raw_stack: the key's
     fixed columns (ALL_FIXED order); lk_raw (8, n, 8): A'_a..d then S'_a..d;
-    consts: `challenge_words`.  One launch of K5 on CUDA tensors."""
-    n = raw6.shape[1]
+    consts: `challenge_words`.  For a batch of B instances of one circuit,
+    raw6 (B, 6, n, 8), lk_raw (B, 8, n, 8) and consts (B, 16, 8), and num
+    and den (B*5, n, 8), instance after instance (the rows `_gp_partials`
+    takes).  One launch of K5 on CUDA tensors, for every instance."""
+    lead = _batch_of(raw6, 3)
+    n = raw6.shape[-2]
     consts = _check_operands({
-        "raw6": (raw6, (NUM_PERM_COLS, n, L.NW)),
+        "raw6": (raw6, (*lead, NUM_PERM_COLS, n, L.NW)),
         "sigma_raw": (sigma_raw, (NUM_PERM_COLS, n, L.NW)),
         "omega_dev": (omega_dev, (n, L.NW)),
         "raw_stack": (raw_stack, (len(ALL_FIXED), n, L.NW)),
-        "lk_raw": (lk_raw, (2 * len(LOOKUPS), n, L.NW)),
-    }, consts)
+        "lk_raw": (lk_raw, (*lead, 2 * len(LOOKUPS), n, L.NW)),
+    }, consts, lead)
     if not 0 <= usable <= n:
         raise ValueError(f"usable rows {usable} outside 0..{n}")
     if raw6.device.type == "cpu":
         return gp_fracs_plain(raw6, sigma_raw, omega_dev, raw_stack, lk_raw, consts, usable)
     _cuda.require_cuda(raw6)
+    count = lead[0] if lead else 1
     ins = [t.contiguous() for t in (raw6, sigma_raw, omega_dev, raw_stack, lk_raw)]
-    num = torch.empty((1 + len(LOOKUPS), n, L.NW), dtype=torch.int32, device=raw6.device)
+    num = torch.empty((count * (1 + len(LOOKUPS)), n, L.NW), dtype=torch.int32,
+                      device=raw6.device)
     den = torch.empty_like(num)
-    K_FRACS(*_pointers(ins), consts.ctypes.data, num.data_ptr(), den.data_ptr(), n, usable,
-            _cuda.stream())
+    raw_p, sig_p, om_p, key_p, lk_p = _pointers(ins)
+    col = n * L.NW * 4  # bytes of a column
+    words = consts.reshape(count, N_CONSTS, L.NW)
+    for first, k in _groups(count):
+        out = first * (1 + len(LOOKUPS)) * col
+        K_FRACS(raw_p + first * NUM_PERM_COLS * col, sig_p, om_p, key_p,
+                lk_p + first * 2 * len(LOOKUPS) * col, words[first:].ctypes.data,
+                num.data_ptr() + out, den.data_ptr() + out, n, usable, k, _cuda.stream())
     return num, den
 
 
@@ -393,7 +431,11 @@ QUOTIENT_ROTS = (MAX_DEGREE, 1)  # "the next row": the fused coset, a split cose
 def quotient_h_plain(wit_ext, key_ext, x_ext, zh_inv, consts, *, rot=MAX_DEGREE, out=None,
                      out_stride=1, out_offset=0):
     """`quotient_h` as `_quotient_expr` times 1/Z_H (period `rot`), stored
-    at out[i * out_stride + out_offset]."""
+    at out[i * out_stride + out_offset]; for a batch, one instance after
+    another."""
+    if wit_ext.dim() == 4:
+        return torch.stack([quotient_h_plain(w, key_ext, x_ext, zh_inv, c)
+                            for w, c in zip(wit_ext, consts)])
     total = _quotient_expr(*_quotient_args(wit_ext, key_ext, x_ext, consts), rot_step=rot)
     h = _mul(total.reshape(-1, rot, L.NW), zh_inv).reshape(-1, L.NW)
     if out is None:
@@ -411,17 +453,23 @@ def quotient_h(wit_ext, key_ext, x_ext, zh_inv, consts, *, rot=MAX_DEGREE, out=N
     `challenge_words`.  `rot` is the distance of "the next row": MAX_DEGREE
     on the fused 8n coset, 1 on one coset of the split quotient, where Z_H
     is one constant.  Row i goes to out[i * out_stride + out_offset] of an
-    (m, 8) `out`, or of a new (n, 8) tensor, which is returned.  One launch
-    of K6 on CUDA tensors (counted as `quotient_h_coset` where rot is 1)."""
-    n = wit_ext.shape[1]
+    (m, 8) `out`, or of a new (n, 8) tensor, which is returned.  For a batch
+    of B instances of one circuit on the fused coset, wit_ext (B, 19, n, 8)
+    and consts (B, 16, 8) give a new (B, n, 8); the coset form takes one
+    instance.  One launch of K6 on CUDA tensors, for every instance (counted
+    as `quotient_h_coset` where rot is 1)."""
+    lead = _batch_of(wit_ext, 3)
+    n = wit_ext.shape[-2]
     if rot not in QUOTIENT_ROTS:
         raise ValueError(f"the next row is {QUOTIENT_ROTS} rows on, not {rot}")
+    if lead and (rot != MAX_DEGREE or out is not None):
+        raise ValueError("a batch takes the fused form only: rot 8 and a new output")
     consts = _check_operands({
-        "wit_ext": (wit_ext, (WIT_ROWS, n, L.NW)),
+        "wit_ext": (wit_ext, (*lead, WIT_ROWS, n, L.NW)),
         "key_ext": (key_ext, (len(KEY_ROWS), n, L.NW)),
         "x_ext": (x_ext, (n, L.NW)),
         "zh_inv": (zh_inv, (rot, L.NW)),
-    }, consts)
+    }, consts, lead)
     if n % rot or n == 0:
         raise ValueError(f"{n} rows are no multiple of {rot}")
     if out is None:
@@ -437,18 +485,25 @@ def quotient_h(wit_ext, key_ext, x_ext, zh_inv, consts, *, rot=MAX_DEGREE, out=N
         return quotient_h_plain(wit_ext, key_ext, x_ext, zh_inv, consts, rot=rot, out=out,
                                 out_stride=out_stride, out_offset=out_offset)
     _cuda.require_cuda(wit_ext)
+    count = lead[0] if lead else 1
     ins = [t.contiguous() for t in (wit_ext, key_ext, x_ext, zh_inv)]
     if out is None:
-        out = torch.empty((n, L.NW), dtype=torch.int32, device=wit_ext.device)
+        out = torch.empty((*lead, n, L.NW), dtype=torch.int32, device=wit_ext.device)
     kernel = K_QUOTIENT if rot == MAX_DEGREE else K_QUOTIENT_COSET
-    kernel(*_pointers(ins), consts.ctypes.data, _pointers([out])[0], n, rot, out_stride,
-           out_offset, _cuda.stream())
+    wit_p, key_p, x_p, zh_p = _pointers(ins)
+    out_p = _pointers([out])[0]
+    col = n * L.NW * 4  # bytes of a column
+    words = consts.reshape(count, N_CONSTS, L.NW)
+    for first, k in _groups(count):
+        kernel(wit_p + first * WIT_ROWS * col, key_p, x_p, zh_p, words[first:].ctypes.data,
+               out_p + first * col, n, rot, out_stride, out_offset, k, _cuda.stream())
     return out
 
 
 def quotient_stacked(wit_ext, key_ext, x_ext, zh_inv8, consts, unscale,
                      plan_ext: NTTPlan) -> torch.Tensor:
-    """Fused extended-domain quotient: `quotient_h`, transformed back.
+    """Fused extended-domain quotient: `quotient_h`, transformed back, for
+    one instance or a batch (a leading instance axis on wit_ext and consts).
     `unscale` (n_ext, 8) holds zeta^-i / n_ext, which the transform's last
     pass multiplies in."""
     h_ext = quotient_h(wit_ext, key_ext, x_ext, zh_inv8, consts)
@@ -513,6 +568,33 @@ def open_stack_plain(kind: str, stacks, pows, v_pows=None) -> torch.Tensor:
     return torch.cat(outs) if kind == "eval" else torch.stack(outs)
 
 
+def open_stacks_plain(kind: str, stacks_b, pows_b, v_pows_b=None) -> torch.Tensor:
+    """`open_stacks` as `open_stack_plain`, one instance after another."""
+    v_pows_b = v_pows_b if v_pows_b is not None else [None] * len(stacks_b)
+    return torch.cat([open_stack_plain(kind, st, p, v)
+                      for st, p, v in zip(stacks_b, pows_b, v_pows_b)])
+
+
+def _open_shapes(kind: str, b: int, stacks, pows, v_pows, n: int) -> dict:
+    """The shapes of one instance's operands, checked against its table's
+    limits."""
+    if not 0 < len(stacks) <= OPEN_MAX_POINTS or len(pows) != len(stacks):
+        raise ValueError(f"1 to {OPEN_MAX_POINTS} points, each with its powers")
+    if not all(stacks) or sum(len(r) for r in stacks) > OPEN_MAX_ROWS:
+        raise ValueError(f"1 to {OPEN_MAX_ROWS} rows in all, at least one a point")
+    shapes = {}
+    for s, (rows, p) in enumerate(zip(stacks, pows)):
+        for j, row in enumerate(rows):
+            shapes[f"stacks[{b}][{s}][{j}]"] = (row, (n, L.NW))
+        shapes[f"pows[{b}][{s}]"] = (p[:n], (n, L.NW))
+    if kind == "combine":
+        if v_pows is None:
+            raise ValueError("combine takes the powers of v")
+        m_max = max(len(r) for r in stacks)
+        shapes[f"v_pows[{b}]"] = (v_pows[:m_max], (m_max, L.NW))
+    return shapes
+
+
 def open_stack(kind: str, stacks, pows, v_pows=None) -> torch.Tensor:
     """The openings' contractions, for up to 4 points at once.  stacks[s]:
     the (n, 8) coefficient rows opened at point s; pows[s]: its powers
@@ -521,50 +603,70 @@ def open_stack(kind: str, stacks, pows, v_pows=None) -> torch.Tensor:
     order; "combine": (points, n, 8), x_s^i sum_j v^j c_{s,j}[i], with
     v_pows = v^0 .. v^(m-1) for the largest stack.  One launch of K7 on CUDA
     tensors, which takes the rows where they lie."""
+    return open_stacks(kind, [stacks], [pows], None if v_pows is None else [v_pows])
+
+
+def open_stacks(kind: str, stacks_b, pows_b, v_pows_b=None) -> torch.Tensor:
+    """`open_stack` for a batch of instances, each with its own stacks,
+    points and powers of v, all rows of one length n: the outputs of every
+    instance in order, (rows of all, 8) for "eval" and (points of all, n, 8)
+    for "combine".  One launch of K7 on CUDA tensors for up to
+    `MAX_INSTANCES` instances, one table each."""
     if kind not in OPEN_KINDS:
         raise ValueError(f"unknown contraction {kind!r}; expected one of {OPEN_KINDS}")
-    stacks = [list(rows) for rows in stacks]
-    if not 0 < len(stacks) <= OPEN_MAX_POINTS or len(pows) != len(stacks):
-        raise ValueError(f"1 to {OPEN_MAX_POINTS} points, each with its powers")
-    if not all(stacks) or sum(len(r) for r in stacks) > OPEN_MAX_ROWS:
-        raise ValueError(f"1 to {OPEN_MAX_ROWS} rows in all, at least one a point")
-    n = stacks[0][0].shape[0]
+    if not stacks_b or len(pows_b) != len(stacks_b) \
+            or (v_pows_b is not None and len(v_pows_b) != len(stacks_b)):
+        raise ValueError("one or more instances, each with its stacks and powers")
+    stacks_b = [[list(rows) for rows in stacks] for stacks in stacks_b]
+    v_pows_b = v_pows_b if v_pows_b is not None else [None] * len(stacks_b)
+    n = stacks_b[0][0][0].shape[0] if stacks_b[0] and stacks_b[0][0] else 0
     if n >= 1 << 31:
         raise ValueError("rows too long for the K7 kernels")
-    m_max = max(len(r) for r in stacks)
     shapes = {}
-    for s, (rows, p) in enumerate(zip(stacks, pows)):
-        for j, row in enumerate(rows):
-            shapes[f"stacks[{s}][{j}]"] = (row, (n, L.NW))
-        shapes[f"pows[{s}]"] = (p[:n], (n, L.NW))
-    if kind == "combine":
-        if v_pows is None:
-            raise ValueError("combine takes the powers of v")
-        shapes["v_pows"] = (v_pows[:m_max], (m_max, L.NW))
-    device = stacks[0][0].device
+    for b, (stacks, pows, v_pows) in enumerate(zip(stacks_b, pows_b, v_pows_b)):
+        shapes.update(_open_shapes(kind, b, stacks, pows, v_pows, n))
+    device = stacks_b[0][0][0].device
     _check_shapes(shapes)
     if device.type == "cpu":
-        return open_stack_plain(kind, stacks, pows, v_pows)
-    _cuda.require_cuda(stacks[0][0])
-    rows = [r.contiguous() for rs in stacks for r in rs]
-    pows = [p.contiguous() for p in pows]
-    t = _OpenTable()
-    t.row[: len(rows)] = _pointers(rows)
-    t.pows[: len(pows)] = _pointers(pows)
-    first = np.cumsum([0] + [len(rs) for rs in stacks])
-    t.first[: len(first)] = [int(v) for v in first]
-    t.points, t.n = len(stacks), n
+        return open_stacks_plain(kind, stacks_b, pows_b, v_pows_b)
+    _cuda.require_cuda(stacks_b[0][0][0])
+    rows_b = [sum(len(rs) for rs in stacks) for stacks in stacks_b]
+    points_b = [len(stacks) for stacks in stacks_b]
+    chunks = -(-n // OPEN_EVAL_CHUNK)
+    # each table's eval scratch: its partial sums and a ticket a row, padded
+    # to 16 bytes for the partials' vector stores
+    scratch_words = [-(-r * (chunks * L.NW + 1) // 4) * 4 for r in rows_b]
     if kind == "eval":
-        out = torch.empty((len(rows), L.NW), dtype=torch.int32, device=device)
-        chunks = -(-n // OPEN_EVAL_CHUNK)
-        scratch = torch.empty(len(rows) * (chunks * L.NW + 1), dtype=torch.int32, device=device)
-        t.out, t.scratch = out.data_ptr(), scratch.data_ptr()
-        K_OPEN_EVAL(ctypes.addressof(t), _cuda.stream())
+        out = torch.empty((sum(rows_b), L.NW), dtype=torch.int32, device=device)
+        scratch = torch.empty(sum(scratch_words), dtype=torch.int32, device=device)
     else:
-        v_pows = v_pows.contiguous()
-        out = torch.empty((len(stacks), n, L.NW), dtype=torch.int32, device=device)
-        t.vpows, t.out = _pointers([v_pows])[0], out.data_ptr()
-        K_OPEN_COMBINE(ctypes.addressof(t), _cuda.stream())
+        out = torch.empty((sum(points_b), n, L.NW), dtype=torch.int32, device=device)
+    keep = []  # the contiguous operands, alive until the launch is queued
+    tables = (_OpenTable * len(stacks_b))()
+    row_at = point_at = word_at = 0
+    for t, stacks, pows, v_pows, rows, points, words in zip(
+            tables, stacks_b, pows_b, v_pows_b, rows_b, points_b, scratch_words):
+        flat = [r.contiguous() for rs in stacks for r in rs]
+        pw = [p.contiguous() for p in pows]
+        keep += flat + pw
+        t.row[:rows] = _pointers(flat)
+        t.pows[:points] = _pointers(pw)
+        first = np.cumsum([0] + [len(rs) for rs in stacks])
+        t.first[: len(first)] = [int(v) for v in first]
+        t.points, t.n = points, n
+        if kind == "eval":
+            t.out = out[row_at].data_ptr()
+            t.scratch = scratch[word_at:].data_ptr()
+        else:
+            v_pows = v_pows.contiguous()
+            keep.append(v_pows)
+            t.vpows = _pointers([v_pows])[0]
+            t.out = out[point_at].data_ptr()
+        row_at, point_at, word_at = row_at + rows, point_at + points, word_at + words
+    kernel = K_OPEN_EVAL if kind == "eval" else K_OPEN_COMBINE
+    size = ctypes.sizeof(_OpenTable)
+    for first, k in _groups(len(stacks_b)):
+        kernel(ctypes.addressof(tables) + first * size, k, _cuda.stream())
     return out
 
 
@@ -574,6 +676,13 @@ def _eval_stack(stacks, pows) -> torch.Tensor:
     x_s (an (m, n, 8) tensor or a list of rows); pows[s]: x_s^0 .. x_s^(n-1)
     or more.  One launch of K7 for all the points."""
     return open_stack("eval", stacks, pows)
+
+
+def _eval_stack_batch(stacks_b, pows_b) -> torch.Tensor:
+    """`_eval_stack` for every instance of a batch (the JAX package's
+    _jit_eval_stack_batch, a point at a time there) -> (rows of all, 8),
+    instance after instance.  One launch of K7 for every instance."""
+    return open_stacks("eval", stacks_b, pows_b)
 
 
 def _gwc_witness(stacks, pows, v_m: torch.Tensor, zinv_ms) -> list:
@@ -587,3 +696,17 @@ def _gwc_witness(stacks, pows, v_m: torch.Tensor, zinv_ms) -> list:
     scaled = open_stack("combine", stacks, pows, v_pows)
     return [P.divide_scaled(CTX, t, P.powers_of(CTX, zinv_m, n + 1))
             for t, zinv_m in zip(scaled, zinv_ms)]
+
+
+def _gwc_witness_batch(stacks_b, pows_b, v_ms: torch.Tensor, zinv_ms: torch.Tensor):
+    """`_gwc_witness` for every instance of a batch (the JAX package's
+    _jit_gwc_witness_batch, a point at a time there): v_ms (B, 8), instance
+    b's v; zinv_ms (points of all, 8), 1/z_s of every point of every
+    instance in order -> (points of all, n, 8).  One launch each of K7 and
+    of the scans for every instance: the powers of the v's, of the 1/z_s,
+    and the suffix sums."""
+    n = stacks_b[0][0][0].shape[0]
+    m_max = max(len(rows) for stacks in stacks_b for rows in stacks)
+    v_pows = P.powers_rows(CTX, v_ms, m_max)
+    scaled = open_stacks("combine", stacks_b, pows_b, list(v_pows))
+    return P.divide_scaled(CTX, scaled, P.powers_rows(CTX, zinv_ms, n + 1))

@@ -91,6 +91,9 @@ class ProvingKey:
     coset_powers: torch.Tensor | None = None  # (8, n, 8) shift_j^i
     coset_x: torch.Tensor | None = None  # (8, n, 8) X on coset j: shift_j omega^i
     coset_zh_inv: torch.Tensor | None = None  # (8, 8) 1/(shift_j^n - 1)
+    # the keyed circuit's `circuit_shape`, which the batched prover checks
+    # every builder against (None: not recorded)
+    shape: tuple | None = None
 
     @property
     def device(self) -> torch.device:
@@ -178,6 +181,14 @@ def min_k(builder: Builder) -> int:
     while (1 << k) - BLINDING_ROWS - 1 < rows_needed:
         k += 1
     return k
+
+
+def circuit_shape(builder: Builder) -> tuple:
+    """What every witness of one circuit shares, cheap to compare: rows,
+    lookup widths, public inputs and copy constraints counted.  The fixed
+    columns' values are not compared (the JAX package trusts them too)."""
+    return (builder.rows, tuple(sorted(builder.lookup_widths)), len(builder.instance),
+            len(builder.copies))
 
 
 def _row(stack, i: int):
@@ -337,5 +348,6 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
         coset_powers=coset[0],
         coset_x=coset[1],
         coset_zh_inv=coset[2],
+        shape=circuit_shape(builder),
     )
     return pk, vk

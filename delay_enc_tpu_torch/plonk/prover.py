@@ -19,7 +19,9 @@ Protocol (transcript order is the spec; the verifier mirrors it exactly):
 
 `rng` is drawn from in exactly the JAX package's order (advice blinding,
 lookup pads, grand-product blinds, the random poly), so the same circuit,
-SRS and seed give the same proof bytes.
+SRS and seed give the same proof bytes.  The helpers below the draws (the
+columns, the commitments, the open sets, the phase spans) are shared with
+the batched prover (`plonk/batch_prover.py`).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ..fields.bn254 import FR
 from ..ops import limbs as L
 from ..ops.ntt import powers
 from ..ops.poly import powers_of
-from ..utils.device import resolve, synchronize
+from ..utils.device import resolve, sync_stream
 from ..utils.timers import GLOBAL_METRICS
 from .domain import MAX_DEGREE, QUOTIENT_PIECES
 from .keygen import ALL_FIXED, LOOKUPS, ProvingKey
@@ -166,6 +168,79 @@ def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire):
     return ap, sp
 
 
+def _advice_columns(builder: Builder, n: int, usable: int, rng) -> list:
+    """The 5 advice columns, their rows from `usable` on drawn from rng, and
+    the instance column (the public values padded with zeros, not blinded),
+    as host ints."""
+    cols = []
+    for c in range(NUM_ADVICE):
+        col = list(builder.advice[c]) + [0] * (n - builder.rows)
+        for r in range(usable, n):
+            col[r] = _rand_fr(rng)
+        cols.append(col)
+    return cols + [list(builder.instance) + [0] * (n - len(builder.instance))]
+
+
+def _lookup_columns(builder: Builder, n: int, usable: int, theta: int, rng,
+                    separate_pads: bool = False):
+    """The permuted lookup columns A'_l and S'_l of the four lookups as
+    (4, n, 8) Montgomery words each, their rows from `usable` on drawn from
+    rng: one pad a lookup for both columns (the single prover), or a pad for
+    A'_l then one for S'_l (the batched prover, JAX batch_prover.py:186)."""
+    tbl_tags, tbl_vals = build_table(builder.lookup_widths)
+    tkeys_padded, fvals = _table_keys(tbl_tags, tbl_vals, usable, theta)
+    ap_cols, sp_cols = [], []
+    for l in LOOKUPS:
+        ap, sp = _permuted_columns(
+            builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
+            usable, tkeys_padded, fvals, l,
+        )
+        pad = CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)])
+        pad2 = CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)]) if separate_pads \
+            else pad
+        ap_cols.append(np.concatenate([ap, pad]))
+        sp_cols.append(np.concatenate([sp, pad2]))
+    return np.stack(ap_cols), np.stack(sp_cols)
+
+
+def _commit(pair_tables, coeffs) -> list:
+    """Host affine commitments to (m, n, 8) Montgomery coefficient rows (a
+    tensor or a list of rows), in one batch of MSMs."""
+    stack = coeffs if isinstance(coeffs, torch.Tensor) else torch.stack(coeffs)
+    return msm_commit_batch(pair_tables, _canon_batch(stack))
+
+
+def _open_sets(pk: ProvingKey, advice, z_perm, z_l, ap, sp, random, h_pieces) -> list:
+    """The rows opened at x, omega x and omega^-1 x, in the verifier's order.
+    advice: the 5 advice rows; z_l, ap, sp: the 4 lookups' rows each;
+    h_pieces: the quotient's 7 pieces."""
+    opens_x = (list(advice) + [pk.fixed_coeff[name] for name in ALL_FIXED]
+               + list(pk.sigma_coeff) + [z_perm] + list(ap) + list(sp) + list(z_l)
+               + [random] + list(h_pieces))
+    return [opens_x, [advice[4], z_perm] + list(z_l), list(ap)]
+
+
+def _points(domain, x: int) -> list:
+    """The opening points x, omega x and omega^-1 x."""
+    return [x, x * domain.omega % FR.p, x * domain.omega_inv % FR.p]
+
+
+class _Spans:
+    """Phase spans of one proof (or batch) into GLOBAL_METRICS: each phase
+    ends by waiting for the calling thread's stream, not the whole device,
+    so concurrent provers do not wait for each other."""
+
+    def __init__(self, device, prefix: str):
+        self.device, self.prefix = device, prefix
+        self.t = _time.time()
+
+    def __call__(self, name: str) -> None:
+        sync_stream(self.device)
+        now = _time.time()
+        GLOBAL_METRICS.add(f"{self.prefix}/{name}", now - self.t)
+        self.t = now
+
+
 def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
                  msm: str = "b4") -> bytes:
     """A proof for the builder's witness.  `msm` picks the commitments' pair
@@ -173,15 +248,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     device = resolve(device)
     if pk.device != device or srs.device != device:
         raise ValueError(f"keys on {pk.device} and SRS on {srs.device}, proof asked for {device}")
-    _t = [_time.time()]
-
-    def _phase(name):
-        synchronize(device)
-        now = _time.time()
-        GLOBAL_METRICS.spans[f"prove/{name}"] = (
-            GLOBAL_METRICS.spans.get(f"prove/{name}", 0.0) + now - _t[0]
-        )
-        _t[0] = now
+    _phase = _Spans(device, "prove")
 
     if rng is None:
         rng = np.random.default_rng()
@@ -207,19 +274,10 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     pair_tables = srs.msm_tables(msm)
 
     def commit_many(coeffs):
-        stack = coeffs if isinstance(coeffs, torch.Tensor) else torch.stack(coeffs)
-        return msm_commit_batch(pair_tables, _canon_batch(stack))
+        return _commit(pair_tables, coeffs)
 
     # ---- 1. advice columns -------------------------------------------
-    advice_host = []
-    for c in range(NUM_ADVICE):
-        col = list(builder.advice[c]) + [0] * (n - builder.rows)
-        for r in range(usable, n):
-            col[r] = _rand_fr(rng)
-        advice_host.append(col)
-    # instance column: public values padded with zeros, not blinded
-    instance_col = list(builder.instance) + [0] * (n - len(builder.instance))
-    raw6 = dev(np.stack([ctx.to_mont_np(col) for col in advice_host + [instance_col]]))
+    raw6 = dev(np.stack([ctx.to_mont_np(col) for col in _advice_columns(builder, n, usable, rng)]))
     coeffs6 = _coeff(raw6, plan)
     advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
     instance_coeff = coeffs6[NUM_ADVICE]
@@ -230,18 +288,8 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     # ---- 2. lookups ---------------------------------------------------
     theta = tr.challenge()
 
-    tbl_tags, tbl_vals = build_table(builder.lookup_widths)
-    tkeys_padded, fvals = _table_keys(tbl_tags, tbl_vals, usable, theta)
-    ap_host, sp_host = {}, {}
-    for l in LOOKUPS:
-        ap, sp = _permuted_columns(
-            builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
-            usable, tkeys_padded, fvals, l,
-        )
-        pad = ctx.to_mont_np([_rand_fr(rng) for _ in range(n - usable)])
-        ap_host[l] = np.concatenate([ap, pad])
-        sp_host[l] = np.concatenate([sp, pad])
-    lk_raw = dev(np.stack([ap_host[l] for l in LOOKUPS] + [sp_host[l] for l in LOOKUPS]))
+    ap_host, sp_host = _lookup_columns(builder, n, usable, theta, rng)
+    lk_raw = dev(np.concatenate([ap_host, sp_host]))
     lk8 = _coeff(lk_raw, plan)
     ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
     sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
@@ -308,27 +356,12 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
 
     # ---- 6. evaluations ------------------------------------------------
     x = tr.challenge()
-    x_w = x * domain.omega % FR.p
-    x_winv = x * domain.omega_inv % FR.p
-
-    opens_x = (
-        [advice_coeff[c] for c in range(NUM_ADVICE)]
-        + [pk.fixed_coeff[name] for name in ALL_FIXED]
-        + list(pk.sigma_coeff)
-        + [z_perm_coeff]
-        + [ap_coeff[l] for l in LOOKUPS]
-        + [sp_coeff[l] for l in LOOKUPS]
-        + [z_lookup_coeff[l] for l in LOOKUPS]
-        + [random_coeff]
-        + h_pieces
-    )
-    opens_wx = [advice_coeff[4], z_perm_coeff] + [z_lookup_coeff[l] for l in LOOKUPS]
-    opens_winvx = [ap_coeff[l] for l in LOOKUPS]
-
     # the powers of each point serve its evaluations and its GWC witness; K7
     # takes the opened rows where they lie, every point in one launch
-    stacks = [opens_x, opens_wx, opens_winvx]
-    points = [x, x_w, x_winv]
+    stacks = _open_sets(pk, advice_coeff, z_perm_coeff,
+                        [z_lookup_coeff[l] for l in LOOKUPS], [ap_coeff[l] for l in LOOKUPS],
+                        [sp_coeff[l] for l in LOOKUPS], random_coeff, h_pieces)
+    points = _points(domain, x)
     point_pows = [powers_of(ctx, mont1(p)[0], n) for p in points]
     for e in L.from_device_mont(ctx, _eval_stack(stacks, point_pows)):
         tr.write_scalar(e)

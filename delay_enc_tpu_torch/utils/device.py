@@ -23,6 +23,14 @@ def resolve(device) -> torch.device:
 
 
 def synchronize(device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU)."""
+    """Wait for all the device's queued work, on every stream (a no-op on
+    the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def sync_stream(device) -> None:
+    """Wait for the work queued on the calling thread's current stream of
+    the device (a no-op on the CPU); other threads' streams run on."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

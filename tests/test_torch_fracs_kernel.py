@@ -3,7 +3,10 @@ card: its row body (csrc/fracs_row.cuh is __host__ __device__) built by the
 host C++ compiler, with the portable field bodies and with the carry chains
 the card runs (FLD_EMULATE_PTX), and the CPU path of `gp_fracs`, each
 against the JAX package's _jit_compress, _jit_perm_fracs and
-_jit_lookup_fracs on the same words.  No tolerance: the words are equal."""
+_jit_lookup_fracs on the same words; a batch of instances, each with its
+own witness columns and challenges over one key, as one launch takes it
+(csrc/fracs_row.cuh fracs_instance), against each instance's.  No
+tolerance: the words are equal."""
 
 import os
 import shutil
@@ -47,6 +50,8 @@ class Case:
     """The kernel's inputs as numpy words: raw6, sigma, omega, the key's raw
     stack, lk, and the challenges as ints and as `challenge_words`."""
 
+    count = 1  # instances
+
     def __init__(self, seed, n, usable, heavy=0.0):
         rng = np.random.default_rng(seed)
         self.n, self.usable = n, usable
@@ -89,11 +94,37 @@ class Case:
         return t(self.raw6), t(self.sigma), t(self.omega), t(self.key), t(self.lk)
 
 
+class Batch:
+    """Instances of one shape, each a Case with its own witness columns and
+    challenges, over the first one's key rows, sigma and omega: the batched
+    operands (B, ...) and challenge words (B, 16, 8)."""
+
+    def __init__(self, cases):
+        first = cases[0]
+        for c in cases[1:]:
+            c.sigma, c.omega, c.key = first.sigma, first.omega, first.key
+        self.cases, self.count = cases, len(cases)
+        self.n, self.usable = first.n, first.usable
+        self.sigma, self.omega, self.key = first.sigma, first.omega, first.key
+        self.raw6 = np.stack([c.raw6 for c in cases])
+        self.lk = np.stack([c.lk for c in cases])
+        self.consts = np.stack([c.consts for c in cases])
+
+    def jax(self):
+        """(num, den) as (B*5, n, 8) words: each instance's, in order."""
+        outs = [c.jax() for c in self.cases]
+        return [np.concatenate([o[i] for o in outs]) for i in range(2)]
+
+    tensors = Case.tensors
+
+
 CASES = {
     "random": lambda: Case(1, 64, 57),
     "carry-heavy": lambda: Case(2, 64, 57, heavy=0.4),
     "all rows active": lambda: Case(3, 16, 16, heavy=0.2),
     "one row, inactive": lambda: Case(4, 1, 0),
+    "3 instances, each its own challenges": lambda: Batch(
+        [Case(11, 32, 27), Case(12, 32, 27, heavy=0.3), Case(13, 32, 27)]),
 }
 
 
@@ -106,9 +137,11 @@ HARNESS = r"""
 #include <cstdio>
 #include <vector>
 #include "fracs_row.cuh"
-// stdin: n usable, then the words of the 16 challenges, raw6 (6 n), sigma
-// (6 n), omega (n), the key's raw stack (15 n), lk (8 n).  The rows run from
-// the last to the first; stdout: num (5 n) then den (5 n), a row a line.
+// stdin: instances n usable, then the words of each instance's 16
+// challenges, raw6 (instances 6 n), sigma (6 n), omega (n), the key's raw
+// stack (15 n), lk (instances 8 n).  The instances and their rows run from
+// the last to the first, each instance's pointers from fracs_instance;
+// stdout: num (instances 5 n) then den, a row a line.
 static bool words(std::vector<uint32_t>& v, size_t count) {
   v.resize(count * 8);
   for (auto& w : v)
@@ -116,21 +149,23 @@ static bool words(std::vector<uint32_t>& v, size_t count) {
   return true;
 }
 int main() {
-  unsigned long long n, usable;
-  if (scanf("%llu %llu", &n, &usable) != 2) return 1;
+  unsigned long long count, n, usable;
+  if (scanf("%llu %llu %llu", &count, &n, &usable) != 3) return 1;
   std::vector<uint32_t> c, raw6, sigma, omega, key, lk;
-  if (!words(c, prow::NCONST) || !words(raw6, 6 * n) || !words(sigma, 6 * n) ||
-      !words(omega, n) || !words(key, 15 * n) || !words(lk, 8 * n))
+  if (!words(c, count * prow::NCONST) || !words(raw6, count * 6 * n) || !words(sigma, 6 * n) ||
+      !words(omega, n) || !words(key, 15 * n) || !words(lk, count * 8 * n))
     return 1;
-  prow::Consts consts;
-  for (int r = 0; r < prow::NCONST; r++)
-    for (int j = 0; j < 8; j++) consts.w[r][j] = c[r * 8 + j];
-  std::vector<uint32_t> num(5 * n * 8, 0xdeadbeefu), den(5 * n * 8, 0xdeadbeefu);
+  std::vector<prow::Consts> consts(count);
+  for (size_t b = 0; b < count; b++)
+    for (int r = 0; r < prow::NCONST; r++)
+      for (int j = 0; j < 8; j++) consts[b].w[r][j] = c[(b * prow::NCONST + r) * 8 + j];
+  std::vector<uint32_t> num(count * 5 * n * 8, 0xdeadbeefu), den(count * 5 * n * 8, 0xdeadbeefu);
   const prow::FracsIn in{raw6.data(), sigma.data(), omega.data(), key.data(), lk.data(),
                          num.data(), den.data(), (size_t)n, (size_t)usable};
-  for (size_t i = n; i-- > 0;) prow::fracs_row(i, in, consts);
+  for (size_t b = count; b-- > 0;)
+    for (size_t i = n; i-- > 0;) prow::fracs_row(i, prow::fracs_instance(in, b), consts[b]);
   for (const auto* out : {&num, &den})
-    for (size_t e = 0; e < 5 * n; e++) {
+    for (size_t e = 0; e < count * 5 * n; e++) {
       for (int j = 0; j < 8; j++) printf("%u ", (*out)[e * 8 + j]);
       printf("\n");
     }
@@ -155,12 +190,12 @@ def harness(request, tmp_path_factory):
 
     def run(case: Case):
         arrays = (case.consts, case.raw6, case.sigma, case.omega, case.key, case.lk)
-        lines = [f"{case.n} {case.usable}"]
+        lines = [f"{case.count} {case.n} {case.usable}"]
         lines += [" ".join(map(str, np.asarray(a, np.uint32).reshape(-1))) for a in arrays]
         out = subprocess.run([str(exe)], input="\n".join(lines) + "\n", text=True,
                              capture_output=True, check=True, timeout=300).stdout
         w = np.array([list(map(int, ln.split())) for ln in out.strip().split("\n")],
-                     dtype=np.uint32).reshape(2, 5, case.n, 8)
+                     dtype=np.uint32).reshape(2, case.count * 5, case.n, 8)
         return w[0], w[1]
 
     return run

@@ -4,7 +4,9 @@ against the JAX package's `_jit_eval_stack` and `_jit_gwc_witness` at
 m in {1, 5} rows and n in {64, 1000}, bit-exact; several points in one call
 against one call a point; and the kernel's row bodies (csrc/open_row.cuh is
 __host__ __device__), built by the host C++ compiler with the blocks and
-their add trees as loops, against Python integers.  No tolerance."""
+their add trees as loops, against Python integers, for one instance and for
+a batch of instances with their own tables (points, powers of v) in one
+launch.  No tolerance."""
 
 import ctypes
 import os
@@ -120,70 +122,87 @@ HARNESS = r"""
 #include <cstdio>
 #include <vector>
 #include "open_row.cuh"
-// stdin: points n, the points' row counts, then the rows' words, each
-// point's n powers, the largest stack's powers of v.  Prints the eval
-// results (one a row), then the combine results (points x n).  The eval
-// blocks of csrc/open.cu one after another, each block's threads summed by
-// the kernel's add tree; the last block folds the partials.  A first line
-// "layout" prints the table's size and constants instead.
+// stdin: the instances, then for each: points n, the points' row counts,
+// the rows' words, each point's n powers, the largest stack's powers of v.
+// Prints each instance's eval results (one a row), then each instance's
+// combine results (points x n).  The eval blocks of csrc/open.cu one after
+// another, each block's threads summed by the kernel's add tree; the last
+// block folds the partials.  A first line "layout" prints the tables' sizes
+// and constants instead.
 using opening::Table;
 static void tree(std::vector<uint32_t>& red, unsigned threads) {
   for (unsigned w = threads / 2; w > 0; w /= 2)
     for (unsigned tid = 0; tid < w; tid++)
       fld::add<fld::FR>(&red[tid * 8], &red[tid * 8], &red[(tid + w) * 8]);
 }
-int main() {
-  char word[16];
-  if (scanf("%15s", word) != 1) return 1;
-  if (word[0] == 'l') {
-    printf("%zu %d %d %u\n", sizeof(Table), opening::MAX_ROWS, opening::MAX_POINTS,
-           opening::EVAL_CHUNK);
-    return 0;
-  }
+static bool read_table(Table& t, std::vector<std::vector<uint32_t>>& data) {
   unsigned points = 0, n = 0;
-  if (sscanf(word, "%u", &points) != 1 || scanf("%u", &n) != 1) return 1;
-  Table t = {};
+  if (scanf("%u %u", &points, &n) != 2) return false;
+  t = {};
   t.points = points;
   t.n = n;
   for (unsigned s = 0; s < points; s++) {
     unsigned m;
-    if (scanf("%u", &m) != 1) return 1;
+    if (scanf("%u", &m) != 1) return false;
     t.first[s + 1] = t.first[s] + m;
   }
   const unsigned rows = opening::rows(t);
   unsigned m_max = 0;
   for (unsigned s = 0; s < points; s++)
     if (t.first[s + 1] - t.first[s] > m_max) m_max = t.first[s + 1] - t.first[s];
-  std::vector<std::vector<uint32_t>> data(rows + points + 1);
+  data.resize(rows + points + 1);
   for (unsigned k = 0; k < rows + points + 1; k++) {
     data[k].resize((size_t)(k == rows + points ? m_max : n) * 8);
-    for (auto& w : data[k]) if (scanf("%u", &w) != 1) return 1;
+    for (auto& w : data[k]) if (scanf("%u", &w) != 1) return false;
   }
   for (unsigned r = 0; r < rows; r++) t.row[r] = (uint64_t)(uintptr_t)data[r].data();
   for (unsigned s = 0; s < points; s++) t.pows[s] = (uint64_t)(uintptr_t)data[rows + s].data();
   t.vpows = (uint64_t)(uintptr_t)data[rows + points].data();
-  const unsigned chunks = opening::chunks(t), threads = opening::EVAL_THREADS;
-  for (unsigned r = 0; r < rows; r++) {
-    std::vector<uint32_t> partial((size_t)chunks * 8), red((size_t)threads * 8);
-    for (unsigned c = 0; c < chunks; c++) {
-      for (unsigned tid = 0; tid < threads; tid++) opening::eval_thread(&red[tid * 8], t, r, c, tid);
-      tree(red, threads);
-      fld::copy(&partial[c * 8], &red[0]);
-    }
-    std::fill(red.begin(), red.end(), 0u);
-    for (unsigned c = 0; c < chunks; c++)
-      fld::add<fld::FR>(&red[(c % threads) * 8], &red[(c % threads) * 8], &partial[c * 8]);
-    tree(red, threads);
-    for (int j = 0; j < 8; j++) printf("%u ", red[j]);
-    printf("\n");
+  return true;
+}
+int main() {
+  char word[16];
+  if (scanf("%15s", word) != 1) return 1;
+  if (word[0] == 'l') {
+    printf("%zu %d %d %u %d %zu\n", sizeof(Table), opening::MAX_ROWS, opening::MAX_POINTS,
+           opening::EVAL_CHUNK, opening::MAX_TABLES, sizeof(opening::Tables));
+    return 0;
   }
-  for (unsigned s = 0; s < points; s++)
-    for (size_t i = 0; i < n; i++) {
-      uint32_t o[8];
-      opening::combine_column(o, t, s, i, opening::at(t.vpows));
-      for (int j = 0; j < 8; j++) printf("%u ", o[j]);
+  unsigned count = 0;
+  if (sscanf(word, "%u", &count) != 1 || count > (unsigned)opening::MAX_TABLES) return 1;
+  opening::Tables all;
+  std::vector<std::vector<std::vector<uint32_t>>> data(count);
+  for (unsigned b = 0; b < count; b++)
+    if (!read_table(all.t[b], data[b])) return 1;
+  const unsigned threads = opening::EVAL_THREADS;
+  for (unsigned b = 0; b < count; b++) {  // blockIdx.z of the launch
+    const Table& t = all.t[b];
+    const unsigned chunks = opening::chunks(t);
+    for (unsigned r = 0; r < opening::rows(t); r++) {
+      std::vector<uint32_t> partial((size_t)chunks * 8), red((size_t)threads * 8);
+      for (unsigned c = 0; c < chunks; c++) {
+        for (unsigned tid = 0; tid < threads; tid++) opening::eval_thread(&red[tid * 8], t, r, c, tid);
+        tree(red, threads);
+        fld::copy(&partial[c * 8], &red[0]);
+      }
+      std::fill(red.begin(), red.end(), 0u);
+      for (unsigned c = 0; c < chunks; c++)
+        fld::add<fld::FR>(&red[(c % threads) * 8], &red[(c % threads) * 8], &partial[c * 8]);
+      tree(red, threads);
+      for (int j = 0; j < 8; j++) printf("%u ", red[j]);
       printf("\n");
     }
+  }
+  for (unsigned b = 0; b < count; b++) {
+    const Table& t = all.t[b];
+    for (unsigned s = 0; s < t.points; s++)
+      for (size_t i = 0; i < t.n; i++) {
+        uint32_t o[8];
+        opening::combine_column(o, t, s, i, opening::at(t.vpows));
+        for (int j = 0; j < 8; j++) printf("%u ", o[j]);
+        printf("\n");
+      }
+  }
   return 0;
 }
 """
@@ -209,19 +228,17 @@ def open_harness(tmp_path_factory):
 
 
 def test_table_layout_matches_wrapper(open_harness):
-    size, max_rows, max_points, chunk = map(int, open_harness("layout\n").split())
+    size, max_rows, max_points, chunk, max_tables, all_size = \
+        map(int, open_harness("layout\n").split())
     assert size == ctypes.sizeof(TK._OpenTable)
     assert (max_rows, max_points, chunk) == (TK.OPEN_MAX_ROWS, TK.OPEN_MAX_POINTS,
                                              TK.OPEN_EVAL_CHUNK)
+    assert max_tables == TK.MAX_INSTANCES and all_size == max_tables * size
 
 
-@pytest.mark.parametrize("counts,n", [((1,), 1), ((3, 1, 2), 37), ((47, 6, 4), 64),
-                                      ((2, 1), 4096 + 5), ((1,), 3 * 4096)])
-def test_row_bodies_match_python_ints(open_harness, counts, n):
-    """One row of one element; three points of ragged n; the delay_enc
-    stacks at small n; rows of more than one eval block (a ragged last
-    chunk, and three whole ones); carry-heavy values among the words."""
-    rng = np.random.default_rng(n)
+def _instance(rng, counts, n):
+    """One table's input text and its expected outputs as Python ints: the
+    eval sums (a row each) and the combine columns (points x n)."""
     p = FR.p
     rows = [[FR.random(rng) for _ in range(n)] for _ in range(sum(counts))]
     rows[0][0] = p - 1
@@ -234,16 +251,37 @@ def test_row_bodies_match_python_ints(open_harness, counts, n):
     words = [CTX.to_mont_np(r) for r in rows + pows + [vp]]
     text = f"{len(counts)} {n}\n{' '.join(map(str, counts))}\n" + "\n".join(
         " ".join(map(str, w.reshape(-1))) for w in words) + "\n"
+    evals, combine, first = [], [], 0
+    for s, m in enumerate(counts):
+        evals += [sum(c * x for c, x in zip(rows[first + j], pows[s])) % p for j in range(m)]
+        combine += [sum(vp[j] * rows[first + j][i] for j in range(m)) * pows[s][i] % p
+                    for i in range(n)]
+        first += m
+    return text, evals, combine
+
+
+def _run(open_harness, instances) -> list:
+    text = f"{len(instances)}\n" + "".join(t for t, _, _ in instances)
     out = np.array([list(map(int, ln.split())) for ln in open_harness(text).strip().split("\n")],
                    dtype=np.uint32)
-    got = CTX.from_mont_np(out)
-    want, first = [], 0
-    for s, m in enumerate(counts):
-        want += [sum(c * x for c, x in zip(rows[first + j], pows[s])) % p for j in range(m)]
-        first += m
-    first = 0
-    for s, m in enumerate(counts):
-        want += [sum(vp[j] * rows[first + j][i] for j in range(m)) * pows[s][i] % p
-                 for i in range(n)]
-        first += m
-    assert got == want
+    return CTX.from_mont_np(out)
+
+
+@pytest.mark.parametrize("counts,n", [((1,), 1), ((3, 1, 2), 37), ((47, 6, 4), 64),
+                                      ((2, 1), 4096 + 5), ((1,), 3 * 4096)])
+def test_row_bodies_match_python_ints(open_harness, counts, n):
+    """One row of one element; three points of ragged n; the delay_enc
+    stacks at small n; rows of more than one eval block (a ragged last
+    chunk, and three whole ones); carry-heavy values among the words."""
+    text, evals, combine = _instance(np.random.default_rng(n), counts, n)
+    assert _run(open_harness, [(text, evals, combine)]) == evals + combine
+
+
+def test_row_bodies_batch_match_python_ints(open_harness):
+    """Three instances in one launch, each its own table: other row counts,
+    points, powers of v and lengths (one of them of two eval blocks)."""
+    rng = np.random.default_rng(9)
+    instances = [_instance(rng, counts, n)
+                 for counts, n in (((5, 2, 1), 40), ((1,), 4096 + 3), ((2, 3), 17))]
+    assert _run(open_harness, instances) == \
+        [v for _, e, _ in instances for v in e] + [v for _, _, c in instances for v in c]

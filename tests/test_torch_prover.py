@@ -70,6 +70,21 @@ def jax_golden() -> dict:
     return _record(g1_to_bytes, JM.points_from_device(srs.g1_powers), vk, proof)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The CPU keygen and proofs are many small torch operations: under the
+    suite's parallel workers, torch's intra-op threads only contend (on
+    eight cores under six workers, a k=7 fixture takes minutes with them
+    and seconds with one).  Imported by the other files that prove on the
+    CPU."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def golden():
     with np.load(GOLDEN) as z:

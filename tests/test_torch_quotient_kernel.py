@@ -8,7 +8,10 @@ wrap rows 0..7 and n_ext - 8 .. n_ext - 1 among them.  The coset form of
 the split quotient (rot 1, one value of 1/Z_H, rows stored at stride 8 and
 offset j of the interleaved extended coset) is held the same way to
 _jit_quotient_coset, at cosets 0 and 7; the places it does not own must
-keep what they held.  No tolerance: the words are equal."""
+keep what they held.  A batch of instances, each with its own witness stack
+and challenges over one key, as one fused launch takes it
+(csrc/quotient_row.cuh quotient_instance), is held to each instance's.  No
+tolerance: the words are equal."""
 
 import os
 import shutil
@@ -50,6 +53,8 @@ class Case:
     the `rot` values of 1/Z_H, and the challenges as ints and as
     `challenge_words`; where the rows go (stride and offset into an output
     of `out_rows` rows, as coset `offset` of the split quotient stores)."""
+
+    count = 1  # instances
 
     def __init__(self, seed, n_ext, heavy=0.0, zero_rows=(), rot=8, coset=None):
         rng = np.random.default_rng(seed)
@@ -113,6 +118,36 @@ class Case:
                 "out_offset": self.offset}
 
 
+class Batch:
+    """Instances of the fused form, each a Case with its own witness stack
+    and challenges, over the first one's key stack, X and 1/Z_H: the
+    batched witness (B, 19, n, 8) and challenge words (B, 16, 8); h is
+    (B * n, 8), instance after instance."""
+
+    stride, offset, rot = 1, 0, 8
+
+    def __init__(self, cases):
+        first = cases[0]
+        for c in cases[1:]:
+            c.key, c.x, c.zh8 = first.key, first.x, first.zh8
+        self.cases, self.count = cases, len(cases)
+        self.n_ext, self.out_rows = first.n_ext, len(cases) * first.n_ext
+        self.key, self.x, self.zh8 = first.key, first.x, first.zh8
+        self.wit = np.stack([c.wit for c in cases])
+        self.consts = np.stack([c.consts for c in cases])
+
+    def jax(self):
+        return np.concatenate([c.jax() for c in self.cases])
+
+    def placed(self, h):
+        return h
+
+    def store(self):
+        return {}
+
+    tensors = Case.tensors
+
+
 CASES = {
     "random, 2^6 rows": lambda: Case(1, 64),
     "carry-heavy, 2^6 rows": lambda: Case(2, 64, heavy=0.4),
@@ -121,6 +156,8 @@ CASES = {
     "coset 0 of the split quotient, carry-heavy, 2^5 rows":
         lambda: Case(6, 32, heavy=0.4, zero_rows=(0, 31), rot=1, coset=0),
     "coset 7 of the split quotient, 2^5 rows": lambda: Case(7, 32, heavy=0.1, rot=1, coset=7),
+    "3 instances, each its own challenges, 2^5 rows": lambda: Batch(
+        [Case(8, 32), Case(9, 32, heavy=0.3, zero_rows=(0, 31)), Case(10, 32)]),
 }
 
 
@@ -133,10 +170,12 @@ HARNESS = r"""
 #include <cstdio>
 #include <vector>
 #include "quotient_row.cuh"
-// stdin: n, rot, the output's stride and offset, then the words of the 16
-// challenges, the witness stack (19 n), the key stack (24 n), X (n) and
-// 1/Z_H (rot).  The rows run from the last to the first; stdout: the output
-// of n * stride rows, a row a line, 0xdeadbeef where no row was stored.
+// stdin: instances, n, rot, the output's stride and offset, then the words
+// of each instance's 16 challenges, the witness stacks (instances 19 n), the
+// key stack (24 n), X (n) and 1/Z_H (rot).  The instances and their rows run
+// from the last to the first, each instance's pointers from
+// quotient_instance; stdout: the output of instances * n * stride rows, a
+// row a line, 0xdeadbeef where no row was stored.
 static bool words(std::vector<uint32_t>& v, size_t count) {
   v.resize(count * 8);
   for (auto& w : v)
@@ -144,20 +183,22 @@ static bool words(std::vector<uint32_t>& v, size_t count) {
   return true;
 }
 int main() {
-  unsigned long long n, rot, stride, offset;
-  if (scanf("%llu %llu %llu %llu", &n, &rot, &stride, &offset) != 4) return 1;
+  unsigned long long count, n, rot, stride, offset;
+  if (scanf("%llu %llu %llu %llu %llu", &count, &n, &rot, &stride, &offset) != 5) return 1;
   std::vector<uint32_t> c, wit, key, x, zh;
-  if (!words(c, prow::NCONST) || !words(wit, prow::WIT_ROWS * n) ||
+  if (!words(c, count * prow::NCONST) || !words(wit, count * prow::WIT_ROWS * n) ||
       !words(key, prow::KEY_ROWS * n) || !words(x, n) || !words(zh, rot))
     return 1;
-  prow::Consts consts;
-  for (int r = 0; r < prow::NCONST; r++)
-    for (int j = 0; j < 8; j++) consts.w[r][j] = c[r * 8 + j];
-  std::vector<uint32_t> h(n * stride * 8, 0xdeadbeefu);
+  std::vector<prow::Consts> consts(count);
+  for (size_t b = 0; b < count; b++)
+    for (int r = 0; r < prow::NCONST; r++)
+      for (int j = 0; j < 8; j++) consts[b].w[r][j] = c[(b * prow::NCONST + r) * 8 + j];
+  std::vector<uint32_t> h(count * n * stride * 8, 0xdeadbeefu);
   const prow::QuotientIn in{wit.data(), key.data(), x.data(), zh.data(), h.data(),
                             (size_t)n, (size_t)rot, (size_t)stride, (size_t)offset};
-  for (size_t i = n; i-- > 0;) prow::quotient_row(i, in, consts);
-  for (size_t e = 0; e < n * stride; e++) {
+  for (size_t b = count; b-- > 0;)
+    for (size_t i = n; i-- > 0;) prow::quotient_row(i, prow::quotient_instance(in, b), consts[b]);
+  for (size_t e = 0; e < count * n * stride; e++) {
     for (int j = 0; j < 8; j++) printf("%u ", h[e * 8 + j]);
     printf("\n");
   }
@@ -180,7 +221,7 @@ def harness(request, tmp_path_factory):
 
     def run(case: Case):
         arrays = (case.consts, case.wit, case.key, case.x, case.zh8)
-        lines = [f"{case.n_ext} {case.rot} {case.stride} {case.offset}"]
+        lines = [f"{case.count} {case.n_ext} {case.rot} {case.stride} {case.offset}"]
         lines += [" ".join(map(str, np.asarray(a, np.uint32).reshape(-1))) for a in arrays]
         out = subprocess.run([str(exe)], input="\n".join(lines) + "\n", text=True,
                              capture_output=True, check=True, timeout=300).stdout
@@ -202,7 +243,7 @@ def test_row_body_matches_jax(harness, cases, name):
 def test_cpu_path_matches_jax(cases, name):
     case, want = cases[name]
     got = TK.quotient_h(*case.tensors(), case.consts, **case.store())
-    assert np.array_equal(TL.to_numpy(got), want)
+    assert np.array_equal(TL.to_numpy(got).reshape(-1, 8), want)  # a batch's instances in order
 
 
 def test_wrapper_refuses_bad_operands():

@@ -94,7 +94,7 @@ HARNESS = r"""
 #include <vector>
 #include "scan_tile.cuh"
 // stdin: op field rows n flags threads items seed, then the input's words
-// (one element with the CONSTANT flag); op 9 prints the kernel's plan for
+// (one element a row with the CONSTANT flag); op 9 prints the kernel's plan for
 // rows, n and flags: threads, elements a thread, tiles, scratch words.  The
 // blocks of csrc/scan.cu with `threads` threads of `items` elements: first
 // every block up to its published total, in tile order; then every block's
@@ -117,7 +117,7 @@ void run(const uint32_t* in, uint32_t* out, unsigned rows, unsigned n, unsigned 
   std::vector<uint32_t> mem(tiles * words), before(tiles * threads * 8), all(tiles * 8);
   for (size_t rec = 0; rec < tiles; rec++) {
     const unsigned row = rec / nt, t = rec % nt;
-    const uint32_t* in_row = in + (size_t)row * ((flags & scan::CONSTANT) ? 0u : n) * 8;
+    const uint32_t* in_row = in + (size_t)row * ((flags & scan::CONSTANT) ? 1u : n) * 8;
     uint32_t* tile = &mem[rec * words];
     for (unsigned q = 0; q < 2 * TILE; q++)
       scan::load_quad<F, OP, ITEMS>(tile, in_row, n, t * TILE, q, flags);
@@ -192,7 +192,7 @@ int main() {
     printf("%u %u %zu %zu\n", p.threads, p.items, p.tiles, p.scratch_words);
     return 0;
   }
-  std::vector<uint32_t> in(((flags & scan::CONSTANT) ? 1 : (size_t)rows * n) * 8);
+  std::vector<uint32_t> in((size_t)rows * ((flags & scan::CONSTANT) ? 1 : (size_t)n) * 8);
   for (auto& w : in) if (scanf("%u", &w) != 1) return 1;
   std::vector<uint32_t> out((size_t)rows * n * 8, 0xdeadbeefu);
   if (f == 0 && op == 0) items<0, 0>(it, in.data(), out.data(), rows, n, flags, threads, seed);
@@ -269,6 +269,10 @@ def test_thread_body_matches_python_ints(scan_harness, fid, field, n, tile):
     x = field.random(rng)
     got = scan_harness(0, fid, 1, n, TP.EXCLUSIVE | TP.CONSTANT, tile, n, ctx.to_mont_np([x]))
     assert ctx.from_mont_np(got) == [pow(x, i, field.p) for i in range(n)]
+    # one element a row: each row the powers of its own
+    xs = [field.random(rng) for _ in range(2)]
+    got = scan_harness(0, fid, 2, n, TP.EXCLUSIVE | TP.CONSTANT, tile, n, ctx.to_mont_np(xs))
+    assert ctx.from_mont_np(got) == [pow(x, i, field.p) for x in xs for i in range(n)]
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])

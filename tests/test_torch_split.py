@@ -28,7 +28,8 @@ from delay_enc_tpu_torch.plonk.domain import MAX_DEGREE, SPLIT_QUOTIENT_K
 from delay_enc_tpu_torch.plonk.domain import Domain as TDomain
 from delay_enc_tpu_torch.plonk.keygen import coset_tables, ext_tables, use_split
 
-from test_torch_prover import GOLDEN, K, SEED, TAU, _build_circuit, _record
+from test_torch_prover import (GOLDEN, K, SEED, TAU, _build_circuit, _record,  # noqa: F401
+                               one_thread)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))  # bench.py
 
