@@ -64,10 +64,23 @@ Phases, one line each (stderr carries detail):
     serial proofs; the three walls and proofs a second; bench.py's own draw
     (four puzzles under the first one's key: only the first verifies); one
     batch under torch.profiler;
-then the kernels' JSON line (launches of phase 4's base-4 and base-16 runs,
-phase 6's split run and phase 7's first batch together), the card's line, and the result line.  Any
-failure raises and exits non-zero.  Without a CUDA device it exits
-non-zero before printing a result.
+ 8. the warm prover daemon (`python -m delay_enc_tpu_torch.runtime.daemon`,
+    a subprocess whose stderr is kept in a file) in a fresh temporary
+    directory: pose_enc:11 warmed with the commitment selfcheck (29 ok, no
+    MISMATCH) and one request at selfcheck level 2 (the GWC checks ok);
+    then delay_enc:16 and batch:16:4 warmed while a pose_enc:11 request is
+    served, equal to the idle-served bytes; delay_enc:16 with 3 repeats in
+    base 4 and base 16 (equal bytes); the batch of 4 with 2 repeats; shutdown
+    and exit 0; then the daemon's SRS and key files read back here prove the
+    served bytes, and keygen on that SRS gives the vk file's
+    transcript_repr; warm, keygen, save_pk and load_pk seconds, the key
+    file's bytes, the selfcheck's seconds, each request's best_s and spans,
+    the batch's proofs a second and the daemon's peak device memory;
+the drawn statements are bench.py's (`runtime/workloads.py`); then the
+kernels' JSON line (launches of phase 4's base-4 and base-16 runs, phase 6's
+split run, phase 7's first batch and phase 8's daemon and reload together),
+the card's line, and the result line.  Any failure raises and exits non-zero.
+Without a CUDA device it exits non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -1057,79 +1070,6 @@ def phase1_batch(rep: Report, dev, rand_field, carry_heavy):
                      ms=timed(fn, 10), int_ops=products * n * MONT_MULS * WIDE)
 
 
-def pose_enc_circuit(seed: int = 42):
-    """bench.py build_circuit("pose_enc") with the utils/config.py defaults."""
-    from delay_enc_tpu_torch.encryption import PoseidonCipher
-    from delay_enc_tpu_torch.fields import FR
-    from delay_enc_tpu_torch.models import PoseidonEncCircuit
-    from delay_enc_tpu_torch.poseidon import get_spec
-    from delay_enc_tpu_torch.utils.config import CircuitConfig
-
-    cc = CircuitConfig()
-    rng = np.random.default_rng(seed)
-    spec = get_spec(FR, cc.t, cc.rate, cc.r_f, cc.r_p)
-    msg = cc.message_capacity
-    key = (FR.random(rng), FR.random(rng))
-    message = [0] * msg
-    expected = PoseidonCipher(spec, key, capacity=msg).encrypt(message, 1)
-    return PoseidonEncCircuit(spec=spec, num_input=msg, message=message, key=key,
-                              expected=expected, capacity=msg).build()
-
-
-def rand_bits(rng, bits: int) -> int:
-    """bench.py build_circuit's draw of a `bits`-bit integer."""
-    v = 0
-    while v.bit_length() != bits:
-        nbytes = (bits + 7) // 8
-        v = int.from_bytes(bytes(rng.integers(0, 256, nbytes, dtype="uint8")), "little")
-        v &= (1 << bits) - 1
-    return v
-
-
-# bench.py T_BITS: the exponent bits of the delay_enc and mod_pow rows of each k
-DELAY_ENC_T_BITS = {16: 5, 18: 31}
-MOD_POW_T_BITS = {17: 8}
-
-
-def delay_enc_circuit(k: int = 16, seed: int = 42):
-    """bench.py build_circuit("delay_enc", k): at k=16 the default 5-bit
-    window, at k=18 an exponent of T_BITS[("delay_enc", 18)] = 31 bits with
-    the top bit set."""
-    from delay_enc_tpu_torch.fields import FR
-    from delay_enc_tpu_torch.models import DelayEncryptCircuit
-    from delay_enc_tpu_torch.poseidon import get_spec
-    from delay_enc_tpu_torch.utils.config import CircuitConfig
-
-    cc = CircuitConfig()
-    rng = np.random.default_rng(seed)
-    spec = get_spec(FR, cc.t, cc.rate, cc.r_f, cc.r_p)
-    t_bits = DELAY_ENC_T_BITS[k]
-    n = rand_bits(rng, cc.bits_len)
-    if t_bits == cc.exp_limb_bits:
-        e = int(rng.integers(1, 1 << t_bits))
-    else:
-        e = rand_bits(rng, t_bits) | (1 << (t_bits - 1))
-    x = rand_bits(rng, cc.bits_len) % n
-    return DelayEncryptCircuit(n=n, e=e, x=x, spec=spec, num_input=2, message=[0, 0],
-                               exp_limb_bits=t_bits).build()
-
-
-def mod_pow_circuit(k: int = 17, seed: int = 42):
-    """bench.py build_circuit("mod_pow", k=17): a 2048-bit modulus and an
-    exponent of T_BITS[("mod_pow", 17)] = 8 bits with the top bit set."""
-    from delay_enc_tpu_torch.fields import FR
-    from delay_enc_tpu_torch.models import RSACircuit
-    from delay_enc_tpu_torch.utils.config import CircuitConfig
-
-    cc = CircuitConfig()
-    rng = np.random.default_rng(seed)
-    t_bits = MOD_POW_T_BITS[k]
-    n = rand_bits(rng, cc.bits_len)
-    e = rand_bits(rng, t_bits) | (1 << (t_bits - 1))
-    x = rand_bits(rng, cc.bits_len) % n
-    return RSACircuit(n=n, e=e, x=x, field=FR, exp_limb_bits=t_bits).build()
-
-
 def k7_circuit(x0: int = 7, y0: int = 11):
     """The k=7 circuit of tests/test_torch_prover.py for the witness (x0, y0)."""
     from delay_enc_tpu_torch import cs
@@ -1416,11 +1356,12 @@ def batch_phase(dev, card: str, srs, pk, vk) -> dict:
     from delay_enc_tpu_torch.plonk import (create_proof, create_proofs_batched,
                                            create_proofs_pipelined, keygen, verify_proof)
     from delay_enc_tpu_torch.plonk.keygen import circuit_shape
+    from delay_enc_tpu_torch.runtime.workloads import build_circuit
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
     k = pk.vk.domain.k
     t0 = time.time()
-    builders = [delay_enc_circuit(k) for _ in range(BATCH)]
+    builders = [build_circuit("delay_enc", k) for _ in range(BATCH)]
     t_build = time.time() - t0
     if any(circuit_shape(b) != pk.shape for b in builders):
         raise AssertionError("a batch instance is not of the key's circuit")
@@ -1476,7 +1417,7 @@ def batch_phase(dev, card: str, srs, pk, vk) -> dict:
     # bench.py's batch draw: seeds 100..103 are four puzzles, and each
     # puzzle's answer is a constant of its circuit: the first one's key
     # proves the first only
-    drawn = [delay_enc_circuit(k, seed=100 + i) for i in range(BATCH)]
+    drawn = [build_circuit("delay_enc", k, seed=100 + i) for i in range(BATCH)]
     pk_b, vk_b = keygen(drawn[0], srs, device=dev)
     verified = [verify_proof(srs, vk_b, p) for p in
                 create_proofs_batched(srs, pk_b, drawn, np.random.default_rng(0), device=dev)]
@@ -1501,6 +1442,7 @@ def mod_pow_phase(dev, card: str) -> None:
     from delay_enc_tpu_torch.ops import _cuda
     from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen, verify_proof
     from delay_enc_tpu_torch.plonk.keygen import min_k
+    from delay_enc_tpu_torch.runtime.workloads import build_circuit
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
     torch.cuda.empty_cache()
@@ -1508,7 +1450,7 @@ def mod_pow_phase(dev, card: str) -> None:
     GLOBAL_METRICS.clear()
     k = 17
     t0 = time.time()
-    b = mod_pow_circuit(k)
+    b = build_circuit("mod_pow", k)
     t_build = time.time() - t0
     if min_k(b) > k:
         raise AssertionError(f"mod_pow needs k={min_k(b)}")
@@ -1558,12 +1500,13 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     from delay_enc_tpu_torch.ops import _cuda
     from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen, verify_proof
     from delay_enc_tpu_torch.plonk.keygen import min_k
+    from delay_enc_tpu_torch.runtime.workloads import build_circuit
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
     torch.cuda.empty_cache()
     GLOBAL_METRICS.clear()
     t0 = time.time()
-    b = delay_enc_circuit(k)
+    b = build_circuit("delay_enc", k)
     t_build = time.time() - t0
     if min_k(b) != k:
         raise AssertionError(f"delay_enc for k={k} needs k={min_k(b)}")
@@ -1645,6 +1588,214 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     return launches
 
 
+DAEMON_SEED = 7  # the rng seed of phase 8's fixed-seed requests
+DAEMON_OFF_PATH = ("quotient_h_coset",)  # the split quotient's: k >= 18 only
+DAEMON_WAIT_S = 600  # the most that phase 8 waits for one warm entry
+
+
+def _daemon_log(path: str) -> list:
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def _selfcheck_lines(lines: list) -> tuple:
+    """(ok, MISMATCH) counts of the `# selfcheck` lines of a daemon log."""
+    sc = [ln for ln in lines if ln.startswith("# selfcheck ")]
+    return sum(ln.endswith(": ok") for ln in sc), sum("MISMATCH" in ln for ln in sc)
+
+
+def daemon_phase(dev, card: str) -> dict:
+    """The warm prover daemon on the card (runtime/daemon.py), as a user runs
+    it, in a fresh temporary directory D that holds its socket, SRS files,
+    key cache and log: pose_enc:11 warmed with the commitment selfcheck (29
+    ok, no MISMATCH), a selfcheck-2 request (the GWC witnesses too); then,
+    with selfcheck 0 set, delay_enc:16 and batch:16:4 warmed while a
+    pose_enc:11 request is served (the idle-served bytes); delay_enc:16 with
+    3 repeats in base 4 and in base 16 (the same bytes); the batch of 4 with
+    2 repeats; shutdown, exit 0; then the daemon's SRS and key files read back
+    in this process (SRS.load, get_keys, load_vk) prove the served bytes,
+    and keygen on that SRS gives the file's vk.  Every kernel of the path
+    but the split quotient's must have launched in the daemon.  Returns the
+    daemon's launch counts (from its start, read before shutdown) plus this
+    process's reload run's (set to 0 just before it)."""
+    import shutil
+    import tempfile
+
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen, verify_proof
+    from delay_enc_tpu_torch.plonk.serialize import load_vk
+    from delay_enc_tpu_torch.runtime import daemon_request
+    from delay_enc_tpu_torch.runtime import workloads as W
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="daemon_")
+    sock, err_path = os.path.join(d, "d.sock"), os.path.join(d, "daemon.log")
+    if len(sock.encode()) > 100:
+        raise AssertionError(f"the socket path {sock} is too long for AF_UNIX")
+
+    def req(r: dict, timeout: float = 900.0, events=None) -> dict:
+        got = daemon_request(r, on_event=None if events is None else events.append,
+                             timeout=timeout, socket_path=sock)
+        if got is None:
+            raise AssertionError(f"no answer from the daemon to {r.get('cmd')}")
+        if got.get("event") == "error":
+            raise AssertionError(f"the daemon failed {r}: {got.get('error')}")
+        return got
+
+    def wait_warm(keys) -> dict:
+        deadline = time.time() + DAEMON_WAIT_S
+        while True:
+            st = daemon_request({"cmd": "ping"}, socket_path=sock)
+            if proc.poll() is not None:
+                raise AssertionError(f"the daemon exited with {proc.returncode}")
+            if st and st["failed_warm"]:
+                raise AssertionError(f"the daemon's warm failed: {st['failed_warm']}")
+            if st and all(k in st["warm"] for k in keys):
+                return st
+            if time.time() > deadline:
+                raise AssertionError(f"the daemon never warmed {keys}: {st}")
+            time.sleep(0.2)
+
+    def prove(workload: str, k: int, repeats: int = 1, **extra) -> dict:
+        evs = []
+        fin = req({"cmd": "prove", "workload": workload, "k": k, "repeats": repeats,
+                   "seed": DAEMON_SEED, "budget_s": 900, **extra}, events=evs)
+        if fin["verified"] is not True:
+            raise AssertionError(f"a served {workload}:{k} proof does not verify")
+        fin["spans"] = evs[-1]["phases_s"]
+        return fin
+
+    t_start = time.time()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "delay_enc_tpu_torch.runtime.daemon", "--warm", "pose_enc:11",
+             "--socket", sock, "--srs-dir", d, "--key-dir", d],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        # ---- pose_enc:11: the warmup's commitment selfcheck, then level 2
+        st = wait_warm(["pose_enc:11"])
+        ok, bad = _selfcheck_lines(_daemon_log(err_path))
+        if (ok, bad) != (29, 0) or st["warm_selfcheck"]["pose_enc:11"]["ok"] != 29:
+            raise AssertionError(f"the pose_enc:11 warmup's selfcheck: {ok} ok, {bad} MISMATCH")
+        t_warm11 = time.time() - t_start
+        sc2 = prove("pose_enc", 11, env={"DELAY_ENC_SELFCHECK": "2"})
+        ok, bad = _selfcheck_lines(_daemon_log(err_path))
+        gwc = sum(ln.startswith("# selfcheck gwc ") and ln.endswith(": ok")
+                  for ln in _daemon_log(err_path))
+        if (ok, bad, gwc) != (29 + 32, 0, 3) or sc2["selfcheck"]["mismatch"]:
+            raise AssertionError(f"the selfcheck-2 request: {ok} ok, {bad} MISMATCH, {gwc} gwc ok")
+        idle = prove("pose_enc", 11)
+        # ---- the k=16 entries warm while pose_enc:11 is served
+        req({"cmd": "setenv", "env": {"DELAY_ENC_SELFCHECK": "0"}})
+        req({"cmd": "set_warm", "warm": "delay_enc:16,batch:16:4"})
+        while True:
+            st = req({"cmd": "ping"})
+            if st["warming"] == "delay_enc:16":
+                break
+            if "delay_enc:16" in st["warm"] or st["failed_warm"]:
+                raise AssertionError(f"delay_enc:16 was not seen warming: {st}")
+            time.sleep(0.05)
+        during = prove("pose_enc", 11)
+        st = req({"cmd": "ping"})
+        if "delay_enc:16" in st["warm"]:
+            raise AssertionError("the pose_enc:11 request was not served while delay_enc:16 warmed")
+        if during["proof_hex"] != idle["proof_hex"]:
+            raise AssertionError("pose_enc:11 served during a warm differs from the idle-served proof")
+        st = wait_warm(["delay_enc:16", "batch:16:4"])
+        if _selfcheck_lines(_daemon_log(err_path))[0] != 29 + 32:
+            raise AssertionError("a selfcheck ran after DELAY_ENC_SELFCHECK=0 was set")
+        # ---- delay_enc:16 in both MSM bases, then the batch
+        b4 = prove("delay_enc", 16, repeats=3)
+        req({"cmd": "setenv", "env": {"DELAY_ENC_MSM": "b16"}})
+        b16 = prove("delay_enc", 16, repeats=3)
+        if b16["msm"] != "b16" or b16["proof_hex"] != b4["proof_hex"]:
+            raise AssertionError("the delay_enc:16 proof served in base 16 differs from base 4's")
+        req({"cmd": "setenv", "env": {"DELAY_ENC_MSM": None}})
+        evs = []
+        batch = req({"cmd": "batch", "k": 16, "b": BATCH, "repeats": 2, "budget_s": 900},
+                    events=evs)
+        if batch["verified"] is not True or batch["msm"] != "b4":
+            raise AssertionError("the served batch of 4 does not verify")
+        st = req({"cmd": "ping"})
+        req({"cmd": "shutdown"})
+        rc = proc.wait(120)
+        if rc != 0:
+            raise AssertionError(f"the daemon exited with {rc}")
+        t_daemon = time.time() - t_start
+        log_lines = _daemon_log(err_path)
+
+        # ---- the daemon's files, read back here
+        GLOBAL_METRICS.clear()
+        _cuda.reset_launches()
+        srs = SRS.load(os.path.join(d, "srs_bn254_k16.npz"), device=dev)
+        b = W.build_circuit("delay_enc", 16)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        pk, vk, path = W.get_keys("delay_enc", b, srs, 16, d, device=dev)
+        t_load = time.time() - t0
+        if "keys/load_pk" not in GLOBAL_METRICS.snapshot():
+            raise AssertionError("get_keys did not find the daemon's key")
+        key_bytes = os.path.getsize(path + ".pk.npz")
+        t0 = time.time()
+        proof = create_proof(srs, pk, b, np.random.default_rng(DAEMON_SEED), device=dev)
+        t_local = time.time() - t0
+        if proof.hex() != b4["proof_hex"] or not verify_proof(srs, vk, proof):
+            raise AssertionError("the proof from the daemon's SRS and key files differs from the "
+                                 "served one")
+        if load_vk(path + ".vk.npz").transcript_repr != vk.transcript_repr:
+            raise AssertionError("load_vk of the daemon's vk file gives another transcript_repr")
+        t0 = time.time()
+        _, vk_again = keygen(b, srs, k=16, device=dev)
+        t_key = time.time() - t0
+        if vk_again.transcript_repr != vk.transcript_repr:
+            raise AssertionError("keygen on the daemon's SRS gives another vk than its key file")
+        reload_launches = _cuda.launch_counts()
+        del pk, srs
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    for line in log_lines:
+        if line.startswith("# daemon") or line.startswith("# keys"):
+            log(f"  {line}")
+    warm_spans = st["warm_spans"]
+    print(f"phase 8 daemon on {card}: {t_daemon:.3f} s from start to exit 0; warm seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in st['warm_s'].items()})} (pose_enc:11 "
+          f"answered ping {t_warm11:.3f} s after the start); warm spans {json.dumps(warm_spans)}; "
+          f"peak device memory {st['device_peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    de16 = warm_spans["delay_enc:16"]
+    print(f"phase 8 files k=16: keygen {de16['keys/keygen']:.3f} s and save_pk "
+          f"{de16['keys/save_pk']:.3f} s in the daemon, load_pk {warm_spans['batch:16:4']['keys/load_pk']:.3f} s "
+          f"there (batch:16:4) and {t_load:.3f} s here (get_keys, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB); the key file "
+          f"{key_bytes} bytes; in-process keygen {t_key:.3f} s gives the file's vk; the "
+          f"in-process proof ({t_local:.4f} s, the first on this key) equals the served one",
+          flush=True)
+    print(f"phase 8 selfcheck pose_enc k=11: warmup (level 1, 29 commitments ok) "
+          f"{warm_spans['pose_enc:11']['warm/proof']:.3f} s of warmup proof; level 2 request "
+          f"{sc2['best_s']:.3f} s (32 ok) against {idle['best_s']:.3f} s without: "
+          f"{sc2['best_s'] - idle['best_s']:.3f} s for the checks", flush=True)
+    for name, fin in (("pose_enc:11 idle", idle), ("pose_enc:11 during the k=16 warm", during),
+                      ("delay_enc:16 b4", b4), ("delay_enc:16 b16", b16)):
+        print(f"phase 8 served {name}: best_s {fin['best_s']:.4f} of {fin['repeats']}, verified; "
+              f"last repeat's spans {json.dumps(fin['spans'])}", flush=True)
+    print(f"phase 8 served batch k=16 B={batch['b']}: best_s {batch['best_s']:.4f} of "
+          f"{batch['repeats']}, {batch['proofs_per_s']:.4f} proofs/s, verified; repeats "
+          f"{json.dumps([(e['seconds'], e['proofs_per_s']) for e in evs])}; last repeat's spans "
+          f"{json.dumps(evs[-1]['phases_s'])}", flush=True)
+    print(f"phase 8 launches: the daemon's {json.dumps(st['launches'])}; the reload's "
+          f"{json.dumps(reload_launches)}", flush=True)
+    idle = [name for name, n in st["launches"].items()
+            if n == 0 and name not in OFF_PATH + DAEMON_OFF_PATH]
+    if idle:
+        raise AssertionError(f"kernels the daemon's path never launched: {idle}")
+    return {name: st["launches"].get(name, 0) + reload_launches.get(name, 0)
+            for name in reload_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: chip_smoke.py runs on the card only")
@@ -1655,6 +1806,7 @@ def main() -> int:
     from delay_enc_tpu_torch.ops import _cuda
     from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen, verify_proof
     from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED, load_vk, min_k
+    from delay_enc_tpu_torch.runtime.workloads import build_circuit
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
     t0 = time.time()
@@ -1681,7 +1833,7 @@ def main() -> int:
     # ---- 2. artefacts of the JAX package ------------------------------
     t0 = time.time()
     srs11 = SRS.load(os.path.join(DATA, "srs_bn254_k11.npz"), device=dev)
-    b11 = pose_enc_circuit()
+    b11 = build_circuit("pose_enc")
     k11 = max(min_k(b11), 11)
     pk11, vk11 = keygen(b11, srs11, k=k11, device=dev)
     want = load_vk(os.path.join(DATA, VK_FILE))
@@ -1747,7 +1899,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     GLOBAL_METRICS.clear()
     t0 = time.time()
-    b16 = delay_enc_circuit()
+    b16 = build_circuit("delay_enc", 16)
     t_build = time.time() - t0
     k16 = max(min_k(b16), 16)
     _cuda.reset_launches()
@@ -1831,10 +1983,14 @@ def main() -> int:
     # ---- 6. delay_enc k=18, the split quotient --------------------------
     split_launches = delay_enc_split_phase(dev, card)
 
+    # ---- 8. the warm prover daemon ---------------------------------------
+    daemon_launches = daemon_phase(dev, card)
+
     # ---- kernels --------------------------------------------------------
     for name, row in rep.rows.items():
         row["launches"] = sum(run.get(name, 0)
-                              for run in (launches, b16_launches, split_launches, batch_launches))
+                              for run in (launches, b16_launches, split_launches, batch_launches,
+                                          daemon_launches))
     # K5 and K6 took the last subtractions of a proof, K7 the last sums (0
     # launches, asserted): K-a's subtraction and sum are checked in phase 1
     # but are no kernels of the path

@@ -108,6 +108,14 @@ def build(force: bool = False) -> float:
     return time.time() - t0
 
 
+def load_all() -> None:
+    """Build what is stale and load every library, so that no later launch
+    waits for nvcc (a server calls this before it takes requests)."""
+    build()
+    for name in SOURCES:
+        _lib(name)
+
+
 def _lib(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:

@@ -6,3 +6,4 @@ from .prover import create_proof
 from .batch_prover import create_proofs_batched
 from .pipeline import create_proofs_pipelined
 from .verifier import verify_proof, verify_proofs_batched
+from .serialize import save_pk, load_pk, save_vk, load_vk

@@ -161,17 +161,11 @@ def transcript_repr(domain, fixed_comms: dict, sigma_comms: list) -> int:
 
 
 def load_vk(path: str) -> VerifyingKey:
-    """Read a vk file of the JAX package (npz: k, fixed (15, 32) uint8,
-    sigma (6, 32) uint8 compressed points).  transcript_repr is recomputed,
-    never read."""
-    from ..curves.bn254 import g1_from_bytes
+    """Read a vk file of either package (`serialize.load_vk`, kept here for
+    the callers that import it from keygen)."""
+    from .serialize import load_vk as _load_vk
 
-    z = np.load(path)
-    k = int(z["k"])
-    fixed = {name: g1_from_bytes(z["fixed"][i].tobytes()) for i, name in enumerate(ALL_FIXED)}
-    sigma = [g1_from_bytes(row.tobytes()) for row in z["sigma"]]
-    domain = Domain(k)
-    return VerifyingKey(domain, fixed, sigma, transcript_repr(domain, fixed, sigma))
+    return _load_vk(path)
 
 
 def min_k(builder: Builder) -> int:

@@ -3,13 +3,15 @@
 Counterpart of `delay_enc_tpu/plonk/kzg.py`.  The SRS G1 powers are built
 on the device with the fixed-base batched scalar multiplication
 (`ops/msm.py:fixed_base_batch_mul`, one launch of the fused fixed-base
-kernel); `load` reads the JAX package's npz files.  The commitments' pair
+kernel); `save` and `load` write and read the JAX package's npz files, and
+`setup(cache_dir=)` keeps one there.  The commitments' pair
 tables, base 4 (`ops/msm.py`) or base 16 (`ops/msm16.py`), are built once
 per SRS on first use and kept in memory; they are not cached on disk.
 """
 
 from __future__ import annotations
 
+import os
 import secrets
 
 import numpy as np
@@ -73,10 +75,19 @@ class SRS:
         raise ValueError(f"unknown MSM {msm!r}: 'b4' or 'b16'")
 
     @staticmethod
-    def setup(k: int, tau: int | None = None, device="cuda") -> "SRS":
+    def setup(k: int, tau: int | None = None, device="cuda", cache_dir: str | None = None) -> "SRS":
         """Powers [tau^i] G1 for i < 2^k, built on `device`.  Without `tau`
-        the secret comes from OS randomness and is discarded."""
+        the secret comes from OS randomness and is discarded.  With
+        `cache_dir`, `srs_bn254_k{k}.npz` there is loaded if it exists (and
+        `tau` ignored), else written after the setup: the JAX package's
+        file and name, so either package reads the other's."""
         device = resolve(device)
+        cache = None
+        if cache_dir:
+            os.makedirs(cache_dir, exist_ok=True)
+            cache = os.path.join(cache_dir, f"srs_bn254_k{k}.npz")
+            if os.path.exists(cache):
+                return SRS.load(cache, device)
         if tau is None:
             tau = (secrets.randbits(300) % (FR.p - 1)) + 1
         powers = []
@@ -89,7 +100,20 @@ class SRS:
         synchronize(device)
         srs = SRS(k, g1, G2.mul(G2_GEN, tau), G2_GEN)
         del tau, powers
+        if cache:
+            srs.save(cache)
         return srs
+
+    def save(self, path: str) -> None:
+        """npz of the JAX package: k, g1 (n, 3, 16) uint32 limbs and tau_g2
+        as four decimal strings; compressed below k=21, where the points'
+        near-random bytes make compression slow for little gain."""
+        from .serialize import _atomic_savez
+
+        tg = self.tau_g2
+        _atomic_savez(path, compressed=self.k < 21, k=self.k,
+                      g1=L.words_to_limbs_np(L.to_numpy(self.g1_powers)),
+                      tau_g2=np.array([str(c) for c in (tg[0].c0, tg[0].c1, tg[1].c0, tg[1].c1)]))
 
     @staticmethod
     def load(path: str, device="cuda") -> "SRS":

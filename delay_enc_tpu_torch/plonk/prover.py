@@ -242,10 +242,16 @@ class _Spans:
 
 
 def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
-                 msm: str = "b4") -> bytes:
+                 msm: str = "b4", selfcheck: int = 0, checks: list | None = None) -> bytes:
     """A proof for the builder's witness.  `msm` picks the commitments' pair
-    tables, "b4" or "b16" (`SRS.msm_tables`); both give the same bytes."""
+    tables, "b4" or "b16" (`SRS.msm_tables`); both give the same bytes.
+    `selfcheck` 1 checks every commitment against the host's C MSM, 2 also
+    the GWC witnesses (`plonk/selfcheck.py`); each result goes to stderr
+    and, as a (label, ok) pair, to `checks` where given.  The bytes do not
+    change."""
     device = resolve(device)
+    if selfcheck not in (0, 1, 2):
+        raise ValueError(f"selfcheck level {selfcheck!r}: 0, 1 or 2")
     if pk.device != device or srs.device != device:
         raise ValueError(f"keys on {pk.device} and SRS on {srs.device}, proof asked for {device}")
     _phase = _Spans(device, "prove")
@@ -272,16 +278,25 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
         tr.common_scalar(v)
 
     pair_tables = srs.msm_tables(msm)
+    if selfcheck:
+        from . import selfcheck as SC
 
-    def commit_many(coeffs):
-        return _commit(pair_tables, coeffs)
+    def record(label: str, results) -> None:
+        if checks is not None:
+            checks.extend((f"{label}[{j}]", ok) for j, ok in enumerate(results))
+
+    def commit_many(coeffs, tag: str):
+        pts = _commit(pair_tables, coeffs)
+        if selfcheck:
+            record(tag, SC.check_commits(srs, coeffs, pts, tag))
+        return pts
 
     # ---- 1. advice columns -------------------------------------------
     raw6 = dev(np.stack([ctx.to_mont_np(col) for col in _advice_columns(builder, n, usable, rng)]))
     coeffs6 = _coeff(raw6, plan)
     advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
     instance_coeff = coeffs6[NUM_ADVICE]
-    for pt in commit_many(coeffs6[:NUM_ADVICE]):
+    for pt in commit_many(coeffs6[:NUM_ADVICE], "advice"):
         tr.write_point(pt)
     _phase("advice commit")
 
@@ -293,7 +308,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     lk8 = _coeff(lk_raw, plan)
     ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
     sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
-    for pt in commit_many([c for l in LOOKUPS for c in (ap_coeff[l], sp_coeff[l])]):
+    for pt in commit_many([c for l in LOOKUPS for c in (ap_coeff[l], sp_coeff[l])], "lookup"):
         tr.write_point(pt)
     _phase("lookup permuted")
 
@@ -319,13 +334,13 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     z5_coeff = _coeff(z5, plan)
     z_perm_coeff = z5_coeff[0]
     z_lookup_coeff = {l: z5_coeff[1 + i] for i, l in enumerate(LOOKUPS)}
-    for pt in commit_many(z5_coeff):
+    for pt in commit_many(z5_coeff, "gp"):
         tr.write_point(pt)
     _phase("grand products")
 
     # ---- 4. random poly ----------------------------------------------
     random_coeff = dev(_rand_fr_mont_bulk(rng, n))
-    tr.write_point(commit_many([random_coeff])[0])
+    tr.write_point(commit_many([random_coeff], "random")[0])
 
     # ---- 5. quotient ---------------------------------------------------
     y = tr.challenge()
@@ -350,7 +365,8 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
         # the extended-domain arrays are not needed by the openings
         del ext_stack
     h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]
-    for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW)):
+    for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW),
+                          "quotient"):
         tr.write_point(pt)
     _phase("quotient")
 
@@ -372,7 +388,10 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     v = tr.challenge()
     ws = _gwc_witness(stacks, point_pows, mont1(v)[0],
                       [mont1(pow(p, -1, FR.p))[0] for p in points])
-    for pt in commit_many(ws):
+    if selfcheck >= 2:
+        for rows, w, z, key in zip(stacks, ws, points, ("x", "wx", "winvx")):
+            record(f"gwc {key}", [SC.check_gwc_witness(rows, w, v, z, key)])
+    for pt in commit_many(ws, "gwc"):
         tr.write_point(pt)
     _phase("gwc")
 

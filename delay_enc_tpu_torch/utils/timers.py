@@ -9,6 +9,8 @@ not wait for other threads' streams.
 Spans are shared by every thread and added under a lock (`add`).  Where
 proofs run concurrently (`plonk/pipeline.py`), a name's seconds are the sum
 over the threads that ran it: they can exceed the wall time that passed.
+`collect` keeps one thread's spans apart as well (the daemon's jobs and
+its warmups, `runtime/daemon.py`).
 """
 
 from __future__ import annotations
@@ -23,11 +25,27 @@ from dataclasses import dataclass, field
 class Metrics:
     spans: dict = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+    _local: threading.local = field(default_factory=threading.local, repr=False, compare=False)
 
     def add(self, name: str, seconds: float) -> None:
         """Add seconds to a span; safe from any thread."""
         with self._lock:
             self.spans[name] = self.spans.get(name, 0.0) + seconds
+        sink = getattr(self._local, "sink", None)
+        if sink is not None:
+            sink[name] = sink.get(name, 0.0) + seconds
+
+    @contextmanager
+    def collect(self):
+        """Yield a dict that receives the spans the calling thread adds
+        inside the block (they go to `spans` as well); other threads' spans
+        stay out of it."""
+        outer = getattr(self._local, "sink", None)
+        self._local.sink = mine = {}
+        try:
+            yield mine
+        finally:
+            self._local.sink = outer
 
     def clear(self) -> None:
         with self._lock:

@@ -16,9 +16,15 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 
 def test_package_imports_without_jax():
+    """Every module imports without jax, and without a side effect: no
+    thread started, no file made at the repo's root (the daemon's default
+    socket among them), the working directory kept."""
     code = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys, threading
 import delay_enc_tpu_torch as pkg
+def listing():
+    return sorted(f for f in os.listdir(".") if f != "__pycache__")
+cwd, threads, files = os.getcwd(), threading.active_count(), listing()
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
@@ -26,6 +32,9 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "delay_enc_tpu"))
 assert not bad, bad
 assert len(names) > 40, names
+assert "delay_enc_tpu_torch.runtime.daemon" in names, names
+assert os.getcwd() == cwd and threading.active_count() == threads
+assert listing() == files, set(listing()) ^ set(files)
 print("ok", len(names))
 """
     r = _run(code)

@@ -1,5 +1,6 @@
 """mod_pow at k=17 as chip_smoke.py phase 5 builds it: the port's RSACircuit
-from its own copy of bench.py's draw (seed 42, T_BITS[("mod_pow", 17)] = 8)
+from its own copy of bench.py's draw (`runtime/workloads.py`: seed 42,
+T_BITS[("mod_pow", 17)] = 8)
 against the JAX package's circuit from bench.py build_circuit itself:
 the same rows, advice, fixed and instance columns, permutation cycles and
 lookup widths."""
@@ -10,12 +11,12 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)  # bench.py and chip_smoke.py live there
+sys.path.insert(0, ROOT)  # bench.py lives there
 
 import bench  # noqa: E402
-import chip_smoke  # noqa: E402
 from delay_enc_tpu.utils.config import Config  # noqa: E402
 from delay_enc_tpu_torch.plonk.keygen import min_k  # noqa: E402
+from delay_enc_tpu_torch.runtime import workloads  # noqa: E402
 
 K = 17
 
@@ -23,12 +24,12 @@ K = 17
 @pytest.fixture(scope="module")
 def circuits():
     jax_side = bench.build_circuit("mod_pow", Config(), seed=42, k=K)
-    port = chip_smoke.mod_pow_circuit(K)
+    port = workloads.build_circuit("mod_pow", K)
     return jax_side, port
 
 
 def test_draw_is_bench_row(circuits):
-    assert bench.T_BITS[("mod_pow", K)] == chip_smoke.MOD_POW_T_BITS[K] == 8
+    assert bench.T_BITS[("mod_pow", K)] == workloads.T_BITS[("mod_pow", K)] == 8
     jax_side, port = circuits
     assert jax_side.rows == port.rows == 62798
     # bench.py's k is an explicit choice: the circuit fits at k=16

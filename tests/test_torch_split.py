@@ -170,19 +170,20 @@ def test_both_verifiers_accept_split_proof(split_port):
 
 def test_k18_circuit_is_bench_row():
     """chip_smoke.py phase 6's circuit, the port's DelayEncryptCircuit from
-    its copy of bench.py's draw (seed 42, T_BITS[("delay_enc", 18)] = 31),
+    its copy of bench.py's draw (`runtime/workloads.py`: seed 42,
+    T_BITS[("delay_enc", 18)] = 31),
     equals the JAX package's circuit from bench.py build_circuit: rows,
     columns, permutation cycles and lookup widths; keygen then picks the
     split quotient."""
     import bench
-    import chip_smoke
     from delay_enc_tpu.utils.config import Config
     from delay_enc_tpu_torch.plonk.keygen import min_k
+    from delay_enc_tpu_torch.runtime import workloads
 
     k = SPLIT_QUOTIENT_K
-    assert bench.T_BITS[("delay_enc", k)] == chip_smoke.DELAY_ENC_T_BITS[k] == 31
+    assert bench.T_BITS[("delay_enc", k)] == workloads.T_BITS[("delay_enc", k)] == 31
     want = bench.build_circuit("delay_enc", Config(), seed=42, k=k)
-    got = chip_smoke.delay_enc_circuit(k)
+    got = workloads.build_circuit("delay_enc", k)
     assert got.rows == want.rows == 241348 and min_k(got) == k and use_split(min_k(got))
     assert list(got.fixed) == list(want.fixed)
     for g, w in zip([*got.advice, *got.fixed.values(), got.instance],
