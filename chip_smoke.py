@@ -29,8 +29,11 @@ Phases, one line each (stderr carries detail):
     2^21 inverse with the unscale table; K5, K6 and K7 over an instance axis
     (B = 4 at the path's shapes, each instance with its own challenges, and
     at small ragged sizes against the CPU) and against their single
-    launches; every kernel's device time from torch.profiler beside its
-    CUDA-event time;
+    launches; K12's cross-shard butterfly on a k=16 shard over 4 shards
+    (L = 2^14) in both positions, with a twiddle row, one constant and no
+    table; every kernel's device time from torch.profiler beside its
+    CUDA-event time (only the events of the kernel's own CUDA function,
+    never more records than its wrappers' launches);
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
     pose_enc that must reproduce the committed vk, the committed proof;
  3. pose_enc at k=11: keygen, two proofs from default_rng(0) that must be
@@ -76,10 +79,22 @@ Phases, one line each (stderr carries detail):
     transcript_repr; warm, keygen, save_pk and load_pk seconds, the key
     file's bytes, the selfcheck's seconds, each request's best_s and spans,
     the batch's proofs a second and the daemon's peak device memory;
+ 9. (run after phase 7, on phase 4's SRS and key) the mesh of 4 shards: one
+    a card with 4 cards or more (`make_mesh(4)`), else all on the one card
+    (`Mesh.shared`), which runs every stage and kernel but no interconnect;
+    the sharded NTT and iNTT of a k=16 column against the single-device
+    K-b ntt and intt (launches asserted: 16 butterflies, 8 K-b passes each
+    way, no K-a), the sharded MSM of the 2^16 SRS points against ops/msm.msm
+    and the host's C MSM, batch_commit of 4 x 2^16 against serial
+    commitments, create_proofs_batched(mesh=) of phase 7's builders and seed
+    twice (phase 7's bytes, all verify; walls, proofs a second and peak
+    memory beside phase 7's; one more under the profiler), the k=7 batch
+    over 2 shards in both bases against the JAX golden, and
+    dryrun_multichip(4);
 the drawn statements are bench.py's (`runtime/workloads.py`); then the
 kernels' JSON line (launches of phase 4's base-4 and base-16 runs, phase 6's
-split run, phase 7's first batch and phase 8's daemon and reload together),
-the card's line, and the result line.  Any failure raises and exits non-zero.
+split run, phase 7's first batch, phase 8's daemon and reload and phase 9's
+mesh together), the card's line, and the result line.  Any failure raises and exits non-zero.
 Without a CUDA device it exits non-zero before printing a result.
 """
 
@@ -109,6 +124,8 @@ COMMIT_BATCHES = 6  # commitment batches a proof: 5, 8, 5, 1, 7 and 3 columns
 SCAN_REPEATS = 50  # runs of each multi-tile scan and of K7 in phase 1, every result compared
 OPEN_ROWS = (47, 6, 4)  # rows a delay_enc proof opens at x, omega x and omega^-1 x
 BATCH = 4  # instances of phase 7's batch and of phase 1's batched kernels (bench.py's B)
+MESH_SHARDS = 4  # phase 9's mesh: one shard a card, or four on the one card
+MESH_K_SHARD = (1 << 16) // MESH_SHARDS  # a shard of delay_enc k=16's columns
 
 
 def log(*a):
@@ -132,31 +149,66 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, symbol: str, tries: int = 3):
-    """The device time a call of the kernels whose names hold `symbol`, from
-    torch.profiler over reps calls; None where the profiler saw none.  fn
-    launches only such kernels of the port.  The profiler can lose the last
-    kernel records of a session (on an H100: 0 to 4 of 5 long launches, 18
-    of 20 short ones), so a call's time is the mean recorded launch times
-    the launches a call made (the wrappers' counts), from the best of
-    `tries` sessions.  For small launches `timed` measures the wrapper's
-    host path as well."""
+# each CUDA function of csrc/ -> the port's wrappers (ops/_cuda.py kernels) that launch it
+KERNEL_FUNCTIONS = {
+    "field_binary_kernel": ("field_mont_mul", "field_add", "field_sub"),
+    "ntt_fused_kernel": ("ntt_fused",), "scan_kernel": ("field_scan",),
+    "quotient_kernel": ("quotient_h", "quotient_h_coset"), "fracs_kernel": ("gp_fracs",),
+    "open_eval_kernel": ("open_eval",), "open_combine_kernel": ("open_combine",),
+    "plane_sums_kernel": ("plane_sums",), "plane_sums16_kernel": ("plane_sums16",),
+    "pair_sel_kernel": ("pair_sel",), "g1_add_kernel": ("g1_complete_add",),
+    "fixed_base_kernel": ("g1_fixed_base_mul",), "shard_butterfly_kernel": ("shard_butterfly",),
+}
+
+
+def kernel_function(event_name: str) -> str:
+    """A profiler event's CUDA function as its bare name: without return
+    type, namespaces, template arguments and parameters."""
+    name = event_name.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].split("<")[0].strip()
+    return name.split(" ")[-1].split("::")[-1]
+
+
+def device_ms(fn, reps: int, function: str, tries: int = 3):
+    """The device time a call of fn spends in the CUDA function `function`
+    (a key of KERNEL_FUNCTIONS), from torch.profiler over reps calls; None
+    where the profiler saw none.  Only events whose function is that one
+    count, against the launches of its wrappers alone; more records than
+    launches raise (they would not be this call's).  The profiler can lose
+    the last kernel records of a session (on an H100: 0 to 4 of 5 long
+    launches, 18 of 20 short ones), so a call's time is the mean recorded
+    launch times the launches a call made, from the best of `tries`
+    sessions.  The CUDA-event time of the same calls is logged beside it:
+    it holds the wrapper's host path as well, so the device time is the
+    smaller, and far smaller only for short launches."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from delay_enc_tpu_torch.ops import _cuda
 
+    wrappers = KERNEL_FUNCTIONS[function]
+
+    def launches() -> int:
+        counts = _cuda.launch_counts()
+        return sum(counts[w] for w in wrappers)
+
     fn()
     torch.cuda.synchronize()
+    event_ms = timed(fn, reps)
     best = (0, 0.0, 0)
     for _ in range(tries):
-        before = sum(_cuda.launch_counts().values())
+        before = launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        launched = sum(_cuda.launch_counts().values()) - before
-        seen = [e for e in prof.key_averages() if symbol in e.key]
+        launched = launches() - before
+        seen = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel_function(e.key) == function]
         recorded = sum(e.count for e in seen)
+        if recorded > launched:
+            raise AssertionError(f"device_ms {function}: {recorded} records of {launched} "
+                                 f"launches")
         us = sum(getattr(e, "self_device_time_total", None)
                  or getattr(e, "self_cuda_time_total", 0) for e in seen)
         if recorded > best[0]:
@@ -164,9 +216,11 @@ def device_ms(fn, reps: int, symbol: str, tries: int = 3):
         if recorded == launched:
             break
     recorded, us, launched = best
-    log(f"  device_ms {symbol}: {recorded} of {launched} launches recorded over {reps} calls, "
-        f"{us / 1e3:.4f} ms")
-    return us / 1e3 / recorded * launched / reps if recorded else None
+    dev_ms = us / 1e3 / recorded * launched / reps if recorded else None
+    log(f"  device_ms {function}: {recorded} of {launched} launches recorded over {reps} calls, "
+        f"{us / 1e3:.4f} ms; a call {ms_text(dev_ms)} on the device, {event_ms:.4f} ms by "
+        f"CUDA events")
+    return dev_ms
 
 
 def sum_ms(times):
@@ -197,6 +251,16 @@ def affine_words(pts) -> np.ndarray:
     return np.asarray(out, dtype=np.int64)
 
 
+def device_note(dev_ms: float, event_ms: float, bound_ms: float) -> str:
+    """The device time beside the CUDA-event time; a device time under the
+    bound is marked: the repeated calls found their inputs in the 50 MB L2
+    cache (the bytes bound counts device memory), the integer-rate model
+    overcounts, or the profiler's records were miscounted."""
+    flag = "; BELOW THE BOUND" if dev_ms < bound_ms else ""
+    return (f" (device time {dev_ms:.4f} ms a call, torch.profiler, against {event_ms:.4f} ms "
+            f"by CUDA events{flag})")
+
+
 class Report:
     def __init__(self, int_rate: float):
         self.int_rate = int_rate  # integer multiply-adds per second
@@ -217,7 +281,7 @@ class Report:
         }
         if device_ms is not None:
             self.rows[name]["device_ms"] = device_ms
-            note = f" (device time {device_ms:.4f} ms a call, torch.profiler){note}"
+            note = f"{device_note(device_ms, ms, self.rows[name]['bound_ms'])}{note}"
         print(f"phase 1 {name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {self.rows[name]['bound_ms']:.4f} ms ({self.rows[name]['bound_by']}){note}",
               flush=True)
@@ -233,7 +297,7 @@ class Report:
         other = {"shape": shape, "max_abs_err": err, "ms": ms, "bound_ms": bound, "bound_by": by}
         if device_ms is not None:
             other["device_ms"] = device_ms
-            note = f" (device time {device_ms:.4f} ms a call, torch.profiler){note}"
+            note = f"{device_note(device_ms, ms, bound)}{note}"
         self.rows[name].setdefault("other_shapes", []).append(other)
         print(f"phase 1 {name} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
               f"bound {bound:.4f} ms ({by}){note}", flush=True)
@@ -577,6 +641,7 @@ def phase1(rep: Report, dev):
     phase1_split(rep, dev, rand_field, carry_heavy)
     phase1_open(rep, dev, rand_field, carry_heavy)
     phase1_batch(rep, dev, rand_field, carry_heavy)
+    phase1_shard(rep, dev, rand_field, carry_heavy)
 
 
 def phase1_b16(rep: Report, dev, gen, pts, affine_err):
@@ -1070,6 +1135,44 @@ def phase1_batch(rep: Report, dev, rand_field, carry_heavy):
                      ms=timed(fn, 10), int_ops=products * n * MONT_MULS * WIDE)
 
 
+def phase1_shard(rep: Report, dev, rand_field, carry_heavy):
+    """K12's cross-shard butterfly on a shard of delay_enc k=16 over D = 4
+    (L = 2^14), in both positions, with a twiddle row, with one constant and
+    with no table, every carry-heavy pair among random operands, against
+    the plain version on the card.  The row is the bottom shard's with a
+    row, the forward stages' case."""
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.parallel import ntt as PN
+
+    l_len = MESH_K_SHARD
+    ha, hb = carry_heavy(L.FR_CTX)
+    x = torch.cat([rand_field(L.FR_CTX, l_len - ha.shape[0] - 3), ha])
+    recv = torch.cat([rand_field(L.FR_CTX, l_len - hb.shape[0] - 3).flip(0), hb])
+    row = rand_field(L.FR_CTX, l_len - 3)
+    tables = {"a twiddle row": row, "one constant": row[7:8], "no table": None}
+    for top in (False, True):
+        for what, table in tables.items():
+            fn = lambda: PN.shard_butterfly(x, recv, top, table)
+            got = fn()
+            t0 = time.time()
+            want = PN.shard_butterfly_plain(x, recv, top, table)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            err = max_err(got, want)
+            reads = 3 if table is row else 2
+            shape = f"L=2^14, the {'top' if top else 'bottom'} shard, {what}"
+            ops = l_len * MONT_MULS * WIDE if table is not None else 0
+            if not top and table is row:
+                rep.add("shard_butterfly", err=err, ms=timed(fn, 50), plain_ms=plain_ms,
+                        nbytes=(reads + 1) * 32 * l_len, int_ops=ops,
+                        device_ms=device_ms(fn, 50, "shard_butterfly_kernel"),
+                        note=f" ({shape}: a forward stage of delay_enc k=16 over 4 shards; "
+                             f"{ha.shape[0]} carry-heavy pairs among the operands)")
+            else:
+                rep.also("shard_butterfly", shape, err=err, ms=timed(fn, 50), int_ops=ops,
+                         nbytes=(reads + 1) * 32 * l_len, note=f" (plain {plain_ms:.4f} ms)")
+
+
 def k7_circuit(x0: int = 7, y0: int = 11):
     """The k=7 circuit of tests/test_torch_prover.py for the witness (x0, y0)."""
     from delay_enc_tpu_torch import cs
@@ -1173,7 +1276,7 @@ def spans(prefix=""):
     return {k: round(v, 4) for k, v in GLOBAL_METRICS.snapshot().items() if k.startswith(prefix)}
 
 
-KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
+KERNEL_SYMBOLS = {  # CUDA function -> the port's kernel, as the profiles name it
     "field_binary_kernel": "field (K-a)", "ntt_fused_kernel": "ntt_fused (K-b)",
     "scan_kernel": "field_scan",
     "quotient_kernel": "quotient_h (K6, and its coset form for K9)",
@@ -1181,7 +1284,7 @@ KERNEL_SYMBOLS = {  # CUDA kernel name prefix -> the port's kernel
     "open_eval_kernel": "open_eval (K7)", "open_combine_kernel": "open_combine (K7)",
     "plane_sums_kernel": "plane_sums (K-c)", "plane_sums16_kernel": "plane_sums16",
     "pair_sel_kernel": "pair_sel", "g1_add_kernel": "g1_complete_add (K-d)",
-    "fixed_base_kernel": "g1_fixed_base_mul",
+    "fixed_base_kernel": "g1_fixed_base_mul", "shard_butterfly_kernel": "shard_butterfly (K12)",
 }
 
 
@@ -1216,7 +1319,7 @@ def profile_run(run, phase: str, what: str) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        name = next((v for k, v in KERNEL_SYMBOLS.items() if k in e.key), "torch (other)")
+        name = KERNEL_SYMBOLS.get(kernel_function(e.key), "torch (other)")
         tally(groups, name, us, e.count)
         if name == "torch (other)":
             tally(torch_own, e.key[:90], us, e.count)
@@ -1351,7 +1454,8 @@ def batch_phase(dev, card: str, srs, pk, vk) -> dict:
     serial create_proof calls; walls and proofs a second of the three; then
     bench.py's own batch draw (four puzzles, keyed on the first): only the
     first proof verifies; one more batch under torch.profiler.  Returns the
-    launch counts of the first batch."""
+    launch counts of the first batch, its builders, its proofs, the walls of
+    the two batches and their peak device memory."""
     from delay_enc_tpu_torch.ops import _cuda
     from delay_enc_tpu_torch.plonk import (create_proof, create_proofs_batched,
                                            create_proofs_pipelined, keygen, verify_proof)
@@ -1432,6 +1536,175 @@ def batch_phase(dev, card: str, srs, pk, vk) -> dict:
             raise AssertionError("the profiled batch differs from the first")
 
     profile_run(run, "phase 7", f"batch of {BATCH}")
+    return {"launches": launches, "builders": builders, "proofs": proofs, "walls": walls,
+            "peak": peak}
+
+
+def mesh_phase(dev, card: str, srs, pk, vk, k7: tuple, batch: dict) -> dict:
+    """The sharded paths over a mesh of MESH_SHARDS shards: one a card where
+    there are that many, else `Mesh.shared` on the one card (every stage and
+    kernel runs; the exchanges are copies inside its memory, not NVLink).
+    Inputs and the single-device references first; then, with the launch
+    counts set to 0, the sharded NTT and iNTT of a k=16 column (launches
+    asserted: one butterfly a stage and shard, two K-b passes a shard and
+    direction, no K-a), the sharded MSM of the 2^16 SRS points, batch_commit
+    of 4 x 2^16 and two sharded batches of phase 7's delay_enc k=16 builders
+    from its seed (the counts read after the first); then every result held
+    to its reference: the single-device K-b ntt and intt, ops/msm.msm and
+    the host's C MSM, serial commitments, phase 7's bytes and the verifier.
+    Then the k=7 batch over 2 shards in both bases against the JAX golden,
+    one sharded batch under the profiler, and dryrun_multichip.  Returns the
+    counted launches."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.ops import msm as M
+    from delay_enc_tpu_torch.ops import ntt as N
+    from delay_enc_tpu_torch.parallel import (Mesh, ShardedNTTPlan, batch_commit,
+                                              dryrun_multichip, make_mesh, sharded_intt,
+                                              sharded_msm, sharded_ntt)
+    from delay_enc_tpu_torch.plonk import create_proofs_batched, verify_proof
+    from delay_enc_tpu_torch.plonk.selfcheck import msm_chunked
+
+    d = MESH_SHARDS
+    cards = torch.cuda.device_count()
+
+    def mesh_of(size):
+        if cards >= size:
+            return make_mesh(size), f"make_mesh({size}): {size} of {cards} cards"
+        return Mesh.shared(dev, size), f"Mesh.shared on one card ({cards} visible)"
+
+    mesh, kind = mesh_of(d)
+    where = ("inside one card, not NVLink" if len(mesh.distinct) == 1
+             else "between the cards, peer to peer")
+
+    def sync():
+        for x in mesh.distinct:
+            torch.cuda.synchronize(x)
+
+    def wall_ms(fn, reps: int) -> float:
+        """Mean host milliseconds of fn() over reps calls, every card of the
+        mesh waited for (CUDA events time one card's stream only)."""
+        sync()
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.time() - t0) * 1e3 / reps
+
+    print(f"phase 9 mesh: torch.cuda.device_count() = {cards}; {d} shards by {kind}: "
+          f"{[str(x) for x in mesh.devices]}", flush=True)
+    k = pk.vk.domain.k
+    n = 1 << k
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def reduced(*shape):
+        w = torch.randint(-2**31, 2**31, (*shape, 8), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+        w[..., 7] &= 0x0FFFFFFF  # below 2^252 < r
+        return w
+
+    column, scalars, coeff_batch = reduced(n), reduced(n), reduced(BATCH, n)
+    single = N.NTTPlan.make(L.FR_CTX, k, dev)
+    want_evals = N.ntt(single, column)
+    if not torch.equal(N.intt(single, want_evals), column):
+        raise AssertionError("the single-device K-b round trip lost the column")
+    points = srs.truncated(k).g1_powers
+    want_msm = M.points_from_device(M.msm(points, scalars)[None])[0]
+    host = msm_chunked(L.words_to_ints_np(L.to_numpy(scalars)), M.points_from_device(points))
+    if host != want_msm:
+        raise AssertionError("ops/msm.msm of 2^16 points differs from the host's C MSM")
+    want_commits = [M.points_from_device(M.msm(points, row)[None])[0] for row in coeff_batch]
+    plan = ShardedNTTPlan.make(k, d, mesh.devices)
+    m = plan.m
+
+    # ---- the mesh's main path, counted ----------------------------------
+    sync()
+    torch.cuda.empty_cache()
+    for x in mesh.distinct:
+        torch.cuda.reset_peak_memory_stats(x)
+    _cuda.reset_launches()
+    evals = sharded_ntt(mesh, plan, column)
+    back = sharded_intt(mesh, plan, evals)
+    sync()
+    ntt_launches = _cuda.launch_counts()
+    got_msm = sharded_msm(mesh, points, scalars)
+    commits = batch_commit(mesh, points, coeff_batch)
+    sync()
+    walls, runs = [], []
+    for _ in range(2):
+        t0 = time.time()
+        runs.append(create_proofs_batched(srs, pk, batch["builders"], np.random.default_rng(0),
+                                          mesh=mesh, axis=mesh.axis))
+        sync()
+        walls.append(time.time() - t0)
+        if len(runs) == 1:
+            launches = _cuda.launch_counts()
+    peak = max(torch.cuda.max_memory_allocated(x) for x in mesh.distinct)
+
+    want_ntt = {"shard_butterfly": 2 * m * d, "ntt_fused": 2 * d * len(N.plan(k - m))}
+    wrong = {name: (count, want_ntt.get(name, 0)) for name, count in ntt_launches.items()
+             if count != want_ntt.get(name, 0)}
+    if wrong:
+        raise AssertionError(f"the sharded NTT and iNTT launched (got, planned) {wrong}")
+    if not torch.equal(mesh.gather(evals), want_evals):
+        raise AssertionError("the sharded NTT differs from the single-device K-b ntt")
+    if not torch.equal(mesh.gather(back), column):
+        raise AssertionError("the sharded iNTT does not return the column")
+    if M.points_from_device(got_msm[None])[0] != want_msm:
+        raise AssertionError("the sharded MSM differs from ops/msm.msm and the host's")
+    if M.points_from_device(commits) != want_commits:
+        raise AssertionError("batch_commit differs from the serial commitments")
+    if runs[0] != batch["proofs"] or runs[1] != batch["proofs"]:
+        raise AssertionError("the sharded batch's bytes differ from phase 7's unsharded batch")
+    if not all(verify_proof(srs, vk, p) for p in runs[0]):
+        raise AssertionError("a sharded delay_enc proof does not verify")
+    never = [name for name in ("shard_butterfly", "ntt_fused", "plane_sums", "g1_complete_add",
+                               "pair_sel") if launches[name] == 0]
+    if never:
+        raise AssertionError(f"the mesh's path never launched {never}")
+    ms = {name: wall_ms(fn, 10) for name, fn in (
+        ("sharded ntt", lambda: sharded_ntt(mesh, plan, column)),
+        ("sharded intt", lambda: sharded_intt(mesh, plan, evals)),
+        ("single ntt", lambda: N.ntt(single, column)),
+        ("single intt", lambda: N.intt(single, want_evals)))}
+    print(f"phase 9 sharded NTT k={k} over {d} shards (L=2^{k - m}): NTT and iNTT equal the "
+          f"single-device K-b ntt and intt; launches {json.dumps(want_ntt)} and no other "
+          f"(no K-a: each twiddle and 1/N ride on a butterfly or K-b's last store); host ms a "
+          f"call, every card waited for: {json.dumps({key: round(v, 4) for key, v in ms.items()})}"
+          f" (the exchanges are copies {where})", flush=True)
+    print(f"phase 9 sharded MSM of 2^{k} SRS points: equal to ops/msm.msm and the host's C MSM; "
+          f"batch_commit of {BATCH} x 2^{k}: equal to the serial commitments", flush=True)
+    rate = lambda wall: BATCH / wall
+    print(f"phase 9 batch delay_enc k={k} B={BATCH} over {d} shards on {card}: "
+          f"create_proofs_batched(mesh=) {walls[0]:.3f} s then {walls[1]:.3f} s "
+          f"({rate(walls[0]):.4f} then {rate(walls[1]):.4f} proofs/s), peak device memory of "
+          f"the phase {peak / 2**30:.3f} GiB (the fullest card); phase 7's unsharded batch {batch['walls'][0]:.3f} "
+          f"s then {batch['walls'][1]:.3f} s ({rate(batch['walls'][0]):.4f} then "
+          f"{rate(batch['walls'][1]):.4f} proofs/s), peak {batch['peak'] / 2**30:.3f} GiB; "
+          f"the bytes equal phase 7's, all {BATCH} verify; the phase's launches "
+          f"{json.dumps(launches)}", flush=True)
+
+    def run():
+        if create_proofs_batched(srs, pk, batch["builders"], np.random.default_rng(0), mesh=mesh,
+                                 axis=mesh.axis) != batch["proofs"]:
+            raise AssertionError("the profiled sharded batch differs")
+
+    profile_run(run, "phase 9", f"batch of {BATCH} over {d} shards")
+
+    srs7, pk7, vk7 = k7
+    mesh2, kind2 = mesh_of(2)
+    with np.load(os.path.join(ROOT, "tests", "data", "torch_port_batch_k7.npz")) as z:
+        builders = [k7_circuit(*(int(v) for v in w)) for w in z["witnesses"]]
+        want, seed = [p.tobytes() for p in z["proofs"]], int(z["seed"])
+    for msm in ("b4", "b16"):
+        if create_proofs_batched(srs7, pk7, builders, np.random.default_rng(seed), msm=msm,
+                                 mesh=mesh2, axis=mesh2.axis) != want:
+            raise AssertionError(f"the sharded k=7 batch ({msm}) differs from the JAX package's")
+    print(f"phase 9 batched k=7 over 2 shards ({kind2}): both MSM bases equal the JAX "
+          f"package's batch", flush=True)
+    t0 = time.time()
+    dryrun_multichip(d, devices=mesh.devices)
+    print(f"phase 9 dryrun_multichip({d}, fast=False): ok in {time.time() - t0:.3f} s", flush=True)
     return launches
 
 
@@ -1589,7 +1862,8 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
 
 
 DAEMON_SEED = 7  # the rng seed of phase 8's fixed-seed requests
-DAEMON_OFF_PATH = ("quotient_h_coset",)  # the split quotient's: k >= 18 only
+# the split quotient's (k >= 18 only) and the mesh's: the daemon proves on one device
+DAEMON_OFF_PATH = ("quotient_h_coset", "shard_butterfly")
 DAEMON_WAIT_S = 600  # the most that phase 8 waits for one warm entry
 
 
@@ -1820,7 +2094,8 @@ def main() -> int:
                 elif "registers" in line or "spill" in line:
                     log(f"  {name}:   {line.strip()}")
 
-    batch_k7(dev, *golden_k7(dev))
+    k7 = golden_k7(dev)
+    batch_k7(dev, *k7)
 
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -1938,7 +2213,12 @@ def main() -> int:
     profile_proof(srs16, pk16, b16, proof16, dev, "phase 4")
 
     # ---- 7. the batched and pipelined provers on phase 4's SRS and key ----
-    batch_launches = batch_phase(dev, card, srs16, pk16, vk16)
+    batch = batch_phase(dev, card, srs16, pk16, vk16)
+    batch_launches = batch["launches"]
+
+    # ---- 9. the mesh, on phase 4's SRS and key and phase 7's batch --------
+    mesh_launches = mesh_phase(dev, card, srs16, pk16, vk16, k7, batch)
+    del batch
 
     # ---- 4, base 16: the same SRS and keys through the base-16 MSM ------
     torch.cuda.reset_peak_memory_stats()
@@ -1990,7 +2270,7 @@ def main() -> int:
     for name, row in rep.rows.items():
         row["launches"] = sum(run.get(name, 0)
                               for run in (launches, b16_launches, split_launches, batch_launches,
-                                          daemon_launches))
+                                          daemon_launches, mesh_launches))
     # K5 and K6 took the last subtractions of a proof, K7 the last sums (0
     # launches, asserted): K-a's subtraction and sum are checked in phase 1
     # but are no kernels of the path

@@ -118,14 +118,15 @@ class _Group:
             acc = self.add(acc, self.mul(pt, s))
         return acc
 
-    def multi_scalar_mul(self, scalars, points):
+    def multi_scalar_mul(self, scalars, points, threads: int | None = None):
         """Fast host MSM for the verifier (G1 only): native C Straus
-        shared-doubling when the C library is available, else the same
-        algorithm in Python Jacobian coordinates."""
+        shared-doubling on `native.ec.verify_threads(threads)` threads when
+        the C library is available, else the same algorithm in Python
+        Jacobian coordinates."""
         assert not self.is_fq2, "fast path is G1-only"
         from ..native.ec import msm_host
 
-        res = msm_host(scalars, points, FR.p)
+        res = msm_host(scalars, points, FR.p, threads=threads)
         if res != "unavailable":
             return res
         pairs = [(s % FR.p, pt) for s, pt in zip(scalars, points)

@@ -228,16 +228,17 @@ def multi_pairing(pairs) -> Fq12:
     return final_exponentiation(f)
 
 
-def pairing_check(pairs) -> bool:
+def pairing_check(pairs, threads: int | None = None) -> bool:
     """Returns True iff prod_i e(P_i, Q_i) == 1 (the KZG verification shape).
     Each Q_i may be a raw G2 point or a G2Prepared (fixed-point fast path).
     When every Q is prepared and the native C library is available, the
-    whole check (multi-Miller + final exponentiation) runs in C."""
+    whole check (multi-Miller + final exponentiation) runs in C, on
+    `native.ec.verify_threads(threads)` threads."""
     pairs = list(pairs)
     if pairs and all(isinstance(q, G2Prepared) for _, q in pairs):
         from ..native.ec import pairing_check_native
 
-        res = pairing_check_native(pairs)
+        res = pairing_check_native(pairs, threads)
         if res is not None:
             return res
     f = Fq12.one()

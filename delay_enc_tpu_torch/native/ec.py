@@ -60,17 +60,15 @@ PRE_WINDOW = 7   # wNAF window for precomputed (per-vk fixed) points
 VAR_WINDOW = 5   # wNAF window for per-proof points
 
 
-def verify_threads() -> int:
+def verify_threads(threads: int | None = None) -> int:
     """Thread count for the host-verifier C kernels.  A single verify is
     latency-bound on the multiopen MSM and the pairing check, both
-    embarrassingly parallel inside; DELAY_ENC_VERIFY_THREADS overrides
-    (1 disables threading), default min(4, cpu count)."""
-    try:
-        v = int(os.environ.get("DELAY_ENC_VERIFY_THREADS", ""))
-    except ValueError:
-        v = None
-    if v is not None:
-        return min(max(v, 1), 8)  # 0/negative = threading disabled
+    embarrassingly parallel inside; `threads` is the caller's count, held
+    to 1..8 (1 disables threading), by default min(4, cpu count).  The
+    JAX package reads DELAY_ENC_VERIFY_THREADS here; the port reads no
+    environment, and its callers pass the count down."""
+    if threads is not None:
+        return min(max(int(threads), 1), 8)
     return min(4, os.cpu_count() or 1)
 
 
@@ -100,8 +98,9 @@ def msm_precompute(points, w: int = PRE_WINDOW):
 
 
 def msm_host(scalars, points, order: int, pretab: bytes | None = None,
-             npre: int = 0, wpre: int = PRE_WINDOW):
-    """sum_i scalars[i] * points[i] over host affine ints.  The first
+             npre: int = 0, wpre: int = PRE_WINDOW, threads: int | None = None):
+    """sum_i scalars[i] * points[i] over host affine ints, on
+    `verify_threads(threads)` threads.  The first
     `npre` points may come with precomputed tables (msm_precompute) —
     identical result, no per-call table build for them.  Returns the
     affine point, None for identity, or the string "unavailable" when the
@@ -126,7 +125,7 @@ def msm_host(scalars, points, order: int, pretab: bytes | None = None,
         if mt is not None:
             rc = mt(
                 bytes(pts), bytes(scs), n, npre, pretab, wpre, VAR_WINDOW,
-                pw.ctypes.data, r2w.ctypes.data, n0, verify_threads(),
+                pw.ctypes.data, r2w.ctypes.data, n0, verify_threads(threads),
                 out.ctypes.data,
             )
         else:
@@ -137,7 +136,7 @@ def msm_host(scalars, points, order: int, pretab: bytes | None = None,
     elif mt is not None:
         rc = mt(
             bytes(pts), bytes(scs), n, 0, None, PRE_WINDOW, VAR_WINDOW,
-            pw.ctypes.data, r2w.ctypes.data, n0, verify_threads(),
+            pw.ctypes.data, r2w.ctypes.data, n0, verify_threads(threads),
             out.ctypes.data,
         )
     else:
@@ -156,8 +155,9 @@ def msm_host(scalars, points, order: int, pretab: bytes | None = None,
     )
 
 
-def g1_decompress_batch(blobs: bytes, n: int, b_curve: int):
-    """Decompress n 32-byte G1 encodings (concatenated) in one C call.
+def g1_decompress_batch(blobs: bytes, n: int, b_curve: int, threads: int | None = None):
+    """Decompress n 32-byte G1 encodings (concatenated) in one C call, on
+    `verify_threads(threads)` threads.
     Returns a list of affine points/None, raises ValueError on any invalid
     encoding, or returns the string "unavailable" without the C library."""
     lib = get_eclib()
@@ -167,7 +167,7 @@ def g1_decompress_batch(blobs: bytes, n: int, b_curve: int):
     flags = np.empty(n, dtype=np.uint8)
     pw, r2w, n0 = _consts()
     mt = getattr(lib, "g1_decompress_batch_mt", None)
-    nthreads = verify_threads()
+    nthreads = verify_threads(threads)
     if mt is not None and nthreads > 1 and n >= 8:
         rc = mt(
             blobs, n, b_curve.to_bytes(32, "little"),
@@ -252,9 +252,10 @@ def _pack_prepared(prep) -> bytes:
     return packed
 
 
-def pairing_check_native(pairs):
-    """pairs: [(g1_affine | None, G2Prepared)].  Returns True/False, or
-    None when the C library is unavailable (caller falls back to Python)."""
+def pairing_check_native(pairs, threads: int | None = None):
+    """pairs: [(g1_affine | None, G2Prepared)], on `verify_threads(threads)`
+    threads.  Returns True/False, or None when the C library is
+    unavailable (caller falls back to Python)."""
     lib = get_eclib()
     if lib is None or not pairs or len(pairs) > 16:
         return None
@@ -271,7 +272,7 @@ def pairing_check_native(pairs):
     ate, u_bits, frob = _pairing_consts()
     pw, r2w, n0 = _consts()
     mt = getattr(lib, "pairing_check_prepared_mt", None)
-    nthreads = verify_threads()
+    nthreads = verify_threads(threads)
     if mt is not None and nthreads > 1 and len(pairs) > 1:
         rc = mt(
             bytes(pts), len(pairs), bytes(coeffs), nsteps,

@@ -25,7 +25,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("field", "ntt", "scan", "msm", "quotient", "fracs", "open")
+SOURCES = ("field", "ntt", "scan", "msm", "quotient", "fracs", "open", "shard")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "gp_fracs": ("fracs", [_P, _P, _P, _P, _P, _P, _P, _P, _Q, _Q, _U, _P]),
     "open_eval": ("open", [_P, _U, _P]),
     "open_combine": ("open", [_P, _U, _P]),
+    "shard_butterfly": ("shard", [_P, _P, _P, _P, _U, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

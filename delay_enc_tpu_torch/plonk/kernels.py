@@ -117,18 +117,25 @@ def _canon_batch(a: torch.Tensor) -> torch.Tensor:
     return L.mont_to_canonical(CTX, a)
 
 
-def msm_commit_batch(tables, canon_stack: torch.Tensor) -> list:
-    """(B, n, 8) canonical coefficient stack -> B host affine commitments,
-    through the shared per-SRS tables: a bare base-4 pair table, or a
-    ("b4" | "b16", table) pair from `SRS.msm_tables`."""
+def msm_plane_sums(tables, canon_stack: torch.Tensor) -> tuple:
+    """The device part of `msm_commit_batch`: ((B, planes, 3, 8) plane
+    sums, bits a digit), for the host fold (`ops/msm.py:fold_planes_host`)."""
     kind = "b4"
     if isinstance(tables, tuple):
         kind, tables = tables
     if kind == "b16":
-        return M16.msm16_with_tables(tables, canon_stack)
+        return M16.plane_sums_batch16(tables, canon_stack), M16.DIGIT_BITS
     if kind != "b4":
         raise ValueError(f"unknown MSM {kind!r}: 'b4' or 'b16'")
-    return M.msm_with_tables(tables, canon_stack)
+    return M.plane_sums_batch(tables, canon_stack), 2
+
+
+def msm_commit_batch(tables, canon_stack: torch.Tensor) -> list:
+    """(B, n, 8) canonical coefficient stack -> B host affine commitments,
+    through the shared per-SRS tables: a bare base-4 pair table, or a
+    ("b4" | "b16", table) pair from `SRS.msm_tables`."""
+    sums, base_bits = msm_plane_sums(tables, canon_stack)
+    return M.fold_planes_host(sums, base_bits=base_bits)
 
 
 # ----------------------------------------------------------- grand products

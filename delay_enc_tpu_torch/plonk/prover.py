@@ -227,15 +227,18 @@ def _points(domain, x: int) -> list:
 
 class _Spans:
     """Phase spans of one proof (or batch) into GLOBAL_METRICS: each phase
-    ends by waiting for the calling thread's stream, not the whole device,
-    so concurrent provers do not wait for each other."""
+    ends by waiting for the calling thread's stream on each of `devices`
+    (one device, or a mesh's), not the whole device, so concurrent provers
+    do not wait for each other."""
 
-    def __init__(self, device, prefix: str):
-        self.device, self.prefix = device, prefix
+    def __init__(self, devices, prefix: str):
+        self.devices = list(devices) if isinstance(devices, (list, tuple)) else [devices]
+        self.prefix = prefix
         self.t = _time.time()
 
     def __call__(self, name: str) -> None:
-        sync_stream(self.device)
+        for device in self.devices:
+            sync_stream(device)
         now = _time.time()
         GLOBAL_METRICS.add(f"{self.prefix}/{name}", now - self.t)
         self.t = now

@@ -41,16 +41,17 @@ def _g1_host(srs, n: int) -> list:
     return have[:n]
 
 
-def msm_chunked(scalars, points):
-    """sum scalars[i] points[i] by the C MSM, CHUNK points a call, the
-    chunks added on the host: an affine point, None for the identity, or
-    "unavailable" without the C library."""
+def msm_chunked(scalars, points, threads: int | None = None):
+    """sum scalars[i] points[i] by the C MSM, CHUNK points a call on
+    `native.ec.verify_threads(threads)` threads, the chunks added on the
+    host: an affine point, None for the identity, or "unavailable" without
+    the C library."""
     from ..curves.bn254 import G1
     from ..native.ec import msm_host
 
     acc = None
     for i in range(0, len(points), CHUNK):
-        r = msm_host(scalars[i : i + CHUNK], points[i : i + CHUNK], FR.p)
+        r = msm_host(scalars[i : i + CHUNK], points[i : i + CHUNK], FR.p, threads=threads)
         if isinstance(r, str):
             return r
         if r is not None:
@@ -58,14 +59,15 @@ def msm_chunked(scalars, points):
     return acc
 
 
-def check_commits(srs, coeffs, got_pts, tag: str) -> list:
+def check_commits(srs, coeffs, got_pts, tag: str, threads: int | None = None) -> list:
     """Each commitment got_pts[j] against the C MSM of coeffs[j], a (n, 8)
-    Montgomery coefficient row (a tensor of rows or a list).  Returns one
-    entry a commitment: True, False, or None where the C MSM is missing."""
+    Montgomery coefficient row (a tensor of rows or a list), on `threads`
+    threads (`msm_chunked`).  Returns one entry a commitment: True, False,
+    or None where the C MSM is missing."""
     out = []
     for j, cf in enumerate(coeffs):
         sc = CTX.from_mont_np(L.to_numpy(cf))
-        want = msm_chunked(sc, _g1_host(srs, len(sc)))
+        want = msm_chunked(sc, _g1_host(srs, len(sc)), threads)
         if isinstance(want, str):
             _say(f"{tag}[{j}]: C MSM unavailable, skipped")
             out.append(None)

@@ -57,10 +57,29 @@ def zeta_inv_powers(pk: ProvingKey):
     return powers(L.FR_CTX, FR.inv(domain.zeta), domain.n_ext, pk.device)
 
 
+# the keyed circuit's `keygen.circuit_shape`, a field of the port's files
+# only: the JAX package's load_pk reads its fields by name and passes over it
+SHAPE_FIELD = "port_circuit_shape"
+
+
+def _shape_to_array(shape: tuple) -> np.ndarray:
+    """(rows, lookup widths, public inputs, copies) -> int64 [rows, public
+    inputs, copies, *widths]."""
+    rows, widths, n_instance, n_copies = shape
+    return np.array([rows, n_instance, n_copies, *widths], dtype=np.int64)
+
+
+def _shape_from_array(a: np.ndarray) -> tuple:
+    v = [int(x) for x in a]
+    return (v[0], tuple(v[3:]), v[1], v[2])
+
+
 def save_pk(pk: ProvingKey, path: str, compressed: bool = False) -> None:
     """Write `path.pk.npz` and `path.vk.npz`, as the JAX package's save_pk
     does: fused keys with their extended-coset tables (`fe_*`, `se_*`,
-    `*_ext`), split keys with the Lagrange columns' coefficients (`l*_coeff`).
+    `*_ext`), split keys with the Lagrange columns' coefficients (`l*_coeff`);
+    and the keyed circuit's shape (`SHAPE_FIELD`), which the JAX package
+    does not read.
     Plain npz by default: deflate takes minutes over a k=16 key (1.09 GB)
     for a third off its size; np.load reads either kind, so both packages
     read both."""
@@ -87,14 +106,17 @@ def save_pk(pk: ProvingKey, path: str, compressed: bool = False) -> None:
         arrays[f"sc_{c}"] = g(pk.sigma_coeff[c])
         if not pk.split:
             arrays[f"se_{c}"] = g(pk.sigma_ext[c])
+    if pk.shape is not None:
+        arrays[SHAPE_FIELD] = _shape_to_array(pk.shape)
     _atomic_savez(path + ".pk.npz", compressed, **arrays)
     save_vk(pk.vk, path + ".vk.npz")
 
 
 def load_pk(path: str, device="cuda") -> ProvingKey:
     """Read `path.pk.npz` and `path.vk.npz` of either package onto `device`.
-    A loaded key has `shape` None: the batched prover then holds every
-    builder to the first one's shape, not to the keyed circuit's."""
+    A file the port wrote gives the keyed circuit's `shape`, which the
+    batched prover holds every builder to; a file of the JAX package has
+    none (`shape` None), and the batch is then held to its first builder."""
     from ..state import proving_key_from_jax
 
     vk = load_vk(path + ".vk.npz")
@@ -113,6 +135,8 @@ def load_pk(path: str, device="cuda") -> ProvingKey:
             "fixed_coeff": {n: z[f"fc_{n}"] for n in ALL_FIXED},
             "sigma_coeff": [z[f"sc_{c}"] for c in range(nsig)],
         }
+        if SHAPE_FIELD in z.files:
+            fields["shape"] = _shape_from_array(z[SHAPE_FIELD])
         if split:
             fields.update({name: z[name] for name in ("l0_coeff", "l_last_coeff",
                                                       "l_blind_coeff")})

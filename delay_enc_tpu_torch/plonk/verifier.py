@@ -53,7 +53,7 @@ class _Reader:
         return v
 
 
-def _predecompress(vk, proof: bytes):
+def _predecompress(vk, proof: bytes, threads: int | None):
     """Batch-decompress every G1 point in the proof stream in one C call.
     The stream layout is static per vk (every item is 32 bytes; point and
     scalar counts depend only on LOOKUPS/QUOTIENT_PIECES/sigma count), so
@@ -74,13 +74,13 @@ def _predecompress(vk, proof: bytes):
     if len(proof) < w_base + 3 * 32:
         raise ValueError("proof too short")
     blob = proof[: n_head * 32] + proof[w_base : w_base + 3 * 32]
-    pts = g1_decompress_batch(blob, n_head + 3, B1)
+    pts = g1_decompress_batch(blob, n_head + 3, B1, threads)
     if pts == "unavailable":
         return None
     return pts
 
 
-def _fixed_first_msm(vk, fixed_pairs, var_pairs):
+def _fixed_first_msm(vk, fixed_pairs, var_pairs, threads: int | None):
     """MSM over fixed-first partitioned (scalar, point) pairs, using the
     per-vk precomputed wNAF tables when the C library is available.  The
     fixed partition order is deterministic per vk (names_x order + G), so
@@ -98,26 +98,30 @@ def _fixed_first_msm(vk, fixed_pairs, var_pairs):
             vk._msm_pretab = pretab
     if pretab is not None:
         res = ec.msm_host(scalars, points, P, pretab=pretab,
-                          npre=len(fixed_pairs))
+                          npre=len(fixed_pairs), threads=threads)
         if res != "unavailable":
             return res
-    return G1.multi_scalar_mul(scalars, points)
+    return G1.multi_scalar_mul(scalars, points, threads)
 
 
-def verify_proof(srs, vk: VerifyingKey, proof: bytes, instances=None) -> bool:
+def verify_proof(srs, vk: VerifyingKey, proof: bytes, instances=None,
+                 threads: int | None = None) -> bool:
+    """Whether the proof verifies under vk.  `threads` is the count of the
+    host C kernels' threads (`native.ec.verify_threads`: by default
+    min(4, cpu count))."""
     try:
-        guard = _verify(srs, vk, proof, instances or [])
+        guard = _verify(srs, vk, proof, instances or [], threads)
     except (ValueError, AssertionError, IndexError):
         return False
     if guard is False:
         return False
     w_comb, p_comb = guard
     tau_prep, g2_prep = srs.prepared_pair()
-    return pairing_check([(w_comb, tau_prep), (G1.neg(p_comb), g2_prep)])
+    return pairing_check([(w_comb, tau_prep), (G1.neg(p_comb), g2_prep)], threads)
 
 
 def verify_proofs_batched(srs, vk: VerifyingKey, proofs, instances=None,
-                          rng=None):
+                          rng=None, threads: int | None = None):
     """Batch verification: the AccumulatorStrategy analog (the reference
     verifies through `AccumulatorStrategy::finalize`, which defers the
     pairing work so it can amortize over many proofs —
@@ -130,14 +134,15 @@ def verify_proofs_batched(srs, vk: VerifyingKey, proofs, instances=None,
     sound except with probability ~N/|Fr|.  All scalar/quotient identities
     are still checked per proof.  Returns one bool for the whole batch
     (finalize semantics); on a False the caller can fall back to
-    per-proof verify_proof to locate the offender."""
+    per-proof verify_proof to locate the offender.  `threads` as in
+    verify_proof."""
     import secrets
 
     instances = instances or [[] for _ in proofs]
     guards = []
     for proof, inst in zip(proofs, instances):
         try:
-            g = _verify(srs, vk, proof, inst or [])
+            g = _verify(srs, vk, proof, inst or [], threads)
         except (ValueError, AssertionError, IndexError):
             return False
         if g is False:
@@ -149,13 +154,13 @@ def verify_proofs_batched(srs, vk: VerifyingKey, proofs, instances=None,
         rs = [int(rng.integers(1, 1 << 62)) for _ in guards]
     else:
         rs = [secrets.randbelow(P - 1) + 1 for _ in guards]
-    w_acc = G1.multi_scalar_mul(rs, [w for w, _ in guards])
-    p_acc = G1.multi_scalar_mul(rs, [p for _, p in guards])
+    w_acc = G1.multi_scalar_mul(rs, [w for w, _ in guards], threads)
+    p_acc = G1.multi_scalar_mul(rs, [p for _, p in guards], threads)
     tau_prep, g2_prep = srs.prepared_pair()
-    return pairing_check([(w_acc, tau_prep), (G1.neg(p_acc), g2_prep)])
+    return pairing_check([(w_acc, tau_prep), (G1.neg(p_acc), g2_prep)], threads)
 
 
-def _verify(srs, vk: VerifyingKey, proof: bytes, instances):
+def _verify(srs, vk: VerifyingKey, proof: bytes, instances, threads: int | None):
     """Scalar/quotient checks + GWC combination for one proof.  Returns
     False on any identity failure, else the pairing guard (w_comb, p_comb)
     satisfying e(w_comb, [tau]_2) == e(p_comb, [1]_2) iff the proof is
@@ -167,7 +172,7 @@ def _verify(srs, vk: VerifyingKey, proof: bytes, instances):
     tr.common_scalar(vk.transcript_repr)
     for v in instances:
         tr.common_scalar(v)
-    rd = _Reader(proof, tr, pre_pts=_predecompress(vk, proof))
+    rd = _Reader(proof, tr, pre_pts=_predecompress(vk, proof, threads))
 
     advice_c = [rd.point() for _ in range(NUM_ADVICE)]
     theta = tr.challenge()
@@ -338,8 +343,8 @@ def _verify(srs, vk: VerifyingKey, proof: bytes, instances):
         var_pairs.append((u_pow * z % P, w_pt))
         u_pow = u_pow * u % P
     fixed_pairs.append(((-g_scalar) % P, G1_GEN))
-    p_comb = _fixed_first_msm(vk, fixed_pairs, var_pairs)
+    p_comb = _fixed_first_msm(vk, fixed_pairs, var_pairs, threads)
     w_comb = G1.multi_scalar_mul(
-        [pow(u, s, P) for s in range(len(w_points))], w_points
+        [pow(u, s, P) for s in range(len(w_points))], w_points, threads
     )
     return (w_comb, p_comb)

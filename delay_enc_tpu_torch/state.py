@@ -46,7 +46,8 @@ def proving_key_from_jax(pk_fields: dict, device="cuda"):
     `x_ext`, `zeta_powers`, `zh_inv_ext`; for a split-mode key `split`
     true, the arrays `l0_coeff`, `l_last_coeff`, `l_blind_coeff`, and None
     (or nothing) for every extended-coset field.  A split key's coset
-    tables are made on `device` (`keygen.coset_tables`)."""
+    tables are made on `device` (`keygen.coset_tables`).  `shape`, where
+    given, is the keyed circuit's `keygen.circuit_shape`."""
     from .fields.bn254 import FR
     from .plonk.domain import Domain
     from .plonk.keygen import ALL_FIXED, ProvingKey, VerifyingKey, _row, coset_tables
@@ -105,4 +106,5 @@ def proving_key_from_jax(pk_fields: dict, device="cuda"):
         coset_powers=coset[0],
         coset_x=coset[1],
         coset_zh_inv=coset[2],
+        shape=f.get("shape"),
     )

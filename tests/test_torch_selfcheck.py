@@ -84,3 +84,30 @@ def test_unknown_level_raises(port):
     srs, pk, _, b, _ = port
     with pytest.raises(ValueError, match="selfcheck level"):
         create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu", selfcheck=3)
+
+
+def test_verify_threads_is_an_argument(port, monkeypatch):
+    """The host C kernels' thread count comes from the caller (verify_proof,
+    the selfcheck's MSM), by default min(4, cpu count); the JAX package's
+    DELAY_ENC_VERIFY_THREADS changes nothing in the port."""
+    from delay_enc_tpu_torch.native import ec
+    from delay_enc_tpu_torch.plonk import verify_proof
+    from delay_enc_tpu_torch.plonk.selfcheck import _g1_host, msm_chunked
+
+    srs, _, vk, _, golden = port
+    real = ec.verify_threads
+    default = min(4, os.cpu_count() or 1)
+    for value in ("1", "8", "no"):
+        monkeypatch.setenv("DELAY_ENC_VERIFY_THREADS", value)
+        assert real() == default
+    assert (real(0), real(2), real(99)) == (1, 2, 8)
+    assert ec.get_eclib() is not None, "the host C library did not build"
+    seen = []
+    monkeypatch.setattr(ec, "verify_threads", lambda threads=None: seen.append(threads) or real(threads))
+    for threads in (None, 1, 3):
+        seen.clear()
+        assert verify_proof(srs, vk, golden, threads=threads)
+        assert seen and set(seen) == {threads}
+    seen.clear()
+    assert msm_chunked([2, 3], _g1_host(srs, 2), threads=3) is not None
+    assert seen == [3]

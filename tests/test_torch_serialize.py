@@ -146,6 +146,27 @@ def test_get_keys_finds_the_saved_key(keys, srs, builder):
     assert got.delta_powers == pk.delta_powers
 
 
+def test_loaded_key_holds_builders_to_its_circuit(keys, srs, builder):
+    """A key the port saved comes back with the keyed circuit's shape, so
+    the batched prover refuses a builder of another circuit, even alone
+    (with no shape it would take that builder's own as the key's); a split
+    key it refuses as such."""
+    from delay_enc_tpu_torch import cs
+    from delay_enc_tpu_torch.fields import FR
+    from delay_enc_tpu_torch.plonk import create_proofs_batched
+    from delay_enc_tpu_torch.plonk.keygen import circuit_shape
+    from delay_enc_tpu_torch.plonk.serialize import load_pk
+
+    pk, path = keys
+    got = load_pk(path, device="cpu")
+    assert got.shape == pk.shape == circuit_shape(builder)
+    other = _build_circuit(cs, FR)
+    cs.MainGate(other).assign_value(3)
+    assert circuit_shape(other) != pk.shape
+    with pytest.raises(ValueError, match="fused-quotient" if pk.split else "circuit shape"):
+        create_proofs_batched(srs, got, [other], device="cpu")
+
+
 def test_port_vk_file_is_jax_vk(keys, golden_proof, tmp_path):
     from delay_enc_tpu.plonk.serialize import load_vk as jax_load_vk
     from delay_enc_tpu_torch.plonk.keygen import load_vk as keygen_load_vk
