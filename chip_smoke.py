@@ -5,7 +5,8 @@
 Phases, one line each (stderr carries detail):
  0. the card's name and power limit; build the CUDA kernels; then SRS setup,
     keygen and create_proof of the k=7 test circuit on the card, whose vk
-    and proof bytes must equal the JAX package's (tests/data/torch_port_k7.npz);
+    and proof bytes must equal the JAX package's (tests/data/torch_port_k7.npz),
+    with ntt="mxu" too;
     the batched proofs of two witnesses in both MSM bases, which must equal
     the JAX package's batch (tests/data/torch_port_batch_k7.npz), and three
     proofs pipelined two deep, which must equal the serial ones;
@@ -31,7 +32,12 @@ Phases, one line each (stderr carries detail):
     at small ragged sizes against the CPU) and against their single
     launches; K12's cross-shard butterfly on a k=16 shard over 4 shards
     (L = 2^14) in both positions, with a twiddle row, one constant and no
-    table; every kernel's device time from torch.profiler beside its
+    table; K11 (the matmul NTT): its product and split at the (6, 2^16)
+    forward against their plain versions with torch._int_mm over the same
+    plane products as the library's time, every fold at k = 4..10 against
+    the four-step plain version, and against K-b at the proof's transforms
+    and at 2^20, its reduction on adversarial columns; every kernel's
+    device time from torch.profiler beside its
     CUDA-event time (only the events of the kernel's own CUDA function,
     never more records than its wrappers' launches);
  2. artefacts of the JAX package: the committed k=11 SRS, a keygen of
@@ -45,19 +51,24 @@ Phases, one line each (stderr carries detail):
     verify, with every kernel's launch count from this phase and from the
     proof alone, which must stay within the counts the redesigns reached;
     then one more proof under torch.profiler for the device time by kernel;
+    then create_proof(ntt="mxu"): the four plans of the matmul NTT (seconds
+    on the card), a K-b proof and a K11 proof in turn (walls, peak memory),
+    the K11 proof equal to the K-b bytes, no K-b launch and the planned K11
+    launches, one more under the profiler;
     then the base-16 MSM on the same SRS and keys: its table (seconds,
     launches, bytes), one proof that must equal the base-4 one, beside a
     base-4 proof's wall time, and one more under the profiler;
  5. mod_pow at k=17 (bench.py's draw): SRS setup, keygen, two proofs from
     default_rng(0) that must be byte-identical, verify, with its own launch
-    counts a proof held to the same plan;
+    counts a proof held to the same plan; then ntt="mxu" as in phase 4
+    (n1 = n2 = 1024 on the 2^20 coset);
  6. delay_enc at k=18 (bench.py's draw, |T| = 31, 241,348 rows): SRS setup,
     a keygen that picks the split quotient, two split proofs from
     default_rng(0) that must be byte-identical and verify, their launch
     counts held to the split plan (8 launches of K6's coset form), one more
     under torch.profiler; then keygen(split=False), which must give the same
     vk, and one fused proof that must equal the split ones, with both peaks
-    of device memory;
+    of device memory; ntt="mxu" on the split key must raise ValueError;
  7. (run after phase 4's base-4 proof, on its SRS and key) delay_enc k=16,
     B = 4 (four builds of phase 4's statement: a delay_enc circuit has one
     witness): create_proofs_batched twice from one rng seed (identical
@@ -114,10 +125,12 @@ DATA = os.path.join(ROOT, "bench_data_cpu")
 VK_FILE = "keys_pose_enc_03b0f1e6255bb975e1394ff696635139.vk.npz"
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 INT_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
+TC_INT8_PER_SM_CLK = 4096  # dense int8 tensor-core multiply-adds per SM per clock
 WIDE = 2  # a 32x32->64 product counted as two integer multiply-adds
 MONT_MULS = 128  # wide products in one 8-word CIOS Montgomery product
 ADD_MULS = 12  # Montgomery products in one complete addition
-OFF_PATH = ("field_sub", "field_add")  # checked in phase 1, launched by no proof
+# checked in phase 1, launched by no proof (K11's reduction runs inside its product)
+OFF_PATH = ("field_sub", "field_add", "ntt_mxu_reduce")
 FRACS_MULS = 40  # Montgomery products a row of K5 (csrc/fracs_row.cuh)
 QUOTIENT_MULS = 116  # Montgomery products a row of K6 (csrc/quotient_row.cuh)
 COMMIT_BATCHES = 6  # commitment batches a proof: 5, 8, 5, 1, 7 and 3 columns
@@ -158,6 +171,8 @@ KERNEL_FUNCTIONS = {
     "plane_sums_kernel": ("plane_sums",), "plane_sums16_kernel": ("plane_sums16",),
     "pair_sel_kernel": ("pair_sel",), "g1_add_kernel": ("g1_complete_add",),
     "fixed_base_kernel": ("g1_fixed_base_mul",), "shard_butterfly_kernel": ("shard_butterfly",),
+    "mxu_split_kernel": ("ntt_mxu_split",), "mxu_product_kernel": ("ntt_mxu_product",),
+    "mxu_reduce_kernel": ("ntt_mxu_reduce",),
 }
 
 
@@ -262,37 +277,46 @@ def device_note(dev_ms: float, event_ms: float, bound_ms: float) -> str:
 
 
 class Report:
-    def __init__(self, int_rate: float):
+    def __init__(self, int_rate: float, tc_rate: float):
         self.int_rate = int_rate  # integer multiply-adds per second
+        self.tc_rate = tc_rate  # int8 tensor-core multiply-adds per second
         self.rows = {}
 
-    def add(self, name, *, err, ms, plain_ms, nbytes, int_ops, note="", device_ms=None):
+    def ops_ms(self, int_ops, tc_ops) -> float:
+        """The operations' least time: integer units and tensor cores run
+        side by side, so the longer of the two."""
+        return max(int_ops / self.int_rate, tc_ops / self.tc_rate) * 1e3
+
+    def add(self, name, *, err, ms, plain_ms, nbytes, int_ops, tc_ops=0, note="",
+            device_ms=None, library_ms=None):
         from delay_enc_tpu_torch.ops import _cuda
 
         k = _cuda.KERNELS[name]
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
-        ops_ms = int_ops / self.int_rate * 1e3
+        ops_ms = self.ops_ms(int_ops, tc_ops)
         self.rows[name] = {
             "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
+            "library_ms": library_ms,
         }
         if device_ms is not None:
             self.rows[name]["device_ms"] = device_ms
             note = f"{device_note(device_ms, ms, self.rows[name]['bound_ms'])}{note}"
-        print(f"phase 1 {name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {self.rows[name]['bound_ms']:.4f} ms ({self.rows[name]['bound_by']}){note}",
-              flush=True)
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        print(f"phase 1 {name}: max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{lib}, bound {self.rows[name]['bound_ms']:.4f} ms "
+              f"({self.rows[name]['bound_by']}){note}", flush=True)
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
 
-    def also(self, name, shape, *, err, ms, int_ops, nbytes=0, note="", device_ms=None):
+    def also(self, name, shape, *, err, ms, int_ops, tc_ops=0, nbytes=0, note="",
+             device_ms=None):
         """One more shape of a kernel that has its row: printed, and kept
         under the row's `other_shapes`."""
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
-        ops_ms = int_ops / self.int_rate * 1e3
+        ops_ms = self.ops_ms(int_ops, tc_ops)
         bound, by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
         other = {"shape": shape, "max_abs_err": err, "ms": ms, "bound_ms": bound, "bound_by": by}
         if device_ms is not None:
@@ -305,16 +329,9 @@ class Report:
             raise AssertionError(f"{name} disagrees with its plain version at {shape}")
 
 
-def phase1(rep: Report, dev):
+def field_makers(dev, gen):
+    """The operands of phase 1: (rand_field, carry_heavy), drawing from gen."""
     from delay_enc_tpu_torch.ops import limbs as L
-    from delay_enc_tpu_torch.ops import msm as M
-    from delay_enc_tpu_torch.ops import msm_tree as MT
-    from delay_enc_tpu_torch.ops import ntt as N
-    from delay_enc_tpu_torch.ops import poly as P
-    from delay_enc_tpu_torch.plonk import kernels as K
-    from delay_enc_tpu_torch.plonk.domain import Domain
-
-    gen = torch.Generator(device=dev).manual_seed(1)
 
     def rand_field(ctx, n):
         """n random reduced elements (Montgomery of random values) plus 0, 1, p-1."""
@@ -336,6 +353,21 @@ def phase1(rep: Report, dev):
         w = L.to_tensor(L.ints_to_words_np(vals), dev)
         m = len(vals)
         return w.repeat_interleave(m, 0), w.repeat(m, 1)
+
+    return rand_field, carry_heavy
+
+
+def phase1(rep: Report, dev):
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.ops import msm as M
+    from delay_enc_tpu_torch.ops import msm_tree as MT
+    from delay_enc_tpu_torch.ops import ntt as N
+    from delay_enc_tpu_torch.ops import poly as P
+    from delay_enc_tpu_torch.plonk import kernels as K
+    from delay_enc_tpu_torch.plonk.domain import Domain
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand_field, carry_heavy = field_makers(dev, gen)
 
     # K-a at 2^20 elements of Fr and Fq, elementwise and with a broadcast scalar
     n = 1 << 20
@@ -642,6 +674,7 @@ def phase1(rep: Report, dev):
     phase1_open(rep, dev, rand_field, carry_heavy)
     phase1_batch(rep, dev, rand_field, carry_heavy)
     phase1_shard(rep, dev, rand_field, carry_heavy)
+    phase1_mxu(rep, dev, rand_field, carry_heavy)
 
 
 def phase1_b16(rep: Report, dev, gen, pts, affine_err):
@@ -1173,6 +1206,201 @@ def phase1_shard(rep: Report, dev, rand_field, carry_heavy):
                          nbytes=(reads + 1) * 32 * l_len, note=f" (plain {plain_ms:.4f} ms)")
 
 
+def mxu_step_cost(s, batch: int, with_t: bool) -> tuple:
+    """(tensor-core multiply-adds, integer multiply-adds, bytes) of one K11
+    product step over `batch` polynomials: 1024 byte pairs for each of the
+    rows x kused x cols terms (the K rows that hold data); the epilogue's
+    reduction (64 wide products) and, in the first step, the product by T;
+    the fixed and data planes of those rows read once, T read, the output
+    written."""
+    elems = s.rows * s.cols
+    tc = 1024 * elems * s.kused * batch
+    ints = elems * batch * (64 * WIDE + (MONT_MULS * WIDE if with_t else 0))
+    nbytes = 32 * s.kused * (s.rows + s.cols * batch) + 32 * elems * (batch + int(with_t))
+    return tc, ints, nbytes
+
+
+def mxu_transform_cost(plan, rows: int, n_in: int) -> tuple:
+    """The same for a whole transform of `rows` polynomials of n_in
+    elements: both product steps, and the splits' bytes (the source read,
+    the planes written)."""
+    from delay_enc_tpu_torch.ops import ntt_mxu as X
+
+    tc = ints = nbytes = 0
+    for s, with_t in zip(X.steps(plan, n_in), (True, False)):
+        a, b, c = mxu_step_cost(s, rows, with_t)
+        tc, ints, nbytes = tc + a, ints + b, nbytes + c + 64 * s.kused * s.cols * rows
+    return tc, ints, nbytes
+
+
+def mxu_fold_plan(k: int, kind: str, dev):
+    """The plan of one of the prover's four transforms at length 2^k: a
+    domain's "fwd" and "inv" at its k, "ext" and "ext_inv" at its k + 3."""
+    from delay_enc_tpu_torch.plonk.domain import EXT_LOG, Domain
+
+    return Domain(k if kind in ("fwd", "inv") else k - EXT_LOG).mxu_plan(kind, dev)
+
+
+def phase1_mxu(rep: Report, dev, rand_field, carry_heavy):
+    """K11, the matmul NTT (csrc/ntt_mxu.cu).  The product (with its fused
+    reduction and product by T) and the split alone at the (6, 2^16)
+    forward transform's two steps (the sigma forward) against their plain
+    versions on the same planes, with torch._int_mm over the same plane
+    products as the library's time for the product stage; the whole
+    transform at k = 4..10 in every fold, on rows with the carry-heavy
+    values and on rows of n/8 elements, against the four-step plain version
+    on the card; against K-b at the proof's shapes (the (6, 2^16) inverse
+    and forward, the (19, 2^16) coset transform to 2^19, the (1, 2^19)
+    quotient inverse) and at (1, 2^20) (n1 = n2 = 1024); the reduction alone
+    on the adversarial columns (off the path: the product runs it)."""
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.ops import ntt as N
+    from delay_enc_tpu_torch.ops import ntt_mxu as X
+    from delay_enc_tpu_torch.plonk import kernels as K
+    from delay_enc_tpu_torch.plonk.domain import Domain
+
+    ctx = L.FR_CTX
+    t_phase = time.time()
+    d = Domain(16)
+    n = d.n
+    fwd = d.mxu_plan("fwd", dev)
+    x6 = rand_field(ctx, 6 * n - 3).reshape(6, n, 8)
+    s1, s3 = X.steps(fwd, n)
+    d1 = X.split(x6, s1)
+    c = X.product(fwd.w1_frag, d1, fwd.t, s1, torch.empty_like(x6))
+    d3 = X.split(c, s3)
+    y = X.product(fwd.w2_frag, d3, None, s3, torch.empty_like(x6))
+
+    # the product alone, both steps, against its plain version on the same planes
+    def products():
+        X.product(fwd.w1_frag, d1, fwd.t, s1, c)
+        X.product(fwd.w2_frag, d3, None, s3, y)
+
+    t0 = time.time()
+    want_c = X.product_plain(fwd.w1_frag, d1, fwd.t, s1)
+    want_y = X.product_plain(fwd.w2_frag, d3, None, s3)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max(max_err(c, want_c), max_err(y, want_y))
+    del want_c, want_y
+
+    # the library's product stage: torch._int_mm of the same plane products
+    # (int8 operands, no column sums, no reduction), timed, used nowhere
+    def int_mm_operands(frag, planes, s):
+        a = X.fixed_planes(frag)[:, : s.rows, : s.ktiles * X.TILE_K].contiguous()
+        b = X.data_planes(planes)[:, :, : s.cols].contiguous()
+        return (a.reshape(-1, a.shape[-1]).view(torch.int8),
+                b.reshape(-1, b.shape[-1]).view(torch.int8))
+
+    mm = [int_mm_operands(fwd.w1_frag, d1, s1), int_mm_operands(fwd.w2_frag, d3, s3)]
+    library_ms = timed(lambda: [torch._int_mm(a, b.t()) for a, b in mm], 3)
+    del mm
+    cost = [mxu_step_cost(s, 6, t) for s, t in ((s1, True), (s3, False))]
+    rep.add("ntt_mxu_product", err=err, ms=timed(products, 10), plain_ms=plain_ms,
+            nbytes=sum(c_[2] for c_ in cost), int_ops=sum(c_[1] for c_ in cost),
+            tc_ops=sum(c_[0] for c_ in cost), library_ms=library_ms,
+            device_ms=device_ms(products, 10, "mxu_product_kernel"),
+            note=f" (the two steps of the (6, 2^16) forward, n1 = n2 = 256, K = 256; "
+                 f"library: torch._int_mm of the same 2 x 1024 plane products, s8, without "
+                 f"the column sums and the reduction)")
+
+    def splits():
+        X.split(x6, s1)
+        X.split(c, s3)
+
+    t0 = time.time()
+    err = max(max_err(X.split(x6, s1).view(torch.int32), X.split_plain(x6, s1).view(torch.int32)),
+              max_err(X.split(c, s3).view(torch.int32), X.split_plain(c, s3).view(torch.int32)))
+    plain_ms = (time.time() - t0) * 1e3
+    rep.add("ntt_mxu_split", err=err, ms=timed(splits, 20), plain_ms=plain_ms,
+            nbytes=2 * 2 * 32 * 6 * n, int_ops=0,
+            device_ms=device_ms(splits, 20, "mxu_split_kernel"),
+            note=" (the two steps of the (6, 2^16) forward: A, and C read transposed)")
+    del x6, d1, d3, c, y
+
+    # every fold at k = 4..10, rows holding 0, 1, p - 1 and the carry-heavy
+    # values, full rows and rows of n/8 elements, against the four-step plain
+    ha, _ = carry_heavy(ctx)
+    heavy = ha[:: int(round(ha.shape[0] ** 0.5))]
+    err, count = 0, 0
+    for k in range(4, 11):
+        m = 1 << k
+        x = rand_field(ctx, 3 * m - 3).reshape(3, m, 8)
+        x[0, : heavy.shape[0]] = heavy[:m]
+        for kind in Domain.MXU_KINDS:
+            small = mxu_fold_plan(k, kind, dev)
+            for rows in (x, x[:, : m // 8].contiguous()):
+                err = max(err, max_err(X.ntt_mxu_stack(small, rows),
+                                       X.ntt_mxu_plain(small, rows)))
+                count += 1
+    tc, ints, nbytes = mxu_transform_cost(small, 3, 1 << 10)
+    rep.also("ntt_mxu_product", f"k=4..10, every fold, batch 3, full and n/8 rows ({count} "
+             f"transforms); timed: whole transform (3, 2^10), ext_inv", err=err,
+             ms=timed(lambda: X.ntt_mxu_stack(small, x), 10), tc_ops=tc, int_ops=ints,
+             nbytes=nbytes, note=f" (against ntt_mxu_plain; {heavy.shape[0]} carry-heavy "
+                                 f"values in the first row)")
+
+    # against K-b at the proof's shapes
+    plan, plan_ext = d.plan(dev), d.plan_ext(dev)
+    zeta_powers = N.powers(ctx, d.zeta, n, dev)
+    unscale = N.powers(ctx, L.FR_CTX.field.inv(d.zeta), d.n_ext, dev,
+                       L.FR_CTX.field.inv(d.n_ext))
+    inv_in = rand_field(ctx, 6 * n - 3).reshape(6, n, 8)
+    coeff = rand_field(ctx, 19 * n - 3).reshape(19, n, 8)
+    h_ext = rand_field(ctx, d.n_ext - 3).reshape(1, d.n_ext, 8)
+    k20 = rand_field(ctx, (1 << 20) - 3).reshape(1, 1 << 20, 8)
+    plan20 = N.NTTPlan.make(ctx, 20, dev)
+    cases = (
+        ("(6, 2^16) inverse, 1/n folded", d.mxu_plan("inv", dev), inv_in,
+         lambda: K._coeff(inv_in, plan)),
+        ("(6, 2^16) forward", fwd, inv_in, lambda: N.stockham(ctx, inv_in, plan.tw)),
+        ("(19, 2^16) -> (19, 2^19) on zeta H_ext, zeta^j folded, 64 of A's 512 rows",
+         d.mxu_plan("ext", dev), coeff, lambda: K._ext(coeff, zeta_powers, plan_ext)),
+        ("(1, 2^19) inverse, 1/n_ext and zeta^-i folded", d.mxu_plan("ext_inv", dev), h_ext,
+         lambda: N.stockham(ctx, h_ext, plan_ext.tw_inv, out_scale=unscale)),
+        ("(1, 2^20) forward, n1 = n2 = 1024", mxu_fold_plan(20, "fwd", dev), k20,
+         lambda: N.stockham(ctx, k20, plan20.tw)),
+    )
+    for shape, mp, rows, kb in cases:
+        fn = lambda: X.ntt_mxu_stack(mp, rows)
+        err = max_err(fn(), kb())
+        tc, ints, nbytes = mxu_transform_cost(mp, rows.shape[0], rows.shape[1])
+        kb_ms = timed(kb, 5)
+        rep.also("ntt_mxu_product", f"whole transform {shape}", err=err, ms=timed(fn, 3),
+                 tc_ops=tc, int_ops=ints, nbytes=nbytes,
+                 device_ms=device_ms(fn, 3, "mxu_product_kernel"),
+                 note=f" (against K-b, bit-exact; K-b {kb_ms:.4f} ms by CUDA events; "
+                      f"{X.launches(mp.n, rows.shape[0])} launches of each K11 kernel)")
+    del inv_in, coeff, h_ext, k20, plan20
+
+    # the reduction alone on the adversarial columns and on 2^16 random ones
+    p, r_ = ctx.p, 1 << 256
+    vals = [0, 1, p - 1, p, p + 1, r_ - 1, r_, r_ * p - 1, 1024 * (p - 1) ** 2, (1 << 518) - 1,
+            ((1 << 262) - 1) * r_, (3 * p - 1) * r_, 3 * p * r_, (p - 1) * r_]
+    cols = [[(v >> (8 * c_)) & 0xFF for c_ in range(X.COLS - 1)] + [v >> (8 * (X.COLS - 1))]
+            for v in vals]
+    adv = torch.tensor(cols, dtype=torch.int32, device=dev)
+    got = L.words_to_ints_np(L.to_numpy(X.reduce_columns(adv)))
+    want = [v * pow(r_, -1, p) % p for v in vals]
+    err = int(got != want)
+    big = torch.randint(0, 1 << 29, (1 << 16, X.COLS), generator=torch.Generator(device=dev)
+                        .manual_seed(5), device=dev, dtype=torch.int32)
+    big[:, X.COLS - 1] >>= 9  # V < 2^517 (1 + 2^-8) + 2^516 < 2^518
+    fn = lambda: X.reduce_columns(big)
+    got = fn()
+    t0 = time.time()
+    want = X.reduce_columns_plain(big.to(torch.int64))
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max(err, max_err(got, want))
+    rep.add("ntt_mxu_reduce", err=err, ms=timed(fn, 20), plain_ms=plain_ms,
+            nbytes=(1 << 16) * (4 * X.COLS + 32), int_ops=(1 << 16) * 64 * WIDE,
+            device_ms=device_ms(fn, 20, "mxu_reduce_kernel"),
+            note=f" (2^16 random column sets below 2^29 and {len(vals)} adversarial values "
+                 f"against Python integers)")
+    log(f"  phase 1 K11: {time.time() - t_phase:.2f} s")
+
+
 def k7_circuit(x0: int = 7, y0: int = 11):
     """The k=7 circuit of tests/test_torch_prover.py for the witness (x0, y0)."""
     from delay_enc_tpu_torch import cs
@@ -1219,10 +1447,13 @@ def golden_k7(dev):
             want = z[key]
             if have.shape != want.shape or not np.array_equal(have, want):
                 raise AssertionError(f"k=7 on the card: {key} differs from the JAX package's")
+    if create_proof(srs, pk, b, np.random.default_rng(42), device=dev, ntt="mxu") != proof:
+        raise AssertionError("k=7 on the card with ntt='mxu': the proof differs from the JAX "
+                             "package's")
     print(f"phase 0 golden k=7: SRS points, {len(ALL_FIXED)} fixed + "
           f"{len(vk.sigma_commitments)} sigma commitments, transcript_repr and the "
-          f"{len(proof)} proof bytes equal the JAX package's ({time.time() - t0:.2f} s)",
-          flush=True)
+          f"{len(proof)} proof bytes equal the JAX package's, with ntt='mxu' too "
+          f"({time.time() - t0:.2f} s)", flush=True)
     return srs, pk, vk
 
 
@@ -1285,6 +1516,8 @@ KERNEL_SYMBOLS = {  # CUDA function -> the port's kernel, as the profiles name i
     "plane_sums_kernel": "plane_sums (K-c)", "plane_sums16_kernel": "plane_sums16",
     "pair_sel_kernel": "pair_sel", "g1_add_kernel": "g1_complete_add (K-d)",
     "fixed_base_kernel": "g1_fixed_base_mul", "shard_butterfly_kernel": "shard_butterfly (K12)",
+    "mxu_split_kernel": "ntt_mxu_split (K11)", "mxu_product_kernel": "ntt_mxu_product (K11)",
+    "mxu_reduce_kernel": "ntt_mxu_reduce (K11)",
 }
 
 
@@ -1340,13 +1573,15 @@ def profile_run(run, phase: str, what: str) -> dict:
     return groups
 
 
-def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4") -> dict:
+def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4",
+                  ntt: str = "stockham") -> dict:
     """One more proof from default_rng(0) under torch.profiler
     (`profile_run`); it must equal `proof`."""
     from delay_enc_tpu_torch.plonk import create_proof
 
     def run():
-        if create_proof(srs, pk, builder, np.random.default_rng(0), device=dev, msm=msm) != proof:
+        if create_proof(srs, pk, builder, np.random.default_rng(0), device=dev, msm=msm,
+                        ntt=ntt) != proof:
             raise AssertionError("the profiled proof differs from the first")
 
     return profile_run(run, phase, "proof")
@@ -1371,8 +1606,18 @@ PLANNED_BATCH_ELEMENTWISE = COMMIT_BATCHES + 4 + 1
 PLANNED_BATCH_SCANS = 1 + 3 + 1 + 1 + 1 + 1
 
 
+def mxu_planned(k: int) -> int:
+    """Launches of each K11 kernel in a fused proof at k with ntt='mxu':
+    the 6, 8 and 5-row inverses and the 6 sigma forwards of length 2^k, the
+    19-row coset transform and the quotient's inverse of length 2^(k+3)."""
+    from delay_enc_tpu_torch.ops import ntt_mxu as X
+
+    return (sum(X.launches(1 << k, rows) for rows in (6, 8, 5, 6))
+            + X.launches(1 << (k + 3), 19) + X.launches(1 << (k + 3), 1))
+
+
 def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4",
-                         split: bool = False) -> None:
+                         split: bool = False, ntt: str = "stockham") -> None:
     """One proof at k: four transforms of length 2^k, then the quotient's
     transforms, each a launch a pass: on the fused path the coset transform
     and the inverse at 2^(k+3), in split mode the 8 cosets' transforms of
@@ -1383,7 +1628,8 @@ def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4",
     contractions, no subtraction, and the 13 elementwise launches that are
     left (81 before K7, 235 before K5 and K6, 910 before the scans); one
     selector launch a commitment batch, and the plane sums of the proof's base
-    only."""
+    only.  With ntt='mxu' no K-b launch, and `mxu_planned(k)` of each K11
+    kernel in their place; with 'stockham' no K11 launch."""
     from delay_enc_tpu_torch.ops import ntt as N
     from delay_enc_tpu_torch.plonk.domain import MAX_DEGREE
 
@@ -1404,6 +1650,13 @@ def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4",
         if want_ntt > 20:
             raise AssertionError(f"the fused path plans {want_ntt} NTT launches, allowed 20")
     elementwise = proof_launches["field_mont_mul"]
+    want_mxu = 0
+    if ntt == "mxu":
+        want_ntt, want_mxu = 0, mxu_planned(k)
+    for name in ("ntt_mxu_split", "ntt_mxu_product"):
+        if proof_launches[name] != want_mxu:
+            raise AssertionError(f"a proof (ntt={ntt!r}) launched {name} "
+                                 f"{proof_launches[name]} times, planned {want_mxu}")
     if proof_launches["ntt_fused"] != want_ntt:
         raise AssertionError(f"a proof launched the NTT kernel {proof_launches['ntt_fused']} "
                              f"times, planned {want_ntt}")
@@ -1435,11 +1688,62 @@ def check_batch_launches(launches: dict, k: int) -> None:
             "quotient_h_coset": 0, "pair_sel": COMMIT_BATCHES, "plane_sums16": 0,
             "field_scan": PLANNED_BATCH_SCANS, "field_mont_mul": PLANNED_BATCH_ELEMENTWISE,
             "ntt_fused": 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3)),
-            "g1_complete_add": 0, "g1_fixed_base_mul": 0, **{name: 0 for name in OFF_PATH}}
+            "g1_complete_add": 0, "g1_fixed_base_mul": 0, "ntt_mxu_split": 0,
+            "ntt_mxu_product": 0, **{name: 0 for name in OFF_PATH}}
     wrong = {name: (launches[name], n) for name, n in want.items() if launches[name] != n}
     if wrong or launches["plane_sums"] == 0:
         raise AssertionError(f"a batch launched (got, planned) {wrong}, plane_sums "
                              f"{launches['plane_sums']}")
+
+
+def mxu_proof_phase(dev, card: str, srs, pk, builder, proof, phase: str) -> dict:
+    """create_proof(ntt="mxu") on a fused key, after its K-b proofs: the four
+    plans built first (seconds, bytes, launches), then a K-b proof and a K11
+    proof from default_rng(0), each with the peak device memory from just
+    before it; the K11 proof must equal `proof`, verify and launch no K-b
+    (launches asserted); one more under torch.profiler.  Returns the K11
+    proof's launch counts, set to 0 just before it and read just after."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.plonk import create_proof, verify_proof
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    domain = pk.vk.domain
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.time()
+    plans = [domain.mxu_plan(kind, dev) for kind in domain.MXU_KINDS]
+    torch.cuda.synchronize()
+    t_plans = time.time() - t0
+    plan_launches = {name: n for name, n in _cuda.launch_counts().items() if n}
+    plan_bytes = sum(t.numel() * t.element_size() for mp in plans
+                     for t in (mp.w1_frag, mp.w2_frag, mp.t))
+    walls, peaks, spans_, launches = {}, {}, {}, {}
+    for ntt in ("stockham", "mxu"):
+        torch.cuda.reset_peak_memory_stats()
+        GLOBAL_METRICS.clear()
+        _cuda.reset_launches()
+        t0 = time.time()
+        got = create_proof(srs, pk, builder, np.random.default_rng(0), device=dev, ntt=ntt)
+        torch.cuda.synchronize()
+        walls[ntt] = time.time() - t0
+        launches[ntt] = _cuda.launch_counts()
+        peaks[ntt] = torch.cuda.max_memory_allocated()
+        spans_[ntt] = spans("prove/")
+        if got != proof:
+            raise AssertionError(f"{phase}: the ntt={ntt!r} proof differs from the first K-b proof")
+    if not verify_proof(srs, pk.vk, proof):
+        raise AssertionError(f"{phase}: the proof does not verify")
+    k = domain.k
+    print(f"{phase} ntt='mxu' k={k} on {card}: four plans {t_plans:.4f} s on the card "
+          f"({plan_bytes} B; launches {json.dumps(plan_launches)}); prove {walls['mxu']:.3f} s "
+          f"against K-b {walls['stockham']:.3f} s in turn, the K-b proof's bytes, verifies; peak "
+          f"device memory over the proof {peaks['mxu'] / 2**30:.3f} GiB against K-b "
+          f"{peaks['stockham'] / 2**30:.3f} GiB (plans resident); spans {json.dumps(spans_)}; "
+          f"the K11 proof's launches {json.dumps(launches['mxu'])}", flush=True)
+    check_proof_launches(launches["stockham"], k)
+    check_proof_launches(launches["mxu"], k, ntt="mxu")
+    profile_proof(srs, pk, builder, proof, dev, f"{phase} ntt='mxu'", ntt="mxu")
+    return launches["mxu"]
 
 
 def batch_phase(dev, card: str, srs, pk, vk) -> dict:
@@ -1759,6 +2063,7 @@ def mod_pow_phase(dev, card: str) -> None:
         raise AssertionError(f"SRS setup and pair tables launched {launches}")
     check_proof_launches(proof_launches, k)
     profile_proof(srs, pk, b, proofs[0], dev, "phase 5")
+    mxu_proof_phase(dev, card, srs, pk, b, proofs[0], "phase 5")
 
 
 def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
@@ -1825,6 +2130,12 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
         raise AssertionError(f"SRS setup and pair tables launched {launches}")
     check_proof_launches(proof_launches, k, split=True)
     profile_proof(srs, pk, b, proofs[0], dev, "phase 6 split")
+    try:
+        create_proof(srs, pk, b, np.random.default_rng(0), device=dev, ntt="mxu")
+    except ValueError as e:
+        print(f"phase 6 split key with ntt='mxu': ValueError, as it must ({e})", flush=True)
+    else:
+        raise AssertionError("a split key proved with ntt='mxu'")
 
     # the fused path on the same SRS and circuit: the same vk, the same bytes
     del pk
@@ -1885,7 +2196,8 @@ def daemon_phase(dev, card: str) -> dict:
     ok, no MISMATCH), a selfcheck-2 request (the GWC witnesses too); then,
     with selfcheck 0 set, delay_enc:16 and batch:16:4 warmed while a
     pose_enc:11 request is served (the idle-served bytes); delay_enc:16 with
-    3 repeats in base 4 and in base 16 (the same bytes); the batch of 4 with
+    3 repeats in base 4 and in base 16 (the same bytes), and 2 with
+    DELAY_ENC_NTT=mxu in the request's env (the same bytes); the batch of 4 with
     2 repeats; shutdown, exit 0; then the daemon's SRS and key files read back
     in this process (SRS.load, get_keys, load_vk) prove the served bytes,
     and keygen on that SRS gives the file's vk.  Every kernel of the path
@@ -1987,6 +2299,10 @@ def daemon_phase(dev, card: str) -> dict:
         if b16["msm"] != "b16" or b16["proof_hex"] != b4["proof_hex"]:
             raise AssertionError("the delay_enc:16 proof served in base 16 differs from base 4's")
         req({"cmd": "setenv", "env": {"DELAY_ENC_MSM": None}})
+        mxu = prove("delay_enc", 16, repeats=2, env={"DELAY_ENC_NTT": "mxu"})
+        if mxu["ntt"] != "mxu" or mxu["proof_hex"] != b4["proof_hex"]:
+            raise AssertionError("the delay_enc:16 proof served with DELAY_ENC_NTT=mxu differs "
+                                 "from K-b's")
         evs = []
         batch = req({"cmd": "batch", "k": 16, "b": BATCH, "repeats": 2, "budget_s": 900},
                     events=evs)
@@ -2053,7 +2369,8 @@ def daemon_phase(dev, card: str) -> dict:
           f"{sc2['best_s']:.3f} s (32 ok) against {idle['best_s']:.3f} s without: "
           f"{sc2['best_s'] - idle['best_s']:.3f} s for the checks", flush=True)
     for name, fin in (("pose_enc:11 idle", idle), ("pose_enc:11 during the k=16 warm", during),
-                      ("delay_enc:16 b4", b4), ("delay_enc:16 b16", b16)):
+                      ("delay_enc:16 b4", b4), ("delay_enc:16 b16", b16),
+                      ("delay_enc:16 DELAY_ENC_NTT=mxu", mxu)):
         print(f"phase 8 served {name}: best_s {fin['best_s']:.4f} of {fin['repeats']}, verified; "
               f"last repeat's spans {json.dumps(fin['spans'])}", flush=True)
     print(f"phase 8 served batch k=16 B={batch['b']}: best_s {batch['best_s']:.4f} of "
@@ -2100,8 +2417,11 @@ def main() -> int:
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     int_rate = sm_count * INT_PER_SM_CLK * clock_mhz * 1e6
-    log(f"integer rate: {sm_count} SMs x {INT_PER_SM_CLK} x {clock_mhz} MHz = {int_rate:.4g}/s")
-    rep = Report(int_rate)
+    tc_rate = sm_count * TC_INT8_PER_SM_CLK * clock_mhz * 1e6
+    log(f"integer rate: {sm_count} SMs x {INT_PER_SM_CLK} x {clock_mhz} MHz = {int_rate:.4g}/s; "
+        f"int8 tensor-core rate {sm_count} x {TC_INT8_PER_SM_CLK} x {clock_mhz} MHz = "
+        f"{tc_rate:.4g}/s")
+    rep = Report(int_rate, tc_rate)
     phase1(rep, dev)
     torch.cuda.empty_cache()
 
@@ -2212,6 +2532,9 @@ def main() -> int:
 
     profile_proof(srs16, pk16, b16, proof16, dev, "phase 4")
 
+    # ---- 4, ntt="mxu": every transform through K11 ------------------------
+    mxu_launches = mxu_proof_phase(dev, card, srs16, pk16, b16, proof16, "phase 4")
+
     # ---- 7. the batched and pipelined provers on phase 4's SRS and key ----
     batch = batch_phase(dev, card, srs16, pk16, vk16)
     batch_launches = batch["launches"]
@@ -2270,7 +2593,7 @@ def main() -> int:
     for name, row in rep.rows.items():
         row["launches"] = sum(run.get(name, 0)
                               for run in (launches, b16_launches, split_launches, batch_launches,
-                                          daemon_launches, mesh_launches))
+                                          daemon_launches, mesh_launches, mxu_launches))
     # K5 and K6 took the last subtractions of a proof, K7 the last sums (0
     # launches, asserted): K-a's subtraction and sum are checked in phase 1
     # but are no kernels of the path

@@ -25,7 +25,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("field", "ntt", "scan", "msm", "quotient", "fracs", "open", "shard")
+SOURCES = ("field", "ntt", "scan", "msm", "quotient", "fracs", "open", "shard", "ntt_mxu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "open_eval": ("open", [_P, _U, _P]),
     "open_combine": ("open", [_P, _U, _P]),
     "shard_butterfly": ("shard", [_P, _P, _P, _P, _U, _I, _I, _P]),
+    "ntt_mxu_split": ("ntt_mxu", [_P, _P, _U, _U, _U, _U, _U, _U, _U, _U, _U, _P]),
+    "ntt_mxu_product": ("ntt_mxu", [_P, _P, _P, _P, _U, _U, _U, _U, _U, _U, _U, _P]),
+    "ntt_mxu_reduce": ("ntt_mxu", [_P, _P, _U, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
 """Evaluation domain: the 2^k row domain H, the extended coset domain for
 the quotient, and Lagrange helpers.
 
-Counterpart of `delay_enc_tpu/plonk/domain.py`, without the MXU plans.  The
-NTT plans live on a device and are built on first use for that device.
+Counterpart of `delay_enc_tpu/plonk/domain.py`.  The NTT plans and the
+matmul NTT's plans (`mxu_plan`) live on a device and are built on first use
+for that device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from functools import cached_property
 
 from ..fields.bn254 import FR
 from ..ops import limbs as L
+from ..ops import ntt_mxu as NX
 from ..ops.ntt import NTTPlan
 
 # degree bound: gate 3, lookup 6, permutation 2 + NUM_ADVICE = 7
@@ -84,6 +86,29 @@ class Domain:
         key = (k, str(device))
         if key not in self._plans:
             self._plans[key] = NTTPlan.make(L.FR_CTX, k, device)
+        return self._plans[key]
+
+    MXU_KINDS = ("fwd", "inv", "ext", "ext_inv")
+
+    def mxu_plan(self, kind: str, device) -> NX.MXUPlan:
+        """The matmul NTT's plan on `device` (`create_proof(ntt="mxu")`):
+        "fwd" and "inv" (1/n folded in) of length n; "ext", coefficients
+        (zero-padded to n_ext) to evaluations on zeta*H_ext, zeta^j folded
+        in; "ext_inv", back with 1/n_ext and zeta^-i folded in."""
+        key = ("mxu", kind, str(device))
+        if key not in self._plans:
+            inv = FR.inv
+            args = {
+                "fwd": (self.k, self.omega, {}),
+                "inv": (self.k, self.omega_inv, {"out_mul": inv(self.n)}),
+                "ext": (self.k_ext, self.omega_ext, {"in_scale": self.zeta}),
+                "ext_inv": (self.k_ext, inv(self.omega_ext),
+                            {"out_mul": inv(self.n_ext), "out_scale": inv(self.zeta)}),
+            }
+            if kind not in args:
+                raise ValueError(f"unknown MXU plan {kind!r}; expected one of {self.MXU_KINDS}")
+            k, omega, folds = args[kind]
+            self._plans[key] = NX.make_plan(L.FR_CTX, k, omega, device, **folds)
         return self._plans[key]
 
     # ---- host-side Lagrange helpers (verifier) -----------------------

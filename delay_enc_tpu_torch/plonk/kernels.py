@@ -21,7 +21,9 @@ do; their plain versions loop the single-instance ones over the instances.
 Field arithmetic goes through `ops.limbs`
 (kernel K-a on a card), transforms through `ops.ntt.stockham` (kernel K-b,
 with the coset scaling, the zero padding, 1/n or zeta^-i / n_ext fused into
-its first and last pass), scans and powers through `ops.poly` (kernel
+its first and last pass) or, given a plan of the matmul NTT
+(`create_proof(ntt="mxu")`), through `ops.ntt_mxu` (kernel K11, the same
+scales folded into the plan's tables), scans and powers through `ops.poly` (kernel
 `field_scan`), commitments through `ops.msm` (kernels `pair_sel`, K-c and
 K-d) or `ops.msm16` (`pair_sel`, `plane_sums16` and K-d).
 """
@@ -40,6 +42,7 @@ from ..ops import msm as M
 from ..ops import msm16 as M16
 from ..ops import poly as P
 from ..ops.ntt import NTTPlan, stockham
+from ..ops.ntt_mxu import MXUPlan, ntt_mxu_stack
 from .domain import MAX_DEGREE
 from .keygen import ALL_FIXED, KEY_ROWS, NUM_PERM_COLS
 
@@ -94,22 +97,31 @@ def _sub(a, b):
 
 
 # ---------------------------------------------------------------- transforms
+# Each takes the domain's NTTPlan (K-b) or the MXUPlan of its own transform
+# (K11: Domain.mxu_plan "inv", "ext", "fwd"), whose tables hold the scales.
 
-def _coeff(stack: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+def _coeff(stack: torch.Tensor, plan: NTTPlan | MXUPlan) -> torch.Tensor:
     """(…, n, 8) evaluations -> coefficients (iNTT with 1/n in its last pass)."""
+    if isinstance(plan, MXUPlan):
+        return ntt_mxu_stack(plan, stack)
     return stockham(CTX, stack, plan.tw_inv, out_scale=plan.n_inv)
 
 
-def _ext(coeff: torch.Tensor, zeta_powers: torch.Tensor, plan_ext: NTTPlan) -> torch.Tensor:
+def _ext(coeff: torch.Tensor, zeta_powers: torch.Tensor,
+         plan_ext: NTTPlan | MXUPlan) -> torch.Tensor:
     """(…, n, 8) coefficients -> evaluations on the extended coset
     zeta*H_ext (…, n_ext, 8): coeff_i * zeta^i goes in as the first pass
-    loads, and the rows are read as zero-padded to n_ext.  No sacrificial
-    lane: the JAX package's ext_batch_padded works around an XLA:TPU fault
-    this path does not have."""
+    loads (K11: folded into the plan), and the rows are read as zero-padded
+    to n_ext.  No sacrificial lane: the JAX package's ext_batch_padded works
+    around an XLA:TPU fault this path does not have."""
+    if isinstance(plan_ext, MXUPlan):
+        return ntt_mxu_stack(plan_ext, coeff)
     return stockham(CTX, coeff, plan_ext.tw, n=plan_ext.n, in_table=zeta_powers)
 
 
-def _evals_batch(coeff: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+def _evals_batch(coeff: torch.Tensor, plan: NTTPlan | MXUPlan) -> torch.Tensor:
+    if isinstance(plan, MXUPlan):
+        return ntt_mxu_stack(plan, coeff)
     return stockham(CTX, coeff, plan.tw)
 
 
@@ -508,12 +520,15 @@ def quotient_h(wit_ext, key_ext, x_ext, zh_inv, consts, *, rot=MAX_DEGREE, out=N
 
 
 def quotient_stacked(wit_ext, key_ext, x_ext, zh_inv8, consts, unscale,
-                     plan_ext: NTTPlan) -> torch.Tensor:
+                     plan_ext: NTTPlan | MXUPlan) -> torch.Tensor:
     """Fused extended-domain quotient: `quotient_h`, transformed back, for
     one instance or a batch (a leading instance axis on wit_ext and consts).
     `unscale` (n_ext, 8) holds zeta^-i / n_ext, which the transform's last
-    pass multiplies in."""
+    pass multiplies in; the "ext_inv" MXUPlan holds it in its tables (JAX
+    `_jit_quotient_mxu`)."""
     h_ext = quotient_h(wit_ext, key_ext, x_ext, zh_inv8, consts)
+    if isinstance(plan_ext, MXUPlan):
+        return ntt_mxu_stack(plan_ext, h_ext)
     return stockham(CTX, h_ext, plan_ext.tw_inv, out_scale=unscale)
 
 

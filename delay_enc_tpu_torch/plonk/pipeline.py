@@ -13,7 +13,8 @@ host phases, so the overlap is what the GIL leaves.
 Each instance draws from its own `np.random.default_rng(seed)`, so every
 proof equals `create_proof` of its builder with that seed, whatever the
 scheduling.  The state the workers share and would otherwise build lazily
-(the SRS's pair tables, the domain's NTT plans and the C host library) is
+(the SRS's pair tables, the domain's NTT plans, the matmul NTT's plans
+with `ntt="mxu"`, and the C host library) is
 built before they start, and the key's tensors, made on the default
 stream, are complete before the first launch; the kernels' build and
 bindings are under a lock (`ops/_cuda.py`).
@@ -29,36 +30,40 @@ import torch
 
 from ..native import get_lib
 from ..utils.device import resolve, sync_stream
-from .prover import create_proof
+from .prover import create_proof, transform_plans
 
 
-def _prepare(srs, pk, device, msm: str):
+def _prepare(srs, pk, device, msm: str, ntt: str = "stockham"):
     """Build the shared lazy state on the calling thread."""
     domain = pk.vk.domain
     srs.truncated(domain.k).msm_tables(msm)
     domain.plan(device)
     domain.plan_ext(device)
+    if ntt == "mxu" and not pk.split:
+        transform_plans(domain, device, ntt)
     get_lib()
     sync_stream(device)
 
 
 def create_proofs_pipelined(srs, pk, builders, seeds=None, depth: int = 2, on_proof=None,
-                            device="cuda", msm: str = "b4") -> list[bytes]:
+                            device="cuda", msm: str = "b4",
+                            ntt: str = "stockham") -> list[bytes]:
     """Prove each builder with `depth` proofs in flight; returns the proofs
     in builder order.  seeds: one rng seed an instance (0..B-1 by default);
-    on_proof(i, proof) is called as each completes, in order."""
+    on_proof(i, proof) is called as each completes, in order.  `msm` and
+    `ntt` go to every `create_proof`."""
     device = resolve(device)
     if seeds is None:
         seeds = list(range(len(builders)))
     if len(seeds) != len(builders):
         raise ValueError(f"{len(seeds)} seeds for {len(builders)} builders")
-    _prepare(srs, pk, device, msm)
+    _prepare(srs, pk, device, msm, ntt)
 
     worker = threading.local()
 
     def one(b, seed):
         prove = lambda: create_proof(srs, pk, b, np.random.default_rng(seed), device=device,
-                                     msm=msm)
+                                     msm=msm, ntt=ntt)
         if device.type != "cuda":
             return prove()
         if not hasattr(worker, "stream"):

@@ -1,7 +1,9 @@
 """create_proof: the proving pipeline on the card.
 
 Counterpart of `delay_enc_tpu/plonk/prover.py`: the fused 8n quotient, or
-the split one for a split-mode key (k >= 18).
+the split one for a split-mode key (k >= 18).  The JAX package's
+DELAY_ENC_NTT=mxu is the argument `ntt="mxu"` here: every transform of a
+fused-quotient proof through the matmul NTT (K11).
 Protocol (transcript order is the spec; the verifier mirrors it exactly):
 
  1. commit the 5 advice columns (blinding rows randomized),
@@ -244,17 +246,35 @@ class _Spans:
         self.t = now
 
 
+def transform_plans(domain, device, ntt: str) -> tuple:
+    """The plans of a fused-quotient proof's transforms: (inverse, forward,
+    coset, quotient's inverse), the domain's NTT plans for "stockham" (K-b)
+    or the matmul NTT's, one a transform, for "mxu" (K11)."""
+    if ntt == "mxu":
+        return tuple(domain.mxu_plan(kind, device) for kind in ("inv", "fwd", "ext", "ext_inv"))
+    plan, plan_ext = domain.plan(device), domain.plan_ext(device)
+    return plan, plan, plan_ext, plan_ext
+
+
 def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
-                 msm: str = "b4", selfcheck: int = 0, checks: list | None = None) -> bytes:
+                 msm: str = "b4", selfcheck: int = 0, checks: list | None = None,
+                 ntt: str = "stockham") -> bytes:
     """A proof for the builder's witness.  `msm` picks the commitments' pair
     tables, "b4" or "b16" (`SRS.msm_tables`); both give the same bytes.
-    `selfcheck` 1 checks every commitment against the host's C MSM, 2 also
-    the GWC witnesses (`plonk/selfcheck.py`); each result goes to stderr
-    and, as a (label, ok) pair, to `checks` where given.  The bytes do not
-    change."""
+    `ntt` picks the transforms' kernel: "stockham" (K-b) or "mxu" (K11,
+    the matmul NTT, fused-quotient keys only: a split key with "mxu"
+    raises); both give the same bytes.  `selfcheck` 1 checks every
+    commitment against the host's C MSM, 2 also the GWC witnesses
+    (`plonk/selfcheck.py`); each result goes to stderr and, as a (label,
+    ok) pair, to `checks` where given.  The bytes do not change."""
     device = resolve(device)
     if selfcheck not in (0, 1, 2):
         raise ValueError(f"selfcheck level {selfcheck!r}: 0, 1 or 2")
+    if ntt not in ("stockham", "mxu"):
+        raise ValueError(f"unknown NTT {ntt!r}: 'stockham' or 'mxu'")
+    if ntt == "mxu" and pk.split:
+        raise ValueError("ntt='mxu' takes a fused-quotient key; this key is split "
+                         "(keygen(split=False) builds a fused one)")
     if pk.device != device or srs.device != device:
         raise ValueError(f"keys on {pk.device} and SRS on {srs.device}, proof asked for {device}")
     _phase = _Spans(device, "prove")
@@ -265,7 +285,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     domain = pk.vk.domain
     n, usable = domain.n, domain.usable_rows
     srs = srs.truncated(domain.k)
-    plan, plan_ext = domain.plan(device), domain.plan_ext(device)
+    plan_inv, plan_fwd, plan_coset, plan_quot = transform_plans(domain, device, ntt)
 
     def mont1(x: int) -> torch.Tensor:
         return L.to_device_mont(ctx, [x], device)  # (1, 8)
@@ -296,7 +316,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
 
     # ---- 1. advice columns -------------------------------------------
     raw6 = dev(np.stack([ctx.to_mont_np(col) for col in _advice_columns(builder, n, usable, rng)]))
-    coeffs6 = _coeff(raw6, plan)
+    coeffs6 = _coeff(raw6, plan_inv)
     advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
     instance_coeff = coeffs6[NUM_ADVICE]
     for pt in commit_many(coeffs6[:NUM_ADVICE], "advice"):
@@ -308,7 +328,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
 
     ap_host, sp_host = _lookup_columns(builder, n, usable, theta, rng)
     lk_raw = dev(np.concatenate([ap_host, sp_host]))
-    lk8 = _coeff(lk_raw, plan)
+    lk8 = _coeff(lk_raw, plan_inv)
     ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
     sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
     for pt in commit_many([c for l in LOOKUPS for c in (ap_coeff[l], sp_coeff[l])], "lookup"):
@@ -321,7 +341,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     active = torch.arange(n, device=device) < usable
 
     omega_dev = powers(ctx, domain.omega, n, device)
-    sigma_raw = _evals_batch(torch.stack(pk.sigma_coeff), plan)
+    sigma_raw = _evals_batch(torch.stack(pk.sigma_coeff), plan_fwd)
     # all 5 grand products (permutation + 4 lookups) batched; y is not drawn yet
     num, den = gp_fracs(raw6, sigma_raw, omega_dev, pk.raw_stack, lk_raw,
                         challenge_words(theta, beta, gamma, 0, pk.delta_powers), usable)
@@ -334,7 +354,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     blind = dev(ctx.to_mont_np([_rand_fr(rng) for _ in range(5 * (n - usable - 1))])
                 ).reshape(5, n - usable - 1, L.NW)
     z5 = _gp_finish(num_a, pre, suf, total_inv_m, blind, SCAN)
-    z5_coeff = _coeff(z5, plan)
+    z5_coeff = _coeff(z5, plan_inv)
     z_perm_coeff = z5_coeff[0]
     z_lookup_coeff = {l: z5_coeff[1 + i] for i, l in enumerate(LOOKUPS)}
     for pt in commit_many(z5_coeff, "gp"):
@@ -358,13 +378,13 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     del lk_raw, num_a, pre, suf, omega_dev, sigma_raw
     consts = challenge_words(theta, beta, gamma, y, pk.delta_powers)
     if pk.split:
-        h_coeff = split_quotient(witness_coeffs, pk, consts, plan, plan_ext)
+        h_coeff = split_quotient(witness_coeffs, pk, consts, plan_fwd, plan_coset)
     else:
         # one batched extended-coset NTT for every opened witness polynomial
-        ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_ext)
+        ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_coset)
         h_coeff = quotient_stacked(ext_stack, pk.ext_stack, pk.x_ext,
                                    pk.zh_inv_ext[:MAX_DEGREE], consts, pk.quotient_unscale,
-                                   plan_ext)
+                                   plan_quot)
         # the extended-domain arrays are not needed by the openings
         del ext_stack
     h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]

@@ -30,9 +30,12 @@ Protocol (newline-delimited JSON):
 Where it differs from the JAX daemon:
  - it reads no environment variable.  `setenv` and a request's `env` write
    the daemon's settings: DELAY_ENC_MSM (b4 | b16) picks the MSM base,
-   DELAY_ENC_SELFCHECK the host-oracle level (plonk/selfcheck.py); other
-   DELAY_ENC_* keys are echoed under "applied" and change nothing, other
-   keys are ignored.  A null value restores the command line's setting;
+   DELAY_ENC_NTT (mxu, anything else stockham) the transforms' kernel of
+   single proofs (batches keep K-b, as the JAX batch prover has no matmul
+   NTT), DELAY_ENC_SELFCHECK the host-oracle level (plonk/selfcheck.py);
+   other DELAY_ENC_* keys are echoed under "applied" and change nothing,
+   other keys are ignored.  A null value restores the command line's
+   setting (stockham for the NTT);
  - `batch:k:b` proves b builds of seed 42's statement under the
    `delay_enc:k` key.  The JAX daemon, like bench.py's batch, draws seeds
    100..100+b-1: four puzzles, each a circuit of its own, so under the first
@@ -84,6 +87,9 @@ def apply_env(settings: dict, env: dict, defaults: dict) -> dict:
         if key == "DELAY_ENC_MSM":
             settings["msm"] = defaults["msm"] if value is None else (
                 "b16" if str(value) == "b16" else "b4")
+        elif key == "DELAY_ENC_NTT":
+            settings["ntt"] = defaults["ntt"] if value is None else (
+                "mxu" if str(value) == "mxu" else "stockham")
         elif key == "DELAY_ENC_SELFCHECK":
             settings["selfcheck"] = defaults["selfcheck"] if value is None else \
                 selfcheck_level(value)
@@ -145,7 +151,7 @@ class Daemon:
         self.srs_dir = srs_dir
         self.key_dir = key_dir or srs_dir
         self.device = resolve(device)
-        self.defaults = {"msm": msm, "selfcheck": selfcheck}
+        self.defaults = {"msm": msm, "selfcheck": selfcheck, "ntt": "stockham"}
         self.settings = dict(self.defaults)
         self.stub_warm_s = stub_warm_s
         self.state_lock = threading.Lock()
@@ -259,11 +265,11 @@ class Daemon:
         with torch.cuda.stream(self._local.stream):
             yield
 
-    def _prepare(self, e: WarmEntry, msm: str) -> None:
+    def _prepare(self, e: WarmEntry, msm: str, ntt: str = "stockham") -> None:
         from ..plonk.pipeline import _prepare
 
         with self.prep_lock:
-            _prepare(e.srs, e.pk, self.device, msm)
+            _prepare(e.srs, e.pk, self.device, msm, ntt)
 
     # ------------------------------------------------------------ warming
     def _warm_one(self, e: WarmEntry) -> None:
@@ -295,7 +301,8 @@ class Daemon:
             e.pk, e.vk, e.key_path = W.get_keys(wl, e.builders[0], e.srs, e.k, self.key_dir,
                                                 msm=s["msm"], device=dev)
             _log(f"warm {e.key}: keys ready {time.time() - t0:.1f}s, warmup proof")
-            self._prepare(e, s["msm"])
+            single_ntt = "stockham" if e.workload == "batch" else s["ntt"]
+            self._prepare(e, s["msm"], single_ntt)
             with GLOBAL_METRICS.span("warm/proof", dev):
                 if e.workload == "batch":
                     proofs = create_proofs_batched(e.srs, e.pk, e.builders,
@@ -305,7 +312,7 @@ class Daemon:
                     checks = []
                     proofs = [create_proof(e.srs, e.pk, e.builders[0], np.random.default_rng(0),
                                            device=dev, msm=s["msm"], selfcheck=warmup_level(s),
-                                           checks=checks)]
+                                           checks=checks, ntt=s["ntt"])]
                     e.selfcheck = _tally(checks)
             ok = all(verify_proof(e.srs, e.vk, pf, instances=b.instance)
                      for pf, b in zip(proofs, e.builders))
@@ -334,7 +341,7 @@ class Daemon:
             from ..plonk import create_proof, verify_proof
             from ..utils.timers import GLOBAL_METRICS
 
-            self._prepare(e, s["msm"])
+            self._prepare(e, s["msm"], s["ntt"])
         for i in range(max(1, int(req.get("repeats", 2)))):
             if times and time.time() + 1.5 * times[-1] + 10 > t_end:
                 break
@@ -351,7 +358,7 @@ class Daemon:
                 t0 = time.time()
                 proof = create_proof(e.srs, e.pk, e.builders[0], np.random.default_rng(seed),
                                      device=self.device, msm=s["msm"], selfcheck=level,
-                                     checks=checks)
+                                     checks=checks, ntt=s["ntt"])
                 times.append(time.time() - t0)
             _send(conn, {"event": "repeat", "i": i + 1, "seconds": round(times[-1], 4),
                          "seed": seed, "phases_s": {nm: round(v, 4) for nm, v in spans.items()}})
@@ -360,7 +367,7 @@ class Daemon:
             verified = bool(verify_proof(e.srs, e.vk, proof, instances=e.builders[0].instance))
         done = {"event": "done", "best_s": round(min(times), 4), "repeats": len(times),
                 "verified": verified, "warmup_s": e.warmup_s, "vk_path": e.key_path,
-                "msm": s["msm"], "proof_hex": proof.hex()}
+                "msm": s["msm"], "ntt": s["ntt"], "proof_hex": proof.hex()}
         if level:
             done["selfcheck"] = _tally(checks)
         _send(conn, done)

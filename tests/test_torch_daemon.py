@@ -150,7 +150,7 @@ def test_request_env_is_the_request_alone(stub_daemon, client):
                   "env": {"DELAY_ENC_MSM": "b16", "PATH": "/pwned"}}, socket_path=stub_daemon)
     assert fin["event"] == "done" and fin["msm"] == "b16"
     st = client({"cmd": "ping"}, socket_path=stub_daemon)
-    assert st["settings"] == {"msm": "b4", "selfcheck": None}
+    assert st["settings"] == {"msm": "b4", "selfcheck": None, "ntt": "stockham"}
 
 
 def test_serves_warm_key_while_warming(tmp_path):
@@ -198,7 +198,7 @@ def test_selfcheck_setting(value, level):
 @pytest.mark.parametrize("setting,want", [(None, 1), (0, 0), (2, 2)])
 def test_warm_one_runs_selfcheck_wiring(monkeypatch, tmp_path, setting, want):
     """_warm_one's warmup create_proof gets the warmup level, the command
-    line's MSM base and the key directory's artifact."""
+    line's MSM base and NTT, and the key directory's artifact."""
     from delay_enc_tpu_torch import plonk as P
     from delay_enc_tpu_torch.runtime import daemon as D
     from delay_enc_tpu_torch.runtime import workloads as W
@@ -214,10 +214,10 @@ def test_warm_one_runs_selfcheck_wiring(monkeypatch, tmp_path, setting, want):
     monkeypatch.setattr(W, "save_proof_artifact",
                         lambda *a: seen.setdefault("artifact", a))
     monkeypatch.setattr(P.SRS, "setup", staticmethod(lambda k, device, cache_dir: "srs"))
-    monkeypatch.setattr(D.Daemon, "_prepare", lambda self, e, msm: None)
+    monkeypatch.setattr(D.Daemon, "_prepare", lambda self, e, msm, ntt: None)
 
-    def fake_create_proof(srs, pk, builder, rng, device, msm, selfcheck, checks):
-        seen.update(selfcheck=selfcheck, msm=msm)
+    def fake_create_proof(srs, pk, builder, rng, device, msm, selfcheck, checks, ntt):
+        seen.update(selfcheck=selfcheck, msm=msm, ntt=ntt)
         checks.append(("advice[0]", True))
         return b"proof"
 
@@ -227,7 +227,7 @@ def test_warm_one_runs_selfcheck_wiring(monkeypatch, tmp_path, setting, want):
     d = D.Daemon([], socket_path=str(tmp_path / "unused.sock"), srs_dir=str(tmp_path),
                  device="cpu", msm="b16", selfcheck=setting)
     d._warm_one(e)
-    assert seen["selfcheck"] == want and seen["msm"] == "b16"
+    assert seen["selfcheck"] == want and seen["msm"] == "b16" and seen["ntt"] == "stockham"
     assert e.selfcheck == {"ok": 1, "mismatch": [], "skipped": 0}
     assert seen["artifact"][:4] == (str(tmp_path), "pose_enc", 11, os.path.join(str(tmp_path), "kp"))
     assert e.warmup_s is not None and "warm/proof" in e.spans
@@ -294,7 +294,18 @@ def test_served_proof_b16_with_selfcheck(served):
     assert fin["event"] == "done" and fin["verified"] is True and fin["msm"] == "b16"
     assert bytes.fromhex(fin["proof_hex"]) == want
     assert fin["selfcheck"] == {"ok": 29 + 3, "mismatch": [], "skipped": 0}
-    assert d.settings == {"msm": "b4", "selfcheck": None}
+    assert d.settings == {"msm": "b4", "selfcheck": None, "ntt": "stockham"}
+
+
+def test_served_proof_mxu(served):
+    """DELAY_ENC_NTT=mxu in a request's env sends that proof's transforms
+    through the matmul NTT: the same golden bytes; the settings stay."""
+    d, k, want, _, _ = served
+    fin = _job(d, {"cmd": "prove", "workload": "k7", "k": k, "seed": SEED, "repeats": 1,
+                   "env": {"DELAY_ENC_NTT": "mxu"}})[-1]
+    assert fin["event"] == "done" and fin["verified"] is True and fin["ntt"] == "mxu"
+    assert bytes.fromhex(fin["proof_hex"]) == want
+    assert d.settings["ntt"] == "stockham"
 
 
 def test_served_batch_is_jax_batch(served):
