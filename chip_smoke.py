@@ -1241,6 +1241,58 @@ def mxu_fold_plan(k: int, kind: str, dev):
     return Domain(k if kind in ("fwd", "inv") else k - EXT_LOG).mxu_plan(kind, dev)
 
 
+def mxu_limit_check(dev) -> str:
+    """The product at its accumulators' limit on the card: every entry of a
+    64 x 1024 fixed operand and of 1024 x 8 data p - 1 (n1 = 1024), so every
+    column holds its most plane products, without T and with T all p - 1;
+    against the plain version and Python integers."""
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.ops import ntt_mxu as X
+
+    p, r_ = L.FR_CTX.p, 1 << 256
+    kk, m, q = X.MAX_SIDE, X.TILE_M, X.TILE_N
+    full = L.to_tensor(L.ints_to_words_np([p - 1]), dev)
+    s = X.StepShape(m, q, kk, kk * q, q, 1, kk)
+    wf = X.frag_fixed(full.expand(m, kk, 8).contiguous())
+    df = X.split(full.expand(1, kk * q, 8).contiguous(), s)
+    v = kk * (p - 1) ** 2 * pow(r_, -1, p) % p
+    t_full = full.expand(m * q, 8).contiguous()
+    for t, want in ((None, v), (t_full, v * (p - 1) * pow(r_, -1, p) % p)):
+        out = X.product(wf, df, t, s, torch.empty((1, m * q, 8), dtype=torch.int32, device=dev))
+        got = L.words_to_ints_np(L.to_numpy(out[0]))
+        if set(got) != {want} or not torch.equal(out, X.product_plain(wf, df, t, s)):
+            raise AssertionError(f"ntt_mxu_product at the accumulators' limit (T {t is not None}) "
+                                 f"disagrees")
+    return f"{m} x {q} elements of K = {kk}, every entry p - 1, without and with T: bit-exact"
+
+
+def mxu_sass_counts(build: str) -> dict:
+    """Instructions of mxu_product_kernel in the SASS of build/libntt_mxu.so
+    (cuobjdump -sass): warpgroup MMAs (*GMMA) and mma.sync ones (IMMA, HMMA),
+    with the opcodes seen."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", os.path.join(build, "libntt_mxu.so")],
+                         capture_output=True, text=True, check=True).stdout
+    counts = {"warpgroup_mma": 0, "mma_sync": 0, "opcodes": set()}
+    fn = ""
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            continue
+        if "mxu_product_kernel" not in fn:
+            continue
+        for op in re.findall(r"\b([A-Z]*GMMA)(\.[\w.]+)?", line):
+            counts["warpgroup_mma"] += 1
+            counts["opcodes"].add("".join(op))
+        if re.search(r"\b[IH]MMA\b", line):
+            counts["mma_sync"] += 1
+    counts["opcodes"] = sorted(counts["opcodes"])
+    return counts
+
+
 def phase1_mxu(rep: Report, dev, rand_field, carry_heavy):
     """K11, the matmul NTT (csrc/ntt_mxu.cu).  The product (with its fused
     reduction and product by T) and the split alone at the (6, 2^16)
@@ -1253,6 +1305,7 @@ def phase1_mxu(rep: Report, dev, rand_field, carry_heavy):
     and forward, the (19, 2^16) coset transform to 2^19, the (1, 2^19)
     quotient inverse) and at (1, 2^20) (n1 = n2 = 1024); the reduction alone
     on the adversarial columns (off the path: the product runs it)."""
+    from delay_enc_tpu_torch.ops import _cuda
     from delay_enc_tpu_torch.ops import limbs as L
     from delay_enc_tpu_torch.ops import ntt as N
     from delay_enc_tpu_torch.ops import ntt_mxu as X
@@ -1317,6 +1370,14 @@ def phase1_mxu(rep: Report, dev, rand_field, carry_heavy):
             device_ms=device_ms(splits, 20, "mxu_split_kernel"),
             note=" (the two steps of the (6, 2^16) forward: A, and C read transposed)")
     del x6, d1, d3, c, y
+
+    print(f"phase 1 ntt_mxu_product at the accumulators' limit: {mxu_limit_check(dev)}",
+          flush=True)
+    sass = mxu_sass_counts(_cuda.BUILD)
+    print(f"phase 1 ntt_mxu_product resources: {json.dumps(X.product_attrs())}; SASS of "
+          f"mxu_product_kernel: {json.dumps(sass)}", flush=True)
+    if sass["warpgroup_mma"] == 0 or sass["mma_sync"] != 0:
+        raise AssertionError("mxu_product_kernel is not built from warpgroup MMAs alone")
 
     # every fold at k = 4..10, rows holding 0, 1, p - 1 and the carry-heavy
     # values, full rows and rows of n/8 elements, against the four-step plain
@@ -2408,7 +2469,7 @@ def main() -> int:
             for line in f:
                 if "Compiling entry" in line:
                     log(f"  {name}: {line.split(chr(39))[1]}")
-                elif "registers" in line or "spill" in line:
+                elif any(w in line for w in ("registers", "spill", "arning", "Performance Loss")):
                     log(f"  {name}:   {line.strip()}")
 
     k7 = golden_k7(dev)

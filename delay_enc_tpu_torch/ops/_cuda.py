@@ -54,6 +54,7 @@ _SIGNATURES = {
     "shard_butterfly": ("shard", [_P, _P, _P, _P, _U, _I, _I, _P]),
     "ntt_mxu_split": ("ntt_mxu", [_P, _P, _U, _U, _U, _U, _U, _U, _U, _U, _U, _P]),
     "ntt_mxu_product": ("ntt_mxu", [_P, _P, _P, _P, _U, _U, _U, _U, _U, _U, _U, _P]),
+    "ntt_mxu_product_attrs": ("ntt_mxu", [_P]),
     "ntt_mxu_reduce": ("ntt_mxu", [_P, _P, _U, _P]),
 }
 

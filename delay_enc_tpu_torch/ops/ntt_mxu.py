@@ -12,16 +12,18 @@ same reduced words, so the results equal `ops.ntt.stockham`'s.
 
 On CUDA tensors `ntt_mxu_stack` launches kernel K11 (`csrc/ntt_mxu.cu`)
 four times for a few polynomials at a time: for each step, `ntt_mxu_split`
-cuts the data into 32 byte planes in the tensor cores' fragment order, and
-`ntt_mxu_product` multiplies the plan's fixed planes by them (mma over u8),
-carries each element's 63 byte columns, Montgomery-reduces them and, in
-the first step, multiplies by T.  The plan's fixed planes are built on the
-device, in that order (`frag_fixed`).
+cuts the data into 32 byte planes in the order the product's shared memory
+holds them, and `ntt_mxu_product` brings the plan's fixed planes and those
+data planes in by bulk copies, multiplies them with wgmma over u8 (one
+fixed plane by a run of data planes at a time), carries each element's 63
+byte columns, Montgomery-reduces them and, in the first step, multiplies
+by T.  The plan's fixed planes are built on the device,
+in the order the kernel's shared memory holds them (`frag_fixed`).
 
 Two plain versions stand beside the kernel.  `ntt_mxu_plain` is the
 four-step in field arithmetic (`ops.limbs` products and sums).
 `ntt_mxu_cols_plain`, which CPU tensors take, follows the kernel: the same
-fragment layouts (`split_plain`), the plane products summed into byte
+layouts (`frag_fixed`, `split_plain`), the plane products summed into byte
 columns (`columns_plain`, exact float64 matmuls) and the kernel's
 reduction (`reduce_columns_plain`), so the kernel's layouts and exactness
 can be tested without a card.
@@ -29,6 +31,7 @@ can be tested without a card.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -51,7 +54,8 @@ K_REDUCE = _cuda.kernel("ntt_mxu_reduce", "ntt_mxu_reduce",
 
 PLANES = 32  # byte planes of an element
 COLS = 2 * PLANES - 1  # byte columns of a product of two elements
-TILE_M, TILE_N, TILE_K = 16, 8, 32  # one mma.m16n8k32 (csrc/ntt_mxu_row.cuh)
+HALF_COLS, HALF_WORDS = 32, 9  # the product's low half of the columns; a carried half's words
+TILE_M, TILE_N, TILE_K = 64, 8, 32  # an output tile, and a K tile (csrc/ntt_mxu_row.cuh)
 MAX_SIDE = 1024  # n1 and n2; a column sums at most 32 * 1024 * 255^2 < 2^31
 MU = (1 << 270) // L.FR_CTX.p  # the quotient estimate's constant (csrc: mxu::MU)
 CHUNK_ELEMS = 1 << 21  # elements of the polynomials one launch set takes
@@ -67,8 +71,8 @@ class MXUPlan:
     k: int
     n1: int
     n2: int
-    w1_frag: torch.Tensor  # uint8 (n1/16, n1/32, 32, 32, 16): W1's planes, fragment order
-    w2_frag: torch.Tensor  # uint8 (n2/16, n2/32, 32, 32, 16): W2's
+    w1_frag: torch.Tensor  # uint8 (n1/64, n1/32, 32, 2048): W1's planes (`frag_fixed`)
+    w2_frag: torch.Tensor  # uint8 (n2/64, n2/32, 32, 2048): W2's
     t: torch.Tensor  # (n1, n2, 8) Montgomery words of T
 
     @property
@@ -134,39 +138,46 @@ def _planes(words: torch.Tensor) -> torch.Tensor:
 
 def frag_fixed(words: torch.Tensor) -> torch.Tensor:
     """(m, K, 8) words of a fixed matrix -> its byte planes in the order the
-    product reads them, (m/16, K/32, 32 planes, 32 lanes, 16 bytes), rows
-    and K padded with zeros: lane g*4+t, register r = 2s + h, byte q holds
-    row 16 I + 8h + g, K 32 Kt + 16s + 4t + q (csrc/ntt_mxu_row.cuh a_pos)."""
+    product's shared memory holds them, (m/64, K/32, 32 planes, 2048 bytes),
+    rows and K padded with zeros: a plane's tile K-major in core matrices of
+    8 rows x 16 bytes, byte 256 g + 128 h + 16 r + c holding row 64 I + 8 g
+    + r, K 32 Kt + 16 h + c (csrc/ntt_mxu_row.cuh plane_pos)."""
     m, kk = words.shape[0], words.shape[1]
     it, kt = _ceil(m, TILE_M), _ceil(kk, TILE_K)
     b = _planes(words)
     if (it * TILE_M, kt * TILE_K) != (m, kk):
         b = torch.nn.functional.pad(b, (0, 0, 0, kt * TILE_K - kk, 0, it * TILE_M - m))
-    b = b.reshape(it, 2, 8, kt, 2, 4, 4, PLANES)  # I h g Kt s t q a
-    return b.permute(0, 3, 7, 2, 5, 4, 1, 6).reshape(it, kt, PLANES, 32, 16).contiguous()
+    b = b.reshape(it, 8, 8, kt, 2, 16, PLANES)  # I g r Kt h c a
+    return b.permute(0, 3, 6, 1, 4, 2, 5).reshape(it, kt, PLANES, TILE_M * TILE_K).contiguous()
+
+
+def _fixed_dims(frag: torch.Tensor) -> torch.Tensor:
+    """A fixed operand as (I, Kt, a, g, h, r, c)."""
+    return frag.reshape(frag.shape[0], frag.shape[1], PLANES, 8, 2, 8, 16)
 
 
 def fixed_words(frag: torch.Tensor, m: int, kk: int) -> torch.Tensor:
     """The inverse of `frag_fixed`: (m, K, 8) words."""
     it, kt = frag.shape[0], frag.shape[1]
-    b = frag.reshape(it, kt, PLANES, 8, 4, 2, 2, 4).permute(0, 6, 3, 1, 5, 4, 7, 2)
+    b = _fixed_dims(frag).permute(0, 3, 5, 1, 4, 6, 2)
     b = b.reshape(it * TILE_M, kt * TILE_K, PLANES)[:m, :kk]
     return b.contiguous().view(torch.int32)
 
 
 def fixed_planes(frag: torch.Tensor) -> torch.Tensor:
-    """(32, rows, K) uint8 planes of a fragment-order fixed matrix (padded)."""
+    """(32, rows, K) uint8 planes of a fixed operand in the product's order
+    (padded)."""
     it, kt = frag.shape[0], frag.shape[1]
-    b = frag.reshape(it, kt, PLANES, 8, 4, 2, 2, 4).permute(2, 0, 6, 3, 1, 5, 4, 7)
+    b = _fixed_dims(frag).permute(2, 0, 3, 5, 1, 4, 6)
     return b.reshape(PLANES, it * TILE_M, kt * TILE_K)
 
 
 def data_planes(frag: torch.Tensor) -> torch.Tensor:
-    """(batch, col tiles, K tiles, 32, 32 lanes, 8 bytes) data fragments ->
-    (batch, 32, cols, K) uint8 planes (padded): lane g*4+t, register r, byte
-    q hold column 8 J + g, K 32 Kt + 16r + 4t + q (b_pos)."""
+    """(batch, col tiles, K tiles, 32, 256) data planes -> (batch, 32, cols,
+    K) uint8 planes (padded): byte 128 h + 16 n + c of a plane holds column
+    8 J + n, K 32 Kt + 16 h + c (plane_pos)."""
     batch, jt, kt = frag.shape[:3]
-    b = frag.reshape(batch, jt, kt, PLANES, 8, 4, 2, 4).permute(0, 3, 1, 4, 2, 6, 5, 7)
+    b = frag.reshape(batch, jt, kt, PLANES, 2, 8, 16).permute(0, 3, 1, 5, 2, 4, 6)
     return b.reshape(batch, PLANES, jt * TILE_N, kt * TILE_K)
 
 
@@ -211,7 +222,8 @@ def steps(plan: MXUPlan, n_in: int) -> tuple:
 
 def split_plain(x: torch.Tensor, s: StepShape) -> torch.Tensor:
     """`ntt_mxu_split` in plain PyTorch: (batch, n_in, 8) source rows -> the
-    data planes in fragment order (batch, col tiles, K tiles, 32, 32, 8)."""
+    data planes in the product's order (batch, col tiles, K tiles, 32, 256):
+    each plane's tile K-major, two halves of K of 8 columns x 16 bytes."""
     batch = x.shape[0]
     cols, kk = s.col_tiles * TILE_N, s.ktiles * TILE_K
     col = torch.arange(cols, device=x.device)[:, None]
@@ -220,9 +232,9 @@ def split_plain(x: torch.Tensor, s: StepShape) -> torch.Tensor:
     inside = (col < s.cols) & (k < s.kdim) & (idx < s.n_in)
     vals = x[:, idx.clamp(max=x.shape[1] - 1)]  # (batch, cols, K, 8)
     vals = torch.where(inside[None, :, :, None], vals, torch.zeros_like(vals))
-    b = _planes(vals).reshape(batch, s.col_tiles, 8, s.ktiles, 2, 4, 4, PLANES)  # J g Kt r t q b
-    return b.permute(0, 1, 3, 7, 2, 5, 4, 6).reshape(
-        batch, s.col_tiles, s.ktiles, PLANES, 32, 8).contiguous()
+    b = _planes(vals).reshape(batch, s.col_tiles, 8, s.ktiles, 2, 16, PLANES)  # J n Kt h c b
+    return b.permute(0, 1, 3, 6, 4, 2, 5).reshape(
+        batch, s.col_tiles, s.ktiles, PLANES, TILE_K * TILE_N).contiguous()
 
 
 def columns_plain(w_frag: torch.Tensor, d_frag: torch.Tensor, s: StepShape) -> torch.Tensor:
@@ -336,8 +348,8 @@ def ntt_mxu_plain(plan: MXUPlan, stack: torch.Tensor) -> torch.Tensor:
 def split(x: torch.Tensor, s: StepShape) -> torch.Tensor:
     """One launch of `ntt_mxu_split` over (batch, rows, 8) source rows."""
     batch = x.shape[0]
-    out = torch.empty((batch, s.col_tiles, s.ktiles, PLANES, 32, 8), dtype=torch.uint8,
-                      device=x.device)
+    out = torch.empty((batch, s.col_tiles, s.ktiles, PLANES, TILE_K * TILE_N),
+                      dtype=torch.uint8, device=x.device)
     K_SPLIT(x.data_ptr(), out.data_ptr(), batch, s.n_in, x.shape[1], s.k_stride, s.c_stride,
             s.cols, s.kdim, s.col_tiles, s.ktiles, _cuda.stream())
     return out
@@ -353,6 +365,19 @@ def product(w_frag: torch.Tensor, d_frag: torch.Tensor, t: torch.Tensor | None,
               s.rows, s.cols, s.row_tiles, s.col_tiles, w_frag.shape[1], s.ktiles,
               _cuda.stream())
     return out
+
+
+def product_attrs() -> dict:
+    """The product kernel's resources as the card's runtime reports them
+    (no launch): registers and spilled bytes a thread, static and dynamic
+    shared memory a block, blocks an SM, threads a block.  The registers are
+    those of the launch; the consumer warpgroups raise theirs with
+    setmaxnreg (csrc/ntt_mxu.cu CONSUMER_REGS)."""
+    out = (ctypes.c_int * 6)()
+    _cuda.query("ntt_mxu_product_attrs", ctypes.addressof(out))
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "blocks_per_sm",
+            "threads")
+    return dict(zip(keys, out))
 
 
 def reduce_columns(cols: torch.Tensor) -> torch.Tensor:

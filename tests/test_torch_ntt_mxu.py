@@ -1,9 +1,11 @@
 """The matmul NTT (K11, delay_enc_tpu_torch/ops/ntt_mxu.py) on the CPU against
 the JAX package's ops/ntt_mxu.py: the plans' tables, the plain transforms
 with every fold, the kernel's reduction on adversarial columns (in plain
-PyTorch and as csrc/ntt_mxu_row.cuh built by the host C++ compiler), the
-kernel's fragment layouts, and create_proof(ntt="mxu") of the k=7 test
-circuit against the JAX golden's bytes."""
+PyTorch and as csrc/ntt_mxu_row.cuh built by the host C++ compiler, with
+the carry of each half of the columns), the kernel's operand layouts, the
+runs of its warpgroup MMAs (csrc/ntt_mxu_wgmma.cuh), and
+create_proof(ntt="mxu") of the k=7 test circuit against the JAX golden's
+bytes."""
 
 import os
 import shutil
@@ -80,10 +82,33 @@ def test_plan_tables_match_jax(k, fold):
 
 
 def test_plan_words_and_fragments_round_trip():
+    """The plan's fixed operands in the product's order, (row tiles of 64,
+    K tiles of 32, 32 planes, 2048 bytes), padded with zeros, and back to
+    words; the data planes of a step back to the matrix
+    they were cut from."""
     tp = X.make_plan(CTX, 7, JFR.root_of_unity(7), "cpu", in_scale=ZETA)
     assert torch.equal(X.frag_fixed(tp.w1), tp.w1_frag)
     assert torch.equal(X.frag_fixed(tp.w2), tp.w2_frag)
     assert tp.w1.shape == (tp.n1, tp.n1, 8) and tp.w2.shape == (tp.n2, tp.n2, 8)
+    assert tp.w1_frag.shape == (1, 1, 32, 2048)  # n1 = 8: one tile, padded
+    assert tp.w2_frag.shape == (1, 1, 32, 2048)
+    rng = np.random.default_rng(4)
+    w = _words(_rand_mont(rng, 96 * 80)).reshape(96, 80, 8)
+    frag = X.frag_fixed(w)
+    assert frag.shape == (2, 3, 32, 2048)
+    assert torch.equal(X.fixed_words(frag, 96, 80), w)
+    planes = X.fixed_planes(frag)
+    assert torch.equal(planes[:, :96, :80], w.view(torch.uint8).permute(2, 0, 1))
+    assert not planes[:, 96:].any() and not planes[:, :, 80:].any()
+    # a data matrix (K = 40, q = 12) read with strides: column j, row k at 12 k + j
+    x = _words(_rand_mont(rng, 2 * 480)).reshape(2, 480, 8)
+    s = X.StepShape(1, 12, 40, 480, 12, 1, 40)
+    d = X.split_plain(x, s)
+    assert d.shape == (2, 2, 2, 32, 256)
+    got = X.data_planes(d)  # (batch, 32, 16, 64)
+    want = x.reshape(2, 40, 12, 8).view(torch.uint8).permute(0, 3, 2, 1)
+    assert torch.equal(got[:, :, :12, :40], want)
+    assert not got[:, :, 12:].any() and not got[:, :, :, 40:].any()
 
 
 def test_k21_raises():
@@ -211,47 +236,55 @@ def test_reduce_columns_plain_adversarial():
 
 def test_columns_at_the_bound():
     """Every entry p - 1 at n1 = 1024: the largest columns a step makes stay
-    below 2^31 (the s32 accumulators), and they reduce to
-    1024 (p - 1)^2 / 2^256 mod p."""
+    below 2^31 (the s32 accumulators) in a whole 64-row tile, and they
+    reduce to 1024 (p - 1)^2 / 2^256 mod p."""
     assert 32 * X.MAX_SIDE * 255 ** 2 < 1 << 31
     kk = X.MAX_SIDE
     full = torch.from_numpy(L.ints_to_words_np([P - 1]).view(np.int32).copy())
     w = full.expand(X.TILE_M, kk, 8)
-    d = full.expand(1, kk, 8)  # one source row of K elements: column 0
-    s = X.StepShape(X.TILE_M, 1, kk, kk, 1, kk, kk)
+    d = full.expand(1, kk * X.TILE_N, 8)  # one source row: column j, row k at k * 8 + j
+    s = X.StepShape(X.TILE_M, X.TILE_N, kk, kk * X.TILE_N, X.TILE_N, 1, kk)
     cols = X.columns_plain(X.frag_fixed(w), X.split_plain(d.contiguous(), s), s)
+    assert cols.shape == (1, X.TILE_M, X.TILE_N, X.COLS)
     assert cols.max().item() < (1 << 31)
-    assert _value(cols[0, 0, 0].tolist()) == kk * (P - 1) ** 2
-    got = L.words_to_ints_np(L.to_numpy(X.reduce_columns_plain(cols)))
-    assert got == [kk * (P - 1) ** 2 * pow(R, -1, P) % P] * X.TILE_M
+    assert all(_value(c) == kk * (P - 1) ** 2 for c in cols.reshape(-1, X.COLS).tolist())
+    got = L.words_to_ints_np(L.to_numpy(X.reduce_columns_plain(cols.reshape(-1, X.COLS))))
+    assert got == [kk * (P - 1) ** 2 * pow(R, -1, P) % P] * (X.TILE_M * X.TILE_N)
 
 
 HARNESS = r"""
 #include <cstdio>
 #include "ntt_mxu_row.cuh"
-// stdin: "0" then 63 columns -> the reduced words; "1" -> the layouts
+// stdin: "0" then 63 columns -> the reduced words; "2" then 63 columns ->
+// the two carried halves (9 words each); "1" -> the layouts
 int main() {
   int op;
   while (scanf("%d", &op) == 1) {
-    if (op == 0) {
-      uint32_t c[mxu::COLS], r[8];
+    if (op == 0 || op == 2) {
+      uint32_t c[mxu::COLS], r[8], lo[mxu::HALF_WORDS], hi[mxu::HALF_WORDS];
       for (int i = 0; i < mxu::COLS; i++) scanf("%u", &c[i]);
-      mxu::reduce_columns(r, [&](int i) { return c[i]; });
-      for (int i = 0; i < 8; i++) printf("%u ", r[i]);
+      if (op == 0) {
+        mxu::reduce_columns(r, [&](int i) { return c[i]; });
+        for (int i = 0; i < 8; i++) printf("%u ", r[i]);
+      } else {
+        mxu::carry_half<0>(lo, [&](int i) { return c[i]; });
+        mxu::carry_half<1>(hi, [&](int i) { return c[mxu::HALF_COLS + i]; });
+        for (int i = 0; i < mxu::HALF_WORDS; i++) printf("%u ", lo[i]);
+        for (int i = 0; i < mxu::HALF_WORDS; i++) printf("%u ", hi[i]);
+      }
     } else {
-      for (uint32_t lane = 0; lane < 32; lane++)
-        for (uint32_t reg = 0; reg < 4; reg++) {
-          for (uint32_t q = 0; q < 4; q++) {
-            uint32_t row, k, col, kb;
-            mxu::a_pos(lane, reg, q, row, k);
-            printf("%u %u ", row, k);
-            if (reg < 2) {
-              mxu::b_pos(lane, reg, q, col, kb);
-              printf("%u %u ", col, kb);
-            }
+      for (uint32_t o = 0; o < mxu::PLANE_A_BYTES; o++) {
+        uint32_t row, k;
+        mxu::plane_pos(o, row, k);
+        printf("%u %u ", row, k);
+      }
+      for (uint32_t warp = 0; warp < 4; warp++)
+        for (uint32_t lane = 0; lane < 32; lane++)
+          for (uint32_t reg = 0; reg < 4; reg++) {
+            uint32_t row, col;
+            mxu::acc_elem(warp, lane, reg, row, col);
+            printf("%u %u ", row, col);
           }
-          printf("%u ", mxu::acc_elem(lane, reg));
-        }
     }
     printf("\n");
   }
@@ -285,43 +318,125 @@ def harness(request, tmp_path_factory):
 
 def test_header_reduction_adversarial(harness):
     """The kernel's own reduction on the adversarial list, as canonical and
-    as spread columns."""
+    as spread columns; and its carry of each half of the columns (the two
+    warpgroups' epilogue) against Python integers, on those columns and on
+    columns at 2^31 - 1 (the ninth word of a half stays below 2^25)."""
     vals = _adversarial()
-    for cols in (_columns(vals), _spread(vals, np.random.default_rng(2))):
-        got = harness(["0 " + " ".join(str(int(c)) for c in row) for row in cols])
+    rng = np.random.default_rng(2)
+    full = np.full((1, X.COLS), (1 << 31) - 1, dtype=np.int64)
+    for cols in (_columns(vals), _spread(vals, rng), full):
+        lines = [" ".join(str(int(c)) for c in row) for row in cols]
+        halves = harness(["2 " + line for line in lines])
+        for row, got in zip(cols, halves):
+            lo, hi = got[: X.HALF_WORDS], got[X.HALF_WORDS:]
+            assert _value(row[: X.HALF_COLS]) == sum(w << (32 * i) for i, w in enumerate(lo))
+            assert _value(row[X.HALF_COLS:]) == sum(w << (32 * i) for i, w in enumerate(hi))
+            assert lo[-1] < 1 << 25 and hi[-1] < 1 << 25
+        if cols is full:
+            continue  # V above 2^518: not an input of the reduction
+        got = harness(["0 " + line for line in lines])
         want = [v * pow(R, -1, P) % P for v in vals]
         assert [sum(w << (32 * i) for i, w in enumerate(g)) for g in got] == want
 
 
 def test_header_layouts_match_the_fragments(harness):
-    """a_pos, b_pos and acc_elem against the Python layouts: a matrix whose
+    """plane_pos and acc_elem against the Python layouts: a matrix whose
     entry encodes its (row, k) goes through frag_fixed and split_plain, and
-    each lane's bytes name the place the header says they hold."""
+    each byte of a plane's tile names the place the header says it holds
+    (the data's 256 bytes are the first 8 rows of the fixed operand's
+    2048); the accumulator registers cover an 8-column slot's 64 x 8 tile
+    once."""
     (table,) = harness(["1"])
-    m, kk = X.TILE_M, X.TILE_K
+    m, kk, nn = X.TILE_M, X.TILE_K, X.TILE_N
     ri, ki = torch.meshgrid(torch.arange(m), torch.arange(kk), indexing="ij")
     enc = torch.zeros(m, kk, 8, dtype=torch.int32)
-    enc[..., 0] = (ri * 64 + ki).to(torch.int32)  # byte 0: 6 bits of k, 4 of the row
-    fa = X.frag_fixed(enc)  # (1, 1, 32, 32, 16)
-    ca, ka = torch.meshgrid(torch.arange(X.TILE_N), torch.arange(kk), indexing="ij")
-    encb = torch.zeros(1, X.TILE_N * kk, 8, dtype=torch.int32)
+    enc[..., 0] = (ri * 64 + ki).to(torch.int32)  # bytes 0-1: 6 bits of k, 6 of the row
+    fa = X.frag_fixed(enc)
+    assert fa.shape == (1, 1, 32, m * kk)
+    ca, ka = torch.meshgrid(torch.arange(nn), torch.arange(kk), indexing="ij")
+    encb = torch.zeros(1, nn * kk, 8, dtype=torch.int32)
     encb[0, :, 0] = (ca * 64 + ka).reshape(-1).to(torch.int32)  # element (k, col) at col*K + k
-    s = X.StepShape(1, X.TILE_N, kk, X.TILE_N * kk, 1, kk, kk)
-    fb = X.split_plain(encb, s)  # (1, 1, 1, 32, 32, 8)
+    s = X.StepShape(1, nn, kk, nn * kk, 1, kk, kk)
+    fb = X.split_plain(encb, s)
+    assert fb.shape == (1, 1, 1, 32, nn * kk)
     it = iter(table)
-    for lane in range(32):
-        for reg in range(4):
-            for q in range(4):
-                row, k = next(it), next(it)
-                v = int(fa[0, 0, 0, lane, 4 * reg + q]) | (int(fa[0, 0, 1, lane, 4 * reg + q]) << 8)
-                assert (v >> 6, v & 63) == (row, k)
-                if reg < 2:
-                    col, kb = next(it), next(it)
-                    vb = int(fb[0, 0, 0, 0, lane, 4 * reg + q]) | \
-                        (int(fb[0, 0, 0, 1, lane, 4 * reg + q]) << 8)
-                    assert (vb >> 6, vb & 63) == (col, kb)
-            e = next(it)
-            assert e == ((lane >> 2) + 8 * (reg >> 1)) * X.TILE_N + 2 * (lane & 3) + (reg & 1)
+    for o in range(m * kk):
+        row, k = next(it), next(it)
+        v = int(fa[0, 0, 0, o]) | (int(fa[0, 0, 1, o]) << 8)
+        assert (v >> 6, v & 63) == (row, k)
+        if o < nn * kk:
+            vb = int(fb[0, 0, 0, 0, o]) | (int(fb[0, 0, 0, 1, o]) << 8)
+            assert (vb >> 6, vb & 63) == (row, k)
+    seen = set()
+    for warp in range(4):
+        for lane in range(32):
+            for reg in range(4):
+                row, col = next(it), next(it)
+                assert (row, col) == (16 * warp + (lane >> 2) + 8 * (reg >> 1),
+                                      2 * (lane & 3) + (reg & 1))
+                seen.add((row, col))
+    assert seen == {(r, c) for r in range(m) for c in range(nn)}
+
+
+def _wgmma_runs():
+    """The product's wgmmas (csrc/ntt_mxu.cu mma_plane): for each half H and
+    fixed plane a, the data planes b with a + b in the half, rounded to a
+    width u8 wgmma takes (one more slot, over a zero tile, for an odd count
+    from 5 on); every run starts at accumulator slot 0.  (H, a) -> the
+    data plane of each slot (None: the zero tile); slot s is column 31 - s
+    of the low half (planes descending), 32 + s of the high one."""
+    out = {}
+    for h in (0, 1):
+        for a in range(X.PLANES):
+            n = X.PLANES - a if h == 0 else a
+            if n == 0:
+                continue
+            lw = n if n <= 4 or n % 2 == 0 else n + 1
+            first = X.PLANES - 1 - a if h == 0 else X.PLANES - a
+            step = -1 if h == 0 else 1
+            out[h, a] = [first + step * s if s < n else None for s in range(lw)]
+    return out
+
+
+def test_wgmma_runs_cover_each_pair_once():
+    """Every plane pair (a, b) lands once in the slot of column a + b of its
+    half, the extra slots multiply the zero tile, every run starts at slot
+    0 and fits the 32 slots, and every width is one u8 wgmma takes."""
+    allowed = {8, 16, 24, 32} | set(range(48, 257, 16))
+    seen = {}
+    for (h, a), run in _wgmma_runs().items():
+        assert 8 * len(run) in allowed and len(run) <= X.HALF_COLS
+        for s, b in enumerate(run):
+            if b is None:
+                continue
+            assert 0 <= b < X.PLANES
+            assert a + b == (X.HALF_COLS - 1 - s if h == 0 else X.HALF_COLS + s)
+            seen[a, b] = seen.get((a, b), 0) + 1
+    assert seen == {(a, b): 1 for a in range(X.PLANES) for b in range(X.PLANES)}
+    assert sum(len(run) for run in _wgmma_runs().values()) == 1052
+
+
+def test_wgmma_header_follows_one_pattern():
+    """csrc/ntt_mxu_wgmma.cuh: each width's asm names its 4L accumulator
+    registers in order, then the two descriptors and the scale, and binds
+    the L slots in order; it has every width the product issues."""
+    import re
+
+    text = open(os.path.join(CSRC, "ntt_mxu_wgmma.cuh")).read()
+    bodies = re.findall(r"wgmma_ss<(\d+)>\(uint32_t \(\*d\)\[4\], uint64_t a, uint64_t b\) \{"
+                        r"(.*?)\n\}", text, re.S)
+    widths = {int(lw) for lw, _ in bodies}
+    assert widths == {len(run) for run in _wgmma_runs().values()}
+    for lw, body in bodies:
+        n = 4 * int(lw)
+        asm = "".join(re.findall(r'"([^"]*)"', body.split(":")[0]))
+        assert f"setp.ne.b32 p, %{n + 2}, 0;" in asm
+        regs = re.search(r"m64n(\d+)k32\.s32\.u8\.u8 \{([^}]*)\}, %(\d+), %(\d+), p;", asm)
+        assert regs and int(regs.group(1)) == 8 * int(lw)
+        assert [r.strip() for r in regs.group(2).split(",")] == [f"%{i}" for i in range(n)]
+        assert (int(regs.group(3)), int(regs.group(4))) == (n, n + 1)
+        assert re.findall(r"MXU_D4\((\d+)\)", body) == [str(i) for i in range(int(lw))]
+        assert '"l"(a), "l"(b), "r"(1)' in body
 
 
 # ----------------------------------------------------------------- proofs
