@@ -30,9 +30,11 @@ Phases, one line each (stderr carries detail):
     2^21 inverse with the unscale table; K5, K6 and K7 over an instance axis
     (B = 4 at the path's shapes, each instance with its own challenges, and
     at small ragged sizes against the CPU) and against their single
-    launches; K12's cross-shard butterfly on a k=16 shard over 4 shards
-    (L = 2^14) in both positions, with a twiddle row, one constant and no
-    table; K11 (the matmul NTT): its product and split at the (6, 2^16)
+    launches; K12's two kernels, the cross-shard stages and the reshuffle,
+    forward and inverse, at delay_enc k=16 over 4 shards (L = 2^14) with all
+    shards on the card and with each single shard and some pairs as the
+    card's own, at D = 2 and D = 8, and at k=20 over 4 (L = 2^18); K11 (the
+    matmul NTT): its product and split at the (6, 2^16)
     forward against their plain versions with torch._int_mm over the same
     plane products as the library's time, every fold at k = 4..10 against
     the four-step plain version, and against K-b at the proof's transforms
@@ -94,14 +96,15 @@ Phases, one line each (stderr carries detail):
     a card with 4 cards or more (`make_mesh(4)`), else all on the one card
     (`Mesh.shared`), which runs every stage and kernel but no interconnect;
     the sharded NTT and iNTT of a k=16 column against the single-device
-    K-b ntt and intt (launches asserted: 16 butterflies, 8 K-b passes each
-    way, no K-a), the sharded MSM of the 2^16 SRS points against ops/msm.msm
-    and the host's C MSM, batch_commit of 4 x 2^16 against serial
-    commitments, create_proofs_batched(mesh=) of phase 7's builders and seed
-    twice (phase 7's bytes, all verify; walls, proofs a second and peak
-    memory beside phase 7's; one more under the profiler), the k=7 batch
-    over 2 shards in both bases against the JAX golden, and
-    dryrun_multichip(4);
+    K-b ntt and intt (launches asserted: a card and direction one
+    shard_stages, one shard_reshuffle and one K-b call over its stack of
+    shards, nothing else; host ms beside one device's K-b), the sharded MSM
+    of the 2^16 SRS points against ops/msm.msm and the host's C MSM,
+    batch_commit of 4 x 2^16 against serial commitments,
+    create_proofs_batched(mesh=) of phase 7's builders and seed twice
+    (phase 7's bytes, all verify; walls, proofs a second and peak memory
+    beside phase 7's; one more under the profiler), the k=7 batch over 2
+    shards in both bases against the JAX golden, and dryrun_multichip(4);
 the drawn statements are bench.py's (`runtime/workloads.py`); then the
 kernels' JSON line (launches of phase 4's base-4 and base-16 runs, phase 6's
 split run, phase 7's first batch, phase 8's daemon and reload and phase 9's
@@ -138,7 +141,6 @@ SCAN_REPEATS = 50  # runs of each multi-tile scan and of K7 in phase 1, every re
 OPEN_ROWS = (47, 6, 4)  # rows a delay_enc proof opens at x, omega x and omega^-1 x
 BATCH = 4  # instances of phase 7's batch and of phase 1's batched kernels (bench.py's B)
 MESH_SHARDS = 4  # phase 9's mesh: one shard a card, or four on the one card
-MESH_K_SHARD = (1 << 16) // MESH_SHARDS  # a shard of delay_enc k=16's columns
 
 
 def log(*a):
@@ -170,7 +172,8 @@ KERNEL_FUNCTIONS = {
     "open_eval_kernel": ("open_eval",), "open_combine_kernel": ("open_combine",),
     "plane_sums_kernel": ("plane_sums",), "plane_sums16_kernel": ("plane_sums16",),
     "pair_sel_kernel": ("pair_sel",), "g1_add_kernel": ("g1_complete_add",),
-    "fixed_base_kernel": ("g1_fixed_base_mul",), "shard_butterfly_kernel": ("shard_butterfly",),
+    "fixed_base_kernel": ("g1_fixed_base_mul",), "shard_stages_kernel": ("shard_stages",),
+    "shard_reshuffle_kernel": ("shard_reshuffle",),
     "mxu_split_kernel": ("ntt_mxu_split",), "mxu_product_kernel": ("ntt_mxu_product",),
     "mxu_reduce_kernel": ("ntt_mxu_reduce",),
 }
@@ -312,7 +315,7 @@ class Report:
             raise AssertionError(f"{name} disagrees with its plain version")
 
     def also(self, name, shape, *, err, ms, int_ops, tc_ops=0, nbytes=0, note="",
-             device_ms=None):
+             device_ms=None, library_ms=None):
         """One more shape of a kernel that has its row: printed, and kept
         under the row's `other_shapes`."""
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
@@ -322,8 +325,11 @@ class Report:
         if device_ms is not None:
             other["device_ms"] = device_ms
             note = f"{device_note(device_ms, ms, bound)}{note}"
+        if library_ms is not None:
+            other["library_ms"] = library_ms
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         self.rows[name].setdefault("other_shapes", []).append(other)
-        print(f"phase 1 {name} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
+        print(f"phase 1 {name} {shape}: max_abs_err={err} kernel {ms:.4f} ms{lib}, "
               f"bound {bound:.4f} ms ({by}){note}", flush=True)
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version at {shape}")
@@ -403,9 +409,11 @@ def phase1(rep: Report, dev):
         got = op(L.FR_CTX, big, big.flip(1))
         err = max_err(got[:, pick], plain(L.FR_CTX, big[:, pick], big.flip(1)[:, pick]))
         other = big.flip(1).contiguous()
-        ms = timed(lambda: op(L.FR_CTX, big, other), 10)
+        fn = lambda: op(L.FR_CTX, big, other)
+        ms = timed(fn, 10)
         rep.also(name, "(19, 2^19) Fr", err=err, ms=ms, nbytes=96 * 19 * (1 << 19),
                  int_ops=19 * (1 << 19) * (MONT_MULS * WIDE if op is L.mont_mul else 0),
+                 device_ms=device_ms(fn, 10, "field_binary_kernel"),
                  note=" (4096 columns of every row compared)")
         del got, other
     del big
@@ -1168,42 +1176,129 @@ def phase1_batch(rep: Report, dev, rand_field, carry_heavy):
                      ms=timed(fn, 10), int_ops=products * n * MONT_MULS * WIDE)
 
 
-def phase1_shard(rep: Report, dev, rand_field, carry_heavy):
-    """K12's cross-shard butterfly on a shard of delay_enc k=16 over D = 4
-    (L = 2^14), in both positions, with a twiddle row, with one constant and
-    with no table, every carry-heavy pair among random operands, against
-    the plain version on the card.  The row is the bottom shard's with a
-    row, the forward stages' case."""
-    from delay_enc_tpu_torch.ops import limbs as L
+def shard_cost(ndev: int, shards, inverse: bool, l_len: int, stages: bool) -> tuple:
+    """(bytes, integer multiply-adds) of one K12 launch for the shards
+    `shards` of D: every block read, the card's outputs written; for the
+    stages also the twiddle rows and Montgomery products of the nodes its
+    outputs need (parallel/ntt.py node_masks), and 1/N."""
     from delay_enc_tpu_torch.parallel import ntt as PN
 
-    l_len = MESH_K_SHARD
+    s = len(shards)
+    if not stages:
+        return 2 * 32 * s * l_len, 0
+    m = ndev.bit_length() - 1
+    rows, products = set(), s if inverse else 0
+    for need, st in zip(PN.node_masks(ndev, shards, inverse), PN.stage_order(m, inverse)):
+        h = ndev >> (st + 1)
+        for t in range(ndev):
+            b = t + h
+            if t & h or not need >> t & 1 and not need >> b & 1:
+                continue
+            if inverse or need >> b & 1:
+                rows.add(PN.row_index(ndev, st, b))
+                products += 1
+    nbytes = 32 * l_len * (ndev + len(rows) + s) + (32 if inverse else 0)
+    return nbytes, products * l_len * MONT_MULS * WIDE
+
+
+def phase1_shard(rep: Report, dev, rand_field, carry_heavy):
+    """K12's two kernels, `shard_stages` (the m cross-shard stages in
+    registers) and `shard_reshuffle`, forward and inverse, against their
+    plain versions on the card, bit-exact, on random blocks with every
+    carry-heavy pair spread among them: the main rows at delay_enc k=16
+    over D = 4 (L = 2^14) with the four shards on the card; at that size
+    every single shard and pair as the card's own (a card of make_mesh(4)
+    holds one; its path is one of the network's); D = 2 and D = 8 at k=16;
+    D = 4 at k=20 (L = 2^18), where the card and not the launch sets the
+    time.  Each line has its device time, bound and plain time; the
+    reshuffle's lines over all shards also the library's: one
+    `index_select` of the stacked blocks' 32-byte rows by the fixed
+    permutation, checked equal to the kernel's output."""
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.parallel import ShardedNTTPlan
+    from delay_enc_tpu_torch.parallel import ntt as PN
+
     ha, hb = carry_heavy(L.FR_CTX)
-    x = torch.cat([rand_field(L.FR_CTX, l_len - ha.shape[0] - 3), ha])
-    recv = torch.cat([rand_field(L.FR_CTX, l_len - hb.shape[0] - 3).flip(0), hb])
-    row = rand_field(L.FR_CTX, l_len - 3)
-    tables = {"a twiddle row": row, "one constant": row[7:8], "no table": None}
-    for top in (False, True):
-        for what, table in tables.items():
-            fn = lambda: PN.shard_butterfly(x, recv, top, table)
-            got = fn()
-            t0 = time.time()
-            want = PN.shard_butterfly_plain(x, recv, top, table)
-            torch.cuda.synchronize()
-            plain_ms = (time.time() - t0) * 1e3
-            err = max_err(got, want)
-            reads = 3 if table is row else 2
-            shape = f"L=2^14, the {'top' if top else 'bottom'} shard, {what}"
-            ops = l_len * MONT_MULS * WIDE if table is not None else 0
-            if not top and table is row:
-                rep.add("shard_butterfly", err=err, ms=timed(fn, 50), plain_ms=plain_ms,
-                        nbytes=(reads + 1) * 32 * l_len, int_ops=ops,
-                        device_ms=device_ms(fn, 50, "shard_butterfly_kernel"),
-                        note=f" ({shape}: a forward stage of delay_enc k=16 over 4 shards; "
-                             f"{ha.shape[0]} carry-heavy pairs among the operands)")
-            else:
-                rep.also("shard_butterfly", shape, err=err, ms=timed(fn, 50), int_ops=ops,
-                         nbytes=(reads + 1) * 32 * l_len, note=f" (plain {plain_ms:.4f} ms)")
+    heavy = torch.cat([ha, hb])
+
+    def blocks_of(ndev, l_len):
+        """The stacked (D L, 8) words and the D blocks, views of it."""
+        w = rand_field(L.FR_CTX, ndev * l_len - 3)
+        spots = torch.arange(heavy.shape[0], device=dev) * (ndev * l_len // heavy.shape[0])
+        w[spots] = heavy
+        return w, list(w.reshape(ndev, l_len, 8))
+
+    def reshuffle_rows(ndev, l_len, inverse):
+        """The reshuffle of all D blocks as one permutation of the stack's
+        rows: each output row's source row.  Forward out[q][t D + r] =
+        y[rev(r)][q L/D + t]; inverse out[b][q L/D + t] = x[q][t D + rev(b)]."""
+        m = ndev.bit_length() - 1
+        rev = torch.tensor([int(format(r, f"0{m}b")[::-1], 2) for r in range(ndev)], device=dev)
+        a, t = torch.arange(ndev, device=dev), torch.arange(l_len // ndev, device=dev)
+        if not inverse:
+            src = rev[None, None, :] * l_len + a[:, None, None] * (l_len // ndev) + t[None, :, None]
+        else:
+            src = a[None, :, None] * l_len + t[None, None, :] * ndev + rev[:, None, None]
+        return src.reshape(-1)
+
+    def plain_of(fn):
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    for k, ndev in ((16, 4), (16, 2), (16, 8), (20, 4)):
+        l_len = (1 << k) // ndev
+        plan = ShardedNTTPlan.make(k, ndev, dev)
+        stacked, blocks = blocks_of(ndev, l_len)
+        every = tuple(range(ndev))
+        main = (k, ndev) == (16, 4)
+        reps = 20 if k == 20 else 50
+        for name, stages in (("shard_stages", True), ("shard_reshuffle", False)):
+            for inverse in (False, True):
+                if stages:
+                    rows = (plan.rows_inv if inverse else plan.rows)[0]
+                    fn = lambda sh=every: PN.shard_stages(dev, blocks, sh, rows, inverse=inverse,
+                                                          n_inv=plan.n_inv[0])
+                    plain = lambda sh=every: PN.shard_stages_plain(
+                        blocks, rows, sh, inverse=inverse, n_inv=plan.n_inv[0])
+                else:
+                    fn = lambda sh=every: PN.shard_reshuffle(dev, blocks, sh, inverse=inverse)
+                    plain = lambda sh=every: PN.shard_reshuffle_plain(blocks, sh, inverse=inverse)
+                want, plain_ms = plain_of(plain)
+                err = max_err(fn(), want)
+                nbytes, ops = shard_cost(ndev, every, inverse, l_len, stages)
+                shape = (f"D={ndev}, L=2^{k - ndev.bit_length() + 1} (k={k}), "
+                         f"{'inverse' if inverse else 'forward'}, all shards on the card")
+                dev_ms = device_ms(fn, reps, f"{name}_kernel")
+                note = f" ({shape}; plain {plain_ms:.4f} ms; {heavy.shape[0]} carry-heavy words)"
+                library_ms = None
+                if not stages:
+                    perm = reshuffle_rows(ndev, l_len, inverse)
+                    library = lambda perm=perm: stacked.index_select(0, perm)
+                    if not torch.equal(library().view(ndev, l_len, 8), fn()):
+                        raise AssertionError(f"{name} {shape}: index_select by the reshuffle's "
+                                             f"permutation differs from the kernel's output")
+                    library_ms = timed(library, reps)
+                    note += "; library: index_select of the stacked blocks' rows"
+                if main and not inverse:
+                    rep.add(name, err=err, ms=timed(fn, reps), plain_ms=plain_ms, nbytes=nbytes,
+                            int_ops=ops, device_ms=dev_ms, note=note, library_ms=library_ms)
+                else:
+                    rep.also(name, shape, err=err, ms=timed(fn, reps), nbytes=nbytes,
+                             int_ops=ops, device_ms=dev_ms, note=note, library_ms=library_ms)
+                if not main:
+                    continue
+                # every single shard and pair as the card's own, against the whole output
+                subsets = [(d,) for d in every] + [(0, 2), (1, 3), (3, 0)]
+                err = max(max_err(fn(sh), want[list(sh)]) for sh in subsets)
+                nbytes, ops = shard_cost(ndev, (3,), inverse, l_len, stages)
+                rep.also(name, f"D=4, L=2^14, {'inverse' if inverse else 'forward'}, one shard of "
+                         f"four as the card's own (timed: shard 3), every single shard and the "
+                         f"pairs {subsets[4:]} compared", err=err, ms=timed(lambda: fn((3,)), reps),
+                         nbytes=nbytes, int_ops=ops, device_ms=device_ms(lambda: fn((3,)), reps,
+                                                                         f"{name}_kernel"))
+        del plan, blocks, stacked
 
 
 def mxu_step_cost(s, batch: int, with_t: bool) -> tuple:
@@ -1576,7 +1671,8 @@ KERNEL_SYMBOLS = {  # CUDA function -> the port's kernel, as the profiles name i
     "open_eval_kernel": "open_eval (K7)", "open_combine_kernel": "open_combine (K7)",
     "plane_sums_kernel": "plane_sums (K-c)", "plane_sums16_kernel": "plane_sums16",
     "pair_sel_kernel": "pair_sel", "g1_add_kernel": "g1_complete_add (K-d)",
-    "fixed_base_kernel": "g1_fixed_base_mul", "shard_butterfly_kernel": "shard_butterfly (K12)",
+    "fixed_base_kernel": "g1_fixed_base_mul", "shard_stages_kernel": "shard_stages (K12)",
+    "shard_reshuffle_kernel": "shard_reshuffle (K12)",
     "mxu_split_kernel": "ntt_mxu_split (K11)", "mxu_product_kernel": "ntt_mxu_product (K11)",
     "mxu_reduce_kernel": "ntt_mxu_reduce (K11)",
 }
@@ -1908,11 +2004,12 @@ def batch_phase(dev, card: str, srs, pk, vk) -> dict:
 def mesh_phase(dev, card: str, srs, pk, vk, k7: tuple, batch: dict) -> dict:
     """The sharded paths over a mesh of MESH_SHARDS shards: one a card where
     there are that many, else `Mesh.shared` on the one card (every stage and
-    kernel runs; the exchanges are copies inside its memory, not NVLink).
+    kernel runs; K12 reads the blocks inside its memory, not over NVLink).
     Inputs and the single-device references first; then, with the launch
     counts set to 0, the sharded NTT and iNTT of a k=16 column (launches
-    asserted: one butterfly a stage and shard, two K-b passes a shard and
-    direction, no K-a), the sharded MSM of the 2^16 SRS points, batch_commit
+    asserted: one `shard_stages`, one K-b call over the card's stack of
+    shards (its passes) and one `shard_reshuffle` a card and direction,
+    nothing else), the sharded MSM of the 2^16 SRS points, batch_commit
     of 4 x 2^16 and two sharded batches of phase 7's delay_enc k=16 builders
     from its seed (the counts read after the first); then every result held
     to its reference: the single-device K-b ntt and intt, ops/msm.msm and
@@ -1939,8 +2036,8 @@ def mesh_phase(dev, card: str, srs, pk, vk, k7: tuple, batch: dict) -> dict:
         return Mesh.shared(dev, size), f"Mesh.shared on one card ({cards} visible)"
 
     mesh, kind = mesh_of(d)
-    where = ("inside one card, not NVLink" if len(mesh.distinct) == 1
-             else "between the cards, peer to peer")
+    where = ("inside one card, not over NVLink" if len(mesh.distinct) == 1
+             else "of the other cards in place, peer to peer")
 
     def sync():
         for x in mesh.distinct:
@@ -2006,7 +2103,9 @@ def mesh_phase(dev, card: str, srs, pk, vk, k7: tuple, batch: dict) -> dict:
             launches = _cuda.launch_counts()
     peak = max(torch.cuda.max_memory_allocated(x) for x in mesh.distinct)
 
-    want_ntt = {"shard_butterfly": 2 * m * d, "ntt_fused": 2 * d * len(N.plan(k - m))}
+    cards_used = len(mesh.distinct)
+    want_ntt = {"shard_stages": 2 * cards_used, "shard_reshuffle": 2 * cards_used,
+                "ntt_fused": 2 * cards_used * len(N.plan(k - m))}
     wrong = {name: (count, want_ntt.get(name, 0)) for name, count in ntt_launches.items()
              if count != want_ntt.get(name, 0)}
     if wrong:
@@ -2023,20 +2122,21 @@ def mesh_phase(dev, card: str, srs, pk, vk, k7: tuple, batch: dict) -> dict:
         raise AssertionError("the sharded batch's bytes differ from phase 7's unsharded batch")
     if not all(verify_proof(srs, vk, p) for p in runs[0]):
         raise AssertionError("a sharded delay_enc proof does not verify")
-    never = [name for name in ("shard_butterfly", "ntt_fused", "plane_sums", "g1_complete_add",
-                               "pair_sel") if launches[name] == 0]
+    never = [name for name in ("shard_stages", "shard_reshuffle", "ntt_fused", "plane_sums",
+                               "g1_complete_add", "pair_sel") if launches[name] == 0]
     if never:
         raise AssertionError(f"the mesh's path never launched {never}")
-    ms = {name: wall_ms(fn, 10) for name, fn in (
+    ms = {name: wall_ms(fn, 20) for name, fn in (
         ("sharded ntt", lambda: sharded_ntt(mesh, plan, column)),
         ("sharded intt", lambda: sharded_intt(mesh, plan, evals)),
         ("single ntt", lambda: N.ntt(single, column)),
         ("single intt", lambda: N.intt(single, want_evals)))}
     print(f"phase 9 sharded NTT k={k} over {d} shards (L=2^{k - m}): NTT and iNTT equal the "
           f"single-device K-b ntt and intt; launches {json.dumps(want_ntt)} and no other "
-          f"(no K-a: each twiddle and 1/N ride on a butterfly or K-b's last store); host ms a "
-          f"call, every card waited for: {json.dumps({key: round(v, 4) for key, v in ms.items()})}"
-          f" (the exchanges are copies {where})", flush=True)
+          f"(one stages, one K-b call over the card's stack and one reshuffle a card and "
+          f"direction; every twiddle and 1/N in the stages kernel); host ms a call, every card "
+          f"waited for, 20 calls: {json.dumps({key: round(v, 6) for key, v in ms.items()})} "
+          f"(the kernels read the blocks {where})", flush=True)
     print(f"phase 9 sharded MSM of 2^{k} SRS points: equal to ops/msm.msm and the host's C MSM; "
           f"batch_commit of {BATCH} x 2^{k}: equal to the serial commitments", flush=True)
     rate = lambda wall: BATCH / wall
@@ -2235,7 +2335,7 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
 
 DAEMON_SEED = 7  # the rng seed of phase 8's fixed-seed requests
 # the split quotient's (k >= 18 only) and the mesh's: the daemon proves on one device
-DAEMON_OFF_PATH = ("quotient_h_coset", "shard_butterfly")
+DAEMON_OFF_PATH = ("quotient_h_coset", "shard_stages", "shard_reshuffle")
 DAEMON_WAIT_S = 600  # the most that phase 8 waits for one warm entry
 
 

@@ -51,7 +51,9 @@ _SIGNATURES = {
     "gp_fracs": ("fracs", [_P, _P, _P, _P, _P, _P, _P, _P, _Q, _Q, _U, _P]),
     "open_eval": ("open", [_P, _U, _P]),
     "open_combine": ("open", [_P, _U, _P]),
-    "shard_butterfly": ("shard", [_P, _P, _P, _P, _U, _I, _I, _P]),
+    "shard_stages": ("shard", [_P, _I, _P]),
+    "shard_reshuffle": ("shard", [_P, _I, _P]),
+    "shard_enable_peer": ("shard", [_I, _I]),
     "ntt_mxu_split": ("ntt_mxu", [_P, _P, _U, _U, _U, _U, _U, _U, _U, _U, _U, _P]),
     "ntt_mxu_product": ("ntt_mxu", [_P, _P, _P, _P, _U, _U, _U, _U, _U, _U, _U, _P]),
     "ntt_mxu_product_attrs": ("ntt_mxu", [_P]),

@@ -2,7 +2,8 @@
 
  - ``mesh``   a `Mesh` of torch devices (`make_mesh`, `Mesh.shared`) and the
               exchanges between its shards;
- - ``ntt``    the sharded NTT and its inverse, with kernel K12's butterfly;
+ - ``ntt``    the sharded NTT and its inverse, with kernel K12's stages and
+              reshuffle, which read the shards' blocks in place;
  - ``msm``    the MSM with points and scalars split over the shards;
  - ``batch``  batch commitments with the instance axis split over the shards;
  - ``dryrun`` `dryrun_multichip`, every path once over a mesh, checked.

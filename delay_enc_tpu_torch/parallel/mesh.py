@@ -9,7 +9,8 @@ tensors, shard i on `mesh.devices[i]`.  The exchanges are copies between
 those devices (`Tensor.to(dev, non_blocking=True)`, peer-to-peer over
 NVLink on a host with several cards); a copy to the device a tensor is
 already on is no copy.  Every shard's launches go to its own device's
-current stream (`Mesh.on`).
+current stream (`Mesh.on`).  The sharded NTT uses none of them: its
+kernels read the other shards' blocks in place (`parallel/ntt.py`).
 
 A mesh may name one device several times (`Mesh.shared`): the one-card
 machine and the CPU tests run D shards on one device, every stage of the
