@@ -12,7 +12,11 @@ Phases, one line each (stderr carries detail):
     proofs pipelined two deep, which must equal the serial ones;
  1. each kernel against its plain PyTorch version on the card, bit-exact
     (points as affine), at the main path's shapes and on carry-heavy
-    operands, with both times; the multi-stage NTT also at small and odd k,
+    operands, with both times; field_pow (inv, mont_pow) at 2^16 elements of
+    Fr and Fq to five exponents, one launch a call, and batch_inv with
+    zeros inside; then the field_pow path (inv, mont_pow, batch_inv and
+    batch_inv_log through their entry points, launches counted); the
+    multi-stage NTT also at small and odd k,
     at batch 1 and with its fused input and output sides; the scan kernel in
     every form, at ragged lengths, in one row of 2^20, with a zero inside and
     as powers, every form of more than one tile 50 times over (the look-back
@@ -105,10 +109,21 @@ Phases, one line each (stderr carries detail):
     (phase 7's bytes, all verify; walls, proofs a second and peak memory
     beside phase 7's; one more under the profiler), the k=7 batch over 2
     shards in both bases against the JAX golden, and dryrun_multichip(4);
+10. (run after phase 6, before phase 8) bench.py's largest rows, delay_enc
+    k=19 (T_BITS 32) and mod_pow k=19 (T_BITS 33), nothing cut: SRS setup
+    and keygen(k=19), which must pick the split quotient; two proofs from
+    default_rng(0) that must be byte-identical and verify, their launches
+    held to the split plan; one under torch.profiler; one with fine=True
+    (the same bytes; its prove/fine/* sub-phase spans printed); for
+    delay_enc the base-16 table (seconds, K-d launches, bytes, peak), a
+    msm="b16" proof with the base-4 bytes and its peak, and the table's
+    copy into the card from pinned host memory (seconds);
 the drawn statements are bench.py's (`runtime/workloads.py`); then the
 kernels' JSON line (launches of phase 4's base-4 and base-16 runs, phase 6's
-split run, phase 7's first batch, phase 8's daemon and reload and phase 9's
-mesh together), the card's line, and the result line.  Any failure raises and exits non-zero.
+split run, phase 7's first batch, phase 8's daemon and reload, phase 9's
+mesh and phase 10's split runs together; field_pow's those of phase 1's
+field_pow path), the card's line, and the result line.  Any failure raises
+and exits non-zero.
 Without a CUDA device it exits non-zero before printing a result.
 """
 
@@ -131,9 +146,15 @@ INT_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 TC_INT8_PER_SM_CLK = 4096  # dense int8 tensor-core multiply-adds per SM per clock
 WIDE = 2  # a 32x32->64 product counted as two integer multiply-adds
 MONT_MULS = 128  # wide products in one 8-word CIOS Montgomery product
+MONT_SQR_MULS = 36 + 64  # a squaring's: 8 diagonal and 28 cross products, then the reduction
 ADD_MULS = 12  # Montgomery products in one complete addition
-# checked in phase 1, launched by no proof (K11's reduction runs inside its product)
+# checked in phase 1, launched by no proof, popped from the kernels line
+# (K11's reduction runs inside its product)
 OFF_PATH = ("field_sub", "field_add", "ntt_mxu_reduce")
+# launched by no proof or batch (asserted): field_pow serves inv, mont_pow and
+# batch_inv, which the prover never calls (it inverts its grand products' five
+# totals on the host); it stays in the kernels line with its own path's launches
+NOT_ON_PROOF = OFF_PATH + ("field_pow",)
 FRACS_MULS = 40  # Montgomery products a row of K5 (csrc/fracs_row.cuh)
 QUOTIENT_MULS = 116  # Montgomery products a row of K6 (csrc/quotient_row.cuh)
 COMMIT_BATCHES = 6  # commitment batches a proof: 5, 8, 5, 1, 7 and 3 columns
@@ -167,6 +188,7 @@ def timed(fn, reps: int) -> float:
 # each CUDA function of csrc/ -> the port's wrappers (ops/_cuda.py kernels) that launch it
 KERNEL_FUNCTIONS = {
     "field_binary_kernel": ("field_mont_mul", "field_add", "field_sub"),
+    "field_pow_kernel": ("field_pow",),
     "ntt_fused_kernel": ("ntt_fused",), "scan_kernel": ("field_scan",),
     "quotient_kernel": ("quotient_h", "quotient_h_coset"), "fracs_kernel": ("gp_fracs",),
     "open_eval_kernel": ("open_eval",), "open_combine_kernel": ("open_combine",),
@@ -417,6 +439,7 @@ def phase1(rep: Report, dev):
                  note=" (4096 columns of every row compared)")
         del got, other
     del big
+    phase1_pow(rep, dev, rand_field, carry_heavy)
 
     # K-b: (19, 2^19) forward coset transform, (6, 2^16) inverse
     d = Domain(16)
@@ -683,6 +706,118 @@ def phase1(rep: Report, dev):
     phase1_batch(rep, dev, rand_field, carry_heavy)
     phase1_shard(rep, dev, rand_field, carry_heavy)
     phase1_mxu(rep, dev, rand_field, carry_heavy)
+
+
+def pow_ops(e: int, elems: int) -> int:
+    """Integer multiply-adds of a^e over `elems` elements by MSB-first
+    square-and-multiply: a squaring for every bit below the top one and a
+    product for every set one below it."""
+    if e == 0:
+        return 0
+    squarings, products = e.bit_length() - 1, bin(e).count("1") - 1
+    return (squarings * MONT_SQR_MULS + products * MONT_MULS) * WIDE * elems
+
+
+def phase1_pow(rep: Report, dev, rand_field, carry_heavy):
+    """field_pow against mont_pow_plain on the card, bit-exact: Fr and Fq at
+    2^16 elements with 0, 1, p - 1, R mod p and the carry-heavy words among
+    them, to the exponents p - 2 (inv), 0, 1, 3 and a random 256-bit one;
+    inv and mont_pow one field_pow launch each and no K-a (asserted); the
+    inversion's device time beside its bound; batch_inv at 2^16 with zeros
+    inside, a sample of its rows against the plain inverse on the CPU."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.ops import limbs as L
+
+    n = 1 << 16
+    e_rand = int.from_bytes(np.random.default_rng(17).bytes(32), "little")
+    rows = {}
+    for ctx, name in ((L.FR_CTX, "Fr"), (L.FQ_CTX, "Fq")):
+        heavy = carry_heavy(ctx)[1][:13]  # the 13 values, R mod p among them
+        a = torch.cat([rand_field(ctx, n - 16), heavy])
+        err, plain_ms = 0, 0.0
+        for e in (ctx.p - 2, 0, 1, 3, e_rand):
+            _cuda.reset_launches()
+            got = L.inv(ctx, a) if e == ctx.p - 2 else L.mont_pow(ctx, a, e)
+            counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+            if counts != {"field_pow": 1}:
+                raise AssertionError(f"mont_pow to a {e.bit_length()}-bit exponent launched "
+                                     f"{counts}, not one field_pow")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            want = L.mont_pow_plain(ctx, a, e)
+            torch.cuda.synchronize()
+            if e == ctx.p - 2:
+                plain_ms = (time.time() - t0) * 1e3
+            err = max(err, max_err(got, want))
+        for e, what in ((ctx.p - 2, "inverse"), (e_rand, "random 256-bit exponent")):
+            fn = lambda: L.mont_pow(ctx, a, e)  # noqa: E731
+            rows[(name, what)] = dict(err=err, ms=timed(fn, 20), plain_ms=plain_ms,
+                                      int_ops=pow_ops(e, n), nbytes=64 * n,
+                                      device_ms=device_ms(fn, 20, "field_pow_kernel"))
+    fr = rows[("Fr", "inverse")]
+    rep.add("field_pow", **fr, note=" (Fr inverse a^(p-2) of 2^16 elements, 0, 1, p - 1, "
+            "R mod p and carry-heavy words among them; the exponents p - 2, 0, 1, 3 and a "
+            "random 256-bit one in Fr and Fq, each one launch, equal to mont_pow_plain; "
+            "plain: the inverse's loop of mont_mul_plain on the card)")
+    for (name, what), row in rows.items():
+        if (name, what) != ("Fr", "inverse"):
+            rep.also("field_pow", f"{name} {what}, 2^16 elements", err=row["err"], ms=row["ms"],
+                     int_ops=row["int_ops"], nbytes=row["nbytes"], device_ms=row["device_ms"])
+
+    # batch_inv: the scans, one field_pow on the total and two K-a products;
+    # inverses are unique, so a sample of rows against the plain inverse on the CPU
+    ctx = L.FR_CTX
+    x = rand_field(ctx, n - 3)
+    zeros = torch.tensor([5, 1000, 40000, n - 1], device=dev)
+    x[zeros] = 0
+    _cuda.reset_launches()
+    got = L.batch_inv(ctx, x)
+    counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+    if counts != {"field_pow": 1, "field_scan": 2, "field_mont_mul": 2}:
+        raise AssertionError(f"batch_inv launched {counts}")
+    pick = torch.cat([zeros, torch.randperm(n, device=dev)[:2044]])
+    want = L.mont_pow_plain(ctx, x[pick].cpu(), ctx.p - 2)
+    err = max(max_err(got[pick].cpu(), want), max_err(got, L.inv(ctx, x)))
+    ms = timed(lambda: L.batch_inv(ctx, x), 20)
+    print(f"phase 1 batch_inv (2^16) Fr, zeros at {zeros.tolist()}: max_abs_err={err} "
+          f"{ms:.4f} ms a call by CUDA events; launches {json.dumps(counts)}; 2048 rows against "
+          f"the CPU plain inverse, every row against inv", flush=True)
+    if err != 0:
+        raise AssertionError("batch_inv disagrees with the plain inverse")
+
+
+def field_pow_path(dev) -> dict:
+    """The slice's own path of field_pow, its entry points at 2^16 Fr
+    elements on the card: inv, mont_pow, batch_inv and batch_inv_log, with
+    the launch counts set to 0 just before and read just after (one
+    field_pow a call; two field_scan and two K-a products in each batch
+    inversion).  No proof takes it.  Returns the field_pow launches only:
+    the kernels line's K-a and field_scan rows count proofs' launches."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.ops import limbs as L
+    from delay_enc_tpu_torch.ops import poly as P
+
+    ctx = L.FR_CTX
+    x = L.to_tensor(ctx.to_mont_np([(7 * i + 3) % 1009 for i in range(1 << 16)]), dev)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    a_inv = L.inv(ctx, x)
+    cube = L.mont_pow(ctx, x, 3)
+    b_inv = L.batch_inv(ctx, x)
+    b_log = P.batch_inv_log(ctx, x)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    got = {k: v for k, v in launches.items() if v}
+    if got != {"field_pow": 4, "field_scan": 4, "field_mont_mul": 4}:
+        raise AssertionError(f"the field_pow path launched {got}")
+    if not (torch.equal(a_inv, b_inv) and torch.equal(b_inv, b_log)):
+        raise AssertionError("inv, batch_inv and batch_inv_log differ")
+    if not torch.equal(L.mont_mul(ctx, L.mont_mul(ctx, a_inv, a_inv), cube)[x.any(-1)],
+                       x[x.any(-1)]):
+        raise AssertionError("x^-2 x^3 is not x")
+    print(f"phase 1 field_pow path: inv, mont_pow(3), batch_inv and batch_inv_log of 2^16 Fr "
+          f"elements on the card agree (zeros to zero); launches {json.dumps(got)}", flush=True)
+    return {"field_pow": got["field_pow"]}
 
 
 def phase1_b16(rep: Report, dev, gen, pts, affine_err):
@@ -1664,7 +1799,8 @@ def spans(prefix=""):
 
 
 KERNEL_SYMBOLS = {  # CUDA function -> the port's kernel, as the profiles name it
-    "field_binary_kernel": "field (K-a)", "ntt_fused_kernel": "ntt_fused (K-b)",
+    "field_binary_kernel": "field (K-a)", "field_pow_kernel": "field_pow",
+    "ntt_fused_kernel": "ntt_fused (K-b)",
     "scan_kernel": "field_scan",
     "quotient_kernel": "quotient_h (K6, and its coset form for K9)",
     "fracs_kernel": "gp_fracs (K5)",
@@ -1682,7 +1818,8 @@ def profile_run(run, phase: str, what: str) -> dict:
     """One more run of `run` under torch.profiler: device kernel time by
     kernel (the port's own, and PyTorch's copies and elementwise ops, the
     largest of those by name) against the run's wall time, so the device's
-    idle share shows.  Returns {kernel: [ms, launches]}, empty if the
+    idle share shows.  Returns the wall and device ms, the idle share and
+    `by_kernel` {kernel: [ms, launches]}, empty (and the share None) if the
     profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1717,7 +1854,7 @@ def profile_run(run, phase: str, what: str) -> dict:
     if busy == 0:
         print(f"{phase} profile: {what} wall {wall_ms:.3f} ms; the profiler saw no device "
               f"time, idle share not measured", flush=True)
-        return {}
+        return {"wall_ms": wall_ms, "device_ms": 0.0, "idle_share": None, "by_kernel": {}}
     detail = {k: {"ms": round(v[0], 4), "kernels": v[1]} for k, v in sorted(groups.items())}
     top = sorted(torch_own.items(), key=lambda kv: -kv[1][0])[:6]
     recorded = sum(g[1] for name, g in groups.items() if name != "torch (other)")
@@ -1727,7 +1864,8 @@ def profile_run(run, phase: str, what: str) -> dict:
           f"largest of PyTorch's own: "
           f"{json.dumps({k: {'ms': round(v[0], 4), 'kernels': v[1]} for k, v in top})}",
           flush=True)
-    return groups
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "by_kernel": groups}
 
 
 def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4",
@@ -1825,7 +1963,7 @@ def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4",
         if proof_launches[name] != want:
             raise AssertionError(f"a proof launched {name} {proof_launches[name]} times, "
                                  f"planned {want}")
-    for name in OFF_PATH:
+    for name in NOT_ON_PROOF:
         if proof_launches[name] != 0:
             raise AssertionError(f"a proof launched {name} {proof_launches[name]} times")
     if elementwise != PLANNED_ELEMENTWISE:
@@ -1846,7 +1984,7 @@ def check_batch_launches(launches: dict, k: int) -> None:
             "field_scan": PLANNED_BATCH_SCANS, "field_mont_mul": PLANNED_BATCH_ELEMENTWISE,
             "ntt_fused": 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3)),
             "g1_complete_add": 0, "g1_fixed_base_mul": 0, "ntt_mxu_split": 0,
-            "ntt_mxu_product": 0, **{name: 0 for name in OFF_PATH}}
+            "ntt_mxu_product": 0, **{name: 0 for name in NOT_ON_PROOF}}
     wrong = {name: (launches[name], n) for name, n in want.items() if launches[name] != n}
     if wrong or launches["plane_sums"] == 0:
         raise AssertionError(f"a batch launched (got, planned) {wrong}, plane_sums "
@@ -2227,35 +2365,34 @@ def mod_pow_phase(dev, card: str) -> None:
     mxu_proof_phase(dev, card, srs, pk, b, proofs[0], "phase 5")
 
 
-def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
-    """delay_enc at k=18, bench.py's draw (|T| = 31): SRS setup and a keygen
-    that must pick the split quotient on its own, two split proofs from one
-    rng seed that must be byte-identical and verify, their launch counts held
-    to the split plan, one more under the profiler; then a fused keygen
-    (split=False) on the same SRS and circuit that must give the same vk,
-    and one fused proof that must equal the split proofs, with its peak
-    device memory beside theirs.  Returns the launch counts of the split run,
-    set to 0 just before the SRS setup and read just after the two proofs."""
+def split_proofs(dev, card: str, phase: str, workload: str, k: int, tau: int) -> tuple:
+    """bench.py's row of `workload` at k (its T_BITS, nothing cut): SRS setup
+    at k and keygen(k=k), which must pick the split quotient; two proofs from
+    one rng seed that must be byte-identical and verify, their launches held
+    to the split plan; one more under the profiler.  Returns (circuit, srs,
+    pk, vk, proof, peak device memory over the two proofs, the launch counts
+    set to 0 just before the SRS setup and read just after the two
+    proofs)."""
     from delay_enc_tpu_torch.ops import _cuda
     from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen, verify_proof
     from delay_enc_tpu_torch.plonk.keygen import min_k
-    from delay_enc_tpu_torch.runtime.workloads import build_circuit
+    from delay_enc_tpu_torch.runtime.workloads import T_BITS, build_circuit
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
     torch.cuda.empty_cache()
     GLOBAL_METRICS.clear()
     t0 = time.time()
-    b = build_circuit("delay_enc", k)
+    b = build_circuit(workload, k)
     t_build = time.time() - t0
-    if min_k(b) != k:
-        raise AssertionError(f"delay_enc for k={k} needs k={min_k(b)}")
+    if min_k(b) > k:
+        raise AssertionError(f"{workload} for k={k} needs k={min_k(b)}")
     _cuda.reset_launches()
     t0 = time.time()
-    srs = SRS.setup(k, tau=0x5EED_0F_DE1A7_18, device=dev)
+    srs = SRS.setup(k, tau=tau, device=dev)
     t_srs = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    pk, vk = keygen(b, srs, device=dev)
+    pk, vk = keygen(b, srs, k=k, device=dev)
     torch.cuda.synchronize()
     t_key = time.time() - t0
     if not pk.split or pk.ext_stack is not None:
@@ -2275,14 +2412,15 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     launches = _cuda.launch_counts()
     proof_launches = {name: (launches[name] - before[name]) // 2 for name in launches}
     if proofs[0] != proofs[1]:
-        raise AssertionError(f"delay_enc k={k} split proofs from one rng seed differ")
+        raise AssertionError(f"{workload} k={k} split proofs from one rng seed differ")
     t0 = time.time()
     if not verify_proof(srs, vk, proofs[0]):
-        raise AssertionError(f"delay_enc k={k} split proof does not verify")
+        raise AssertionError(f"{workload} k={k} split proof does not verify")
     t_ver = time.time() - t0
-    print(f"phase 6 delay_enc k={k} split on {card}: rows={b.rows} circuit build {t_build:.3f} s "
-          f"(host), SRS setup {t_srs:.3f} s, keygen {t_key:.3f} s (split picked; peak device "
-          f"memory {key_peak / 2**30:.3f} GiB), prove {t_prove[0]:.3f} s then {t_prove[1]:.3f} s "
+    print(f"{phase} {workload} k={k} split on {card}: T_BITS {T_BITS[(workload, k)]}, "
+          f"rows={b.rows} (min_k {min_k(b)}) circuit build {t_build:.3f} s (host), SRS setup "
+          f"{t_srs:.3f} s, keygen {t_key:.3f} s (split picked; peak device memory "
+          f"{key_peak / 2**30:.3f} GiB), prove {t_prove[0]:.3f} s then {t_prove[1]:.3f} s "
           f"(identical bytes), verify {t_ver:.3f} s (host), proof {len(proofs[0])} B, peak "
           f"device memory over the two proofs {split_peak / 2**30:.3f} GiB; keygen spans "
           f"{json.dumps(key_spans)}; a proof's spans {json.dumps(prove_spans)}; launches "
@@ -2290,7 +2428,25 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     if launches["g1_fixed_base_mul"] != 1 or launches["g1_complete_add"] != 3:
         raise AssertionError(f"SRS setup and pair tables launched {launches}")
     check_proof_launches(proof_launches, k, split=True)
-    profile_proof(srs, pk, b, proofs[0], dev, "phase 6 split")
+    profile_proof(srs, pk, b, proofs[0], dev, f"{phase} {workload} k={k} split")
+    return b, srs, pk, vk, proofs[0], split_peak, launches
+
+
+def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
+    """delay_enc at k=18, bench.py's draw (|T| = 31), whose circuit needs
+    k=18: `split_proofs`; then a fused keygen (split=False) on the same SRS
+    and circuit that must give the same vk, and one fused proof that must
+    equal the split proofs, with its peak device memory beside theirs.
+    Returns the launch counts of the split run."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.plonk import create_proof, keygen
+    from delay_enc_tpu_torch.plonk.keygen import min_k
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    b, srs, pk, vk, proof, split_peak, launches = split_proofs(
+        dev, card, "phase 6", "delay_enc", k, 0x5EED_0F_DE1A7_18)
+    if min_k(b) != k:
+        raise AssertionError(f"delay_enc for k={k} needs k={min_k(b)}")
     try:
         create_proof(srs, pk, b, np.random.default_rng(0), device=dev, ntt="mxu")
     except ValueError as e:
@@ -2320,7 +2476,7 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     t_fused = time.time() - t0
     fused_peak = torch.cuda.max_memory_allocated()
     after = _cuda.launch_counts()
-    if proof_f != proofs[0]:
+    if proof_f != proof:
         raise AssertionError(f"the delay_enc k={k} fused proof differs from the split proofs")
     print(f"phase 6 delay_enc k={k} fused: keygen {t_key_f:.3f} s (peak device memory "
           f"{key_f_peak / 2**30:.3f} GiB), the split key's vk; prove {t_fused:.3f} s, the split "
@@ -2330,6 +2486,84 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
     check_proof_launches({name: after[name] - before[name] for name in after}, k)
     profile_proof(srs, pk_f, b, proof_f, dev, "phase 6 fused")
     del pk_f, srs
+    return launches
+
+
+LARGEST_ROWS = (("delay_enc", 19, 0x5EED_0F_DE1A7_19), ("mod_pow", 19, 0x5EED_0F_0D90_19))
+
+
+def largest_rows_phase(dev, card: str, workload: str, k: int, tau: int) -> dict:
+    """bench.py's largest row of `workload`: `split_proofs` at k; one more
+    proof with fine=True, the same bytes, whose `prove/fine/*` spans are
+    printed; for delay_enc the base-16 table (seconds, K-d launches, bytes)
+    and one msm="b16" proof with the base-4 bytes, its peak beside the split
+    proofs'.  Returns the launch counts of the split run."""
+    from delay_enc_tpu_torch.ops import _cuda
+    from delay_enc_tpu_torch.plonk import create_proof
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    t_phase = time.time()
+    b, srs, pk, vk, proof, split_peak, launches = split_proofs(
+        dev, card, "phase 10", workload, k, tau)
+    del vk
+
+    GLOBAL_METRICS.clear()
+    t0 = time.time()
+    proof_fine = create_proof(srs, pk, b, np.random.default_rng(0), device=dev, fine=True)
+    torch.cuda.synchronize()
+    t_fine = time.time() - t0
+    if proof_fine != proof:
+        raise AssertionError(f"{workload} k={k}: the fine=True proof differs")
+    fine = spans("prove/fine/")
+    phases = {name: t for name, t in spans("prove/").items() if name not in fine}
+    print(f"phase 10 {workload} k={k} fine=True: prove {t_fine:.3f} s, the same bytes; "
+          f"{len(fine)} sub-phase spans (s) {json.dumps(fine)}; phases {json.dumps(phases)}",
+          flush=True)
+
+    if workload == "delay_enc":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _cuda.launch_counts()
+        t0 = time.time()
+        tab = srs.pair_tables16()
+        torch.cuda.synchronize()
+        t_tab = time.time() - t0
+        tab_peak = torch.cuda.max_memory_allocated()
+        table_launches = {name: n - before[name] for name, n in _cuda.launch_counts().items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        proof_b16 = create_proof(srs, pk, b, np.random.default_rng(0), device=dev, msm="b16")
+        torch.cuda.synchronize()
+        t_b16 = time.time() - t0
+        b16_peak = torch.cuda.max_memory_allocated()
+        if proof_b16 != proof:
+            raise AssertionError(f"the {workload} k={k} proof with msm='b16' differs from base 4")
+        print(f"phase 10 {workload} k={k} msm='b16': table {t_tab:.3f} s, "
+              f"{table_launches['g1_complete_add']} K-d launches, {tab.numel() * 4} bytes, peak "
+              f"device memory while it is built {tab_peak / 2**30:.3f} GiB; prove {t_b16:.3f} s, "
+              f"the base-4 bytes; peak device memory over the proof {b16_peak / 2**30:.3f} GiB "
+              f"(table resident) against base 4 {split_peak / 2**30:.3f} GiB", flush=True)
+        if table_launches["g1_complete_add"] != 15 or sum(table_launches.values()) != 15:
+            raise AssertionError(f"the base-16 table launched {table_launches}")
+        # what a disk cache of the table would pay after reading its file: the
+        # copy into the card from pinned host memory, its best case
+        host = torch.empty(tab.shape, dtype=tab.dtype, pin_memory=True)
+        host.copy_(tab)
+        back = torch.empty_like(tab)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        back.copy_(host, non_blocking=True)
+        torch.cuda.synchronize()
+        t_copy = time.time() - t0
+        if not torch.equal(back, tab):
+            raise AssertionError("the base-16 table copied in from the host differs")
+        print(f"phase 10 {workload} k={k} msm='b16' table from pinned host memory: "
+              f"{tab.numel() * 4} bytes in {t_copy:.4f} s ({tab.numel() * 4 / t_copy / 1e9:.2f} "
+              f"GB/s) against its build's {t_tab:.4f} s", flush=True)
+        del tab, host, back
+    del pk, srs
+    torch.cuda.empty_cache()
+    log(f"  phase 10 {workload} k={k}: {time.time() - t_phase:.1f} s")
     return launches
 
 
@@ -2541,7 +2775,7 @@ def daemon_phase(dev, card: str) -> dict:
     print(f"phase 8 launches: the daemon's {json.dumps(st['launches'])}; the reload's "
           f"{json.dumps(reload_launches)}", flush=True)
     idle = [name for name, n in st["launches"].items()
-            if n == 0 and name not in OFF_PATH + DAEMON_OFF_PATH]
+            if n == 0 and name not in NOT_ON_PROOF + DAEMON_OFF_PATH]
     if idle:
         raise AssertionError(f"kernels the daemon's path never launched: {idle}")
     return {name: st["launches"].get(name, 0) + reload_launches.get(name, 0)
@@ -2584,6 +2818,7 @@ def main() -> int:
         f"{tc_rate:.4g}/s")
     rep = Report(int_rate, tc_rate)
     phase1(rep, dev)
+    pow_launches = field_pow_path(dev)
     torch.cuda.empty_cache()
 
     # ---- 2. artefacts of the JAX package ------------------------------
@@ -2736,7 +2971,8 @@ def main() -> int:
         raise AssertionError(f"the base-16 table launched {table_launches}")
     check_proof_launches({name: b16_launches[name] - table_launches[name] for name in b16_launches},
                          k16, msm="b16")
-    groups = profile_proof(srs16, pk16, b16, proof16, dev, "phase 4 msm='b16'", msm="b16")
+    groups = profile_proof(srs16, pk16, b16, proof16, dev, "phase 4 msm='b16'",
+                           msm="b16")["by_kernel"]
     if groups and ("plane_sums16" not in groups or "plane_sums (K-c)" in groups):
         raise AssertionError(f"the profiled b16 proof ran {sorted(groups)}")
     del pk16, srs16, b16, tab16
@@ -2747,6 +2983,9 @@ def main() -> int:
     # ---- 6. delay_enc k=18, the split quotient --------------------------
     split_launches = delay_enc_split_phase(dev, card)
 
+    # ---- 10. the largest rows of bench.py's sweep ------------------------
+    largest_launches = [largest_rows_phase(dev, card, *row) for row in LARGEST_ROWS]
+
     # ---- 8. the warm prover daemon ---------------------------------------
     daemon_launches = daemon_phase(dev, card)
 
@@ -2754,10 +2993,11 @@ def main() -> int:
     for name, row in rep.rows.items():
         row["launches"] = sum(run.get(name, 0)
                               for run in (launches, b16_launches, split_launches, batch_launches,
-                                          daemon_launches, mesh_launches, mxu_launches))
+                                          daemon_launches, mesh_launches, mxu_launches,
+                                          pow_launches, *largest_launches))
     # K5 and K6 took the last subtractions of a proof, K7 the last sums (0
     # launches, asserted): K-a's subtraction and sum are checked in phase 1
-    # but are no kernels of the path
+    # but are no kernels of the path.
     for name in OFF_PATH:
         row = rep.rows.pop(name)
         print(f"phase 4 {name}: off the main path, {row['launches']} launches; phase 1 "

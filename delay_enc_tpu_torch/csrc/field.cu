@@ -1,4 +1,5 @@
-// K-a: batched elementwise Fr / Fq arithmetic (mont_mul, add, sub).
+// K-a: batched elementwise Fr / Fq arithmetic (mont_mul, add, sub), and
+// field_pow: every element raised to one host-known exponent.
 //
 // Replaces delay_enc_tpu/ops/limbs.py mont_mul (:496), add (:397) and
 // sub (:401), which XLA fused into elementwise limb-chain kernels.
@@ -12,6 +13,15 @@
 // (19, 2^19) extended stack.  A Montgomery product is 128 wide multiplies,
 // well under the card's integer rate per byte moved.  One thread per
 // element with 16-byte vector loads; nothing is staged in shared memory.
+//
+// field_pow replaces delay_enc_tpu/ops/limbs.py mont_pow (:539) and inv
+// (:551, a lax.scan of 256 squarings, products and selects), chains of K1
+// graphs.  One thread an element runs fld::mont_pow: the exponent (up to
+// 256 bits, e = p - 2 for an inversion) comes by value in the launch's
+// parameters, so every thread walks the same bits and no warp diverges.
+// Bound: operations.  An Fr inversion is 253 squarings and 126 products,
+// 379 Montgomery products of 128 wide multiplies an element against 64
+// bytes moved; one launch does what ~512 K-a launches would.
 
 #include <cuda_runtime.h>
 
@@ -54,7 +64,45 @@ void launch(const void* a, const void* b, void* out, uint32_t n, uint32_t adiv,
       static_cast<uint32_t*>(out), n, adiv, amod, bdiv, bmod);
 }
 
+// The exponent by value: its words and its bit length.
+struct Exp {
+  uint32_t w[fld::NW];
+  uint32_t nbits;
+};
+
+template <int F>
+__global__ void field_pow_kernel(const uint32_t* __restrict__ a,
+                                 uint32_t* __restrict__ out, uint32_t n, Exp e) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[8], ew[8], r[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) ew[j] = e.w[j];
+  fld::ld8(x, a + (size_t)i * 8);
+  fld::mont_pow<F>(r, x, ew, e.nbits);
+  fld::st8(out + (size_t)i * 8, r);
+}
+
 }  // namespace
+
+// out[i] = a[i]^e for the exponent of nbits bits in the 8 words at `exp`
+// (host memory, copied into the launch's parameters).
+extern "C" int field_pow(int field, const void* a, void* out, unsigned n,
+                         const unsigned* exp, unsigned nbits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  if (nbits > 256) return (int)cudaErrorInvalidValue;
+  Exp e;
+  for (int j = 0; j < fld::NW; j++) e.w[j] = exp[j];
+  e.nbits = nbits;
+  const int threads = 128;
+  const uint32_t blocks = (n + threads - 1) / threads;
+  const uint32_t* src = static_cast<const uint32_t*>(a);
+  uint32_t* dst = static_cast<uint32_t*>(out);
+  if (field == fld::FR) field_pow_kernel<fld::FR><<<blocks, threads, 0, s>>>(src, dst, n, e);
+  else field_pow_kernel<fld::FQ><<<blocks, threads, 0, s>>>(src, dst, n, e);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int field_binary(int op, int field, const void* a, const void* b,
                             void* out, unsigned n, unsigned adiv, unsigned amod,

@@ -414,6 +414,31 @@ FDEV void copy(uint32_t r[NW], const uint32_t a[NW]) {
   for (int j = 0; j < NW; j++) r[j] = a[j];
 }
 
+// a^e in Montgomery form, fully reduced: MSB-first square-and-multiply over
+// mont_mul (which may write over its operands).  e is 8 little-endian words
+// whose bit length is nbits (bit nbits - 1 set, or nbits = 0 and e = 0):
+// the top bit gives r = a, then nbits - 1 squarings and one product a set
+// bit below it.  e = 0 gives 1 (R mod p), also for a = 0.  The word of a
+// bit is picked with constant indices, so e stays in registers.  r must
+// not be a.
+template <int F>
+FDEV void mont_pow(uint32_t r[NW], const uint32_t a[NW], const uint32_t e[NW],
+                   uint32_t nbits) {
+  if (nbits == 0) {
+#pragma unroll
+    for (int j = 0; j < NW; j++) r[j] = onew<F>(j);
+    return;
+  }
+  copy(r, a);
+  for (uint32_t b = nbits - 1; b-- > 0;) {
+    uint32_t word = e[0];
+#pragma unroll
+    for (int j = 1; j < NW; j++) word = (b >> 5) == (uint32_t)j ? e[j] : word;
+    mont_mul<F>(r, r, r);
+    if ((word >> (b & 31u)) & 1u) mont_mul<F>(r, r, a);
+  }
+}
+
 // One element from global memory, and back: two 16-byte accesses on the
 // device (an element row is 32-byte aligned), a word loop on the host.
 FDEV void ld8(uint32_t r[NW], const uint32_t* p) {

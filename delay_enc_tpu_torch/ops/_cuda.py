@@ -39,6 +39,7 @@ _Q = ctypes.c_ulonglong
 # C signatures: library, symbol, argument types (all return int)
 _SIGNATURES = {
     "field_binary": ("field", [_I, _I, _P, _P, _P, _U, _U, _U, _U, _U, _P]),
+    "field_pow": ("field", [_I, _P, _P, _U, _P, _U, _P]),
     "ntt_fused": ("ntt", [_P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _U, _U, _U, _U, _P]),
     "field_scan": ("scan", [_I, _I, _P, _P, _P, _U, _U, _U, _P]),
     "field_scan_plan": ("scan", [_U, _U, _U, _P, _P]),

@@ -9,7 +9,10 @@ packages.  The JAX package's (…, 16) uint32 limb array is this array's
 bytes read as uint16 (`words_to_limbs_np`, `limbs_to_words_np`).
 
 `mont_mul`, `add` and `sub` launch kernel K-a (`csrc/field.cu`) on CUDA
-tensors and use their plain PyTorch versions (`*_plain`) on CPU tensors.
+tensors and use their plain PyTorch versions (`*_plain`) on CPU tensors;
+`mont_pow` and `inv` launch `field_pow` (the same source) once, or run
+`mont_pow_plain`, a loop of `mont_mul_plain`.  `batch_inv` is
+`ops/poly.py:batch_inv_log`.
 The plain versions compute in 16-bit limbs held in int64, because this
 PyTorch has no uint32 add, subtract, shift or compare; they run on any
 device and are what the kernel is checked against.
@@ -17,6 +20,7 @@ device and are what the kernel is checked against.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -44,6 +48,9 @@ K_SUB = _cuda.kernel("field_sub", "field_binary",
                      _REPLACES + "401 sub (ll_sub :254, _sub_p_if_ge :346)",
                      "delay_enc_tpu_torch/csrc/field.cu")
 _KERNEL = {OP_MUL: K_MUL, OP_ADD: K_ADD, OP_SUB: K_SUB}
+K_POW = _cuda.kernel("field_pow", "field_pow",
+                     _REPLACES + "539 mont_pow, :551 inv (K1 chains; a lax.scan in inv)",
+                     "delay_enc_tpu_torch/csrc/field.cu")
 
 
 # ------------------------------------------------------- numpy boundary
@@ -242,6 +249,20 @@ def sub_plain(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _words(_sub_p_if_ge(ctx, torch.stack(outs, dim=-1)))
 
 
+def mont_pow_plain(ctx: FieldCtx, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e elementwise, MSB first as the kernel: the top bit gives a, then a
+    squaring for every lower bit and a product for every set one; e = 0
+    gives 1 (R mod p), also for a = 0."""
+    if e == 0:
+        return ctx.one_mont(a.device).expand_as(a).clone()
+    r = a.clone()
+    for bit in bin(e)[3:]:
+        r = mont_mul_plain(ctx, r, r)
+        if bit == "1":
+            r = mont_mul_plain(ctx, r, a)
+    return r
+
+
 _PLAIN = {OP_MUL: mont_mul_plain, OP_ADD: add_plain, OP_SUB: sub_plain}
 
 
@@ -328,6 +349,48 @@ def add(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def sub(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _binary(OP_SUB, ctx, a, b)
+
+
+def mont_sqr(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(ctx, a, a)
+
+
+def mont_pow(ctx: FieldCtx, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e elementwise for a host-known exponent 0 <= e < 2^256: one launch
+    of `field_pow` on a card, whatever e."""
+    _check(a)
+    e = int(e)
+    if not 0 <= e < 1 << 256:
+        raise ValueError(f"exponent out of range [0, 2^256): {e}")
+    if a.device.type == "cpu":
+        return mont_pow_plain(ctx, a, e)
+    _cuda.require_cuda(a)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    n = out.numel() // NW
+    if n == 0:
+        return out
+    if n >= 1 << 32:
+        raise ValueError("too many elements for one launch")
+    if (a.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError("field operand is not 16-byte aligned")
+    words = (ctypes.c_uint * NW)(*((e >> (32 * j)) & 0xFFFFFFFF for j in range(NW)))
+    K_POW(ctx.fid, a.data_ptr(), out.data_ptr(), n, ctypes.addressof(words), e.bit_length(),
+          _cuda.stream())
+    return out
+
+
+def inv(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse by Fermat, a^(p-2); zero maps to zero."""
+    return mont_pow(ctx, a, ctx.p - 2)
+
+
+def batch_inv(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    """Inverses along axis 0, zeros to zero: `ops/poly.py:batch_inv_log`
+    (the answer is unique, so the JAX package's two forms are one here)."""
+    from .poly import batch_inv_log
+
+    return batch_inv_log(ctx, a)
 
 
 def neg(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:

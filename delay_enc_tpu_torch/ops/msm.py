@@ -151,6 +151,20 @@ def complete_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return out.reshape(shape)
 
 
+def point_double(p: torch.Tensor) -> torch.Tensor:
+    return complete_add(p, p)
+
+
+def point_neg(p: torch.Tensor) -> torch.Tensor:
+    """(X : -Y : Z), -Y by one K-a subtraction over Fq."""
+    return torch.stack([p[..., 0, :], L.neg(FQ_CTX, p[..., 1, :]), p[..., 2, :]], dim=-2)
+
+
+def point_select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cond ? a : b, cond shaped like the batch (no point or word axis)."""
+    return torch.where(cond[..., None, None], a, b)
+
+
 # ------------------------------------------------------------ scalar planes
 
 def scalars_to_words(scalars, device) -> torch.Tensor:

@@ -367,3 +367,9 @@ def powers(ctx: FieldCtx, base: int, n: int, device, start: int = 1) -> torch.Te
     if start % ctx.p == 1:
         return pw
     return L.mont_mul(ctx, pw, L.to_device_mont(ctx, [start], device))
+
+
+def coset_scale(ctx: FieldCtx, coeffs: torch.Tensor, zeta_powers: torch.Tensor) -> torch.Tensor:
+    """coeff_i * zeta^i, one K-a product: a plain NTT afterwards evaluates on
+    the coset zeta H."""
+    return L.mont_mul(ctx, coeffs, zeta_powers)

@@ -17,6 +17,9 @@ follows the kernel's own steps (each thread's elements one after another,
 the scan of the threads' totals, the tile's prefix from its predecessors,
 then each thread's elements again) and is what the tests hold against the
 others.
+
+`batch_inv_log` (also `limbs.batch_inv`), `eval_poly` and `divide_by_linear`
+are built from the scans, K-a and `field_pow`; they add no kernel.
 """
 
 from __future__ import annotations
@@ -287,3 +290,51 @@ def divide_scaled(ctx: FieldCtx, t: torch.Tensor, zinv_powers: torch.Tensor) -> 
     n = t.shape[-2]
     above = suffix_sum(ctx, t, "block", exclusive=True)
     return L.mont_mul(ctx, above, zinv_powers[..., 1 : n + 1, :])
+
+
+def _rows_last(a: torch.Tensor) -> torch.Tensor:
+    """A (n, …, 8) tensor with its axis 0 moved to the scans' row axis."""
+    L._check(a)
+    if a.dim() < 2:
+        raise ValueError(f"expected (n, …, 8) elements, got {tuple(a.shape)}")
+    return a.movedim(0, -2)
+
+
+def batch_inv_log(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    """Inverses along axis 0 of a (n, …, 8), zeros mapping to zero:
+    a_i^-1 = (a_0 … a_(i-1)) (a_(i+1) … a_(n-1)) / total over the nonzero
+    entries.  The exclusive prefix and the inclusive suffix products are one
+    `field_scan` each (the suffix's first row is the total), the total is
+    inverted by one `field_pow`, and two K-a products finish."""
+    x = _rows_last(a)
+    zero = L.is_zero(x)
+    one = ctx.one_mont(x.device)
+    safe = L.select(zero, one.expand_as(x), x)
+    pre = prefix_product(ctx, safe, "block", exclusive=True)
+    suf = suffix_product(ctx, safe, "block")
+    total_inv = L.inv(ctx, suf[..., :1, :])
+    suf_excl = torch.cat([suf[..., 1:, :], one.expand(*suf.shape[:-2], 1, L.NW)], dim=-2)
+    out = L.mont_mul(ctx, L.mont_mul(ctx, pre, suf_excl), total_inv)
+    return L.select(zero, torch.zeros_like(x), out).movedim(-2, 0)
+
+
+def eval_poly(ctx: FieldCtx, coeffs: torch.Tensor, x_powers: torch.Tensor) -> torch.Tensor:
+    """sum_i c_i x^i of coefficient rows c (n, …, 8) at the point whose
+    powers are given (>= n rows): one K-a product, then the sum scan, whose
+    last row is the total."""
+    n = coeffs.shape[0]
+    if n == 0:
+        raise ValueError("no coefficients")
+    prods = _rows_last(L.mont_mul(ctx, coeffs, x_powers[:n]))
+    return scan(ctx, prods, "add", "block")[..., -1, :]
+
+
+def divide_by_linear(ctx: FieldCtx, coeffs: torch.Tensor, z_powers: torch.Tensor,
+                     zinv_powers: torch.Tensor) -> torch.Tensor:
+    """(f(X) - f(z)) / (X - z) in coefficient form from f's n coefficients
+    (n, 8), the powers of z (>= n rows) and of z^-1 (>= n + 1 rows): the n - 1
+    coefficients padded with a zero to length n.  One K-a product by the
+    powers of z, then `divide_scaled`.  z must not be 0."""
+    n = coeffs.shape[-2]
+    t = L.mont_mul(ctx, coeffs, z_powers[..., :n, :])
+    return divide_scaled(ctx, t, zinv_powers[..., : n + 1, :])

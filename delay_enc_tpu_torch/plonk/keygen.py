@@ -147,13 +147,19 @@ def _pinned_vk_string(domain, fixed_comms: dict, sigma_comms: list) -> str:
     return "".join(parts)
 
 
-def transcript_repr(domain, fixed_comms: dict, sigma_comms: list) -> int:
+def transcript_repr(domain, fixed_comms: dict, sigma_comms: list,
+                    pinned: bytes | None = None) -> int:
     """The vk's transcript representative: blake2b-512 with
     personalization ``Halo2-Verify-Key`` over ``len(s) as u64 LE || s``,
-    s the pinned verification-key string, reduced into Fr."""
+    s the pinned verification-key string, reduced into Fr.  `pinned`
+    bytes, where given, are hashed verbatim in its place (the JAX package's
+    DELAY_ENC_VK_PINNED_FILE): halo2's `format!("{:?}", vk.pinned())` for
+    the same circuit makes the transcript the Rust reference's; domain and
+    commitments are then not read."""
     import hashlib
 
-    s = _pinned_vk_string(domain, fixed_comms, sigma_comms).encode()
+    s = pinned if pinned is not None else _pinned_vk_string(domain, fixed_comms,
+                                                            sigma_comms).encode()
     h = hashlib.blake2b(digest_size=64, person=b"Halo2-Verify-Key")
     h.update(len(s).to_bytes(8, "little"))
     h.update(s)
@@ -223,7 +229,7 @@ def coset_tables(domain: Domain, device):
 
 
 def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = None,
-           device="cuda", msm: str = "b4"):
+           device="cuda", msm: str = "b4", pinned_vk: bytes | None = None):
     """Compile the circuit structure; returns (pk, vk).
 
     Only the builder's structure is used (fixed columns, copies, lookup
@@ -231,7 +237,8 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
     (per-coset evaluation in the prover, no extended-coset tables); None
     means from k = SPLIT_QUOTIENT_K on.  Both modes give the same vk and the
     same proof bytes.  `msm` picks the commitments' pair tables, "b4" or
-    "b16" (`SRS.msm_tables`); both give the same vk."""
+    "b16" (`SRS.msm_tables`); both give the same vk.  `pinned_vk` bytes
+    replace the pinned vk string in `transcript_repr` (see there)."""
     from .kernels import _canon_batch, _coeff, _ext, msm_commit_batch
 
     device = resolve(device)
@@ -315,7 +322,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
     sigma_comms = list(all_comms[nf:])
 
     vk = VerifyingKey(domain, fixed_comms, sigma_comms,
-                      transcript_repr(domain, fixed_comms, sigma_comms))
+                      transcript_repr(domain, fixed_comms, sigma_comms, pinned_vk))
     kept = coeff_stack if split else None
     pk = ProvingKey(
         vk=vk,

@@ -3,7 +3,8 @@
 Counterpart of `delay_enc_tpu/plonk/prover.py`: the fused 8n quotient, or
 the split one for a split-mode key (k >= 18).  The JAX package's
 DELAY_ENC_NTT=mxu is the argument `ntt="mxu"` here: every transform of a
-fused-quotient proof through the matmul NTT (K11).
+fused-quotient proof through the matmul NTT (K11); its
+DELAY_ENC_PROFILE_FINE is `fine=True`: the sub-phase marks as spans.
 Protocol (transcript order is the spec; the verifier mirrors it exactly):
 
  1. commit the 5 advice columns (blinding rows randomized),
@@ -228,18 +229,19 @@ def _points(domain, x: int) -> list:
 
 
 class _Spans:
-    """Phase spans of one proof (or batch) into GLOBAL_METRICS: each phase
-    ends by waiting for the calling thread's stream on each of `devices`
-    (one device, or a mesh's), not the whole device, so concurrent provers
-    do not wait for each other."""
+    """Phase spans of one proof (or batch) into GLOBAL_METRICS, each from the
+    end of the one before: a phase ends by waiting for the calling thread's
+    stream on each of `devices` (one device, or a mesh's), not the whole
+    device, so concurrent provers do not wait for each other; with
+    sync=False it ends without waiting."""
 
     def __init__(self, devices, prefix: str):
         self.devices = list(devices) if isinstance(devices, (list, tuple)) else [devices]
         self.prefix = prefix
         self.t = _time.time()
 
-    def __call__(self, name: str) -> None:
-        for device in self.devices:
+    def __call__(self, name: str, sync: bool = True) -> None:
+        for device in self.devices if sync else ():
             sync_stream(device)
         now = _time.time()
         GLOBAL_METRICS.add(f"{self.prefix}/{name}", now - self.t)
@@ -258,7 +260,7 @@ def transform_plans(domain, device, ntt: str) -> tuple:
 
 def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
                  msm: str = "b4", selfcheck: int = 0, checks: list | None = None,
-                 ntt: str = "stockham") -> bytes:
+                 ntt: str = "stockham", fine: bool = False) -> bytes:
     """A proof for the builder's witness.  `msm` picks the commitments' pair
     tables, "b4" or "b16" (`SRS.msm_tables`); both give the same bytes.
     `ntt` picks the transforms' kernel: "stockham" (K-b) or "mxu" (K11,
@@ -266,7 +268,13 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     raises); both give the same bytes.  `selfcheck` 1 checks every
     commitment against the host's C MSM, 2 also the GWC witnesses
     (`plonk/selfcheck.py`); each result goes to stderr and, as a (label,
-    ok) pair, to `checks` where given.  The bytes do not change."""
+    ok) pair, to `checks` where given.  `fine` adds the JAX package's
+    sub-phase marks (DELAY_ENC_PROFILE_FINE, `prover.py:366-551`) as spans
+    `prove/fine/<mark>`, each the seconds since the mark before; where the
+    JAX mark blocks on arrays, the span waits for the proof's stream first
+    (a split proof has no "phase5 start" and "quotient ext NTT"; "gp omega
+    host" times the powers of omega, made on the card here).  The bytes do
+    not change with any of them."""
     device = resolve(device)
     if selfcheck not in (0, 1, 2):
         raise ValueError(f"selfcheck level {selfcheck!r}: 0, 1 or 2")
@@ -278,6 +286,7 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     if pk.device != device or srs.device != device:
         raise ValueError(f"keys on {pk.device} and SRS on {srs.device}, proof asked for {device}")
     _phase = _Spans(device, "prove")
+    _fine = _Spans(device, "prove/fine") if fine else lambda name, sync=False: None
 
     if rng is None:
         rng = np.random.default_rng()
@@ -315,39 +324,54 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
         return pts
 
     # ---- 1. advice columns -------------------------------------------
-    raw6 = dev(np.stack([ctx.to_mont_np(col) for col in _advice_columns(builder, n, usable, rng)]))
+    _fine("phase1 start", sync=False)
+    cols6 = _advice_columns(builder, n, usable, rng)
+    _fine("advice host build", sync=False)
+    raw6 = dev(np.stack([ctx.to_mont_np(col) for col in cols6]))
+    del cols6
+    _fine("advice to_mont", sync=False)
     coeffs6 = _coeff(raw6, plan_inv)
+    _fine("advice iNTT")
     advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
     instance_coeff = coeffs6[NUM_ADVICE]
     for pt in commit_many(coeffs6[:NUM_ADVICE], "advice"):
         tr.write_point(pt)
+    _fine("advice commit+fold", sync=False)
     _phase("advice commit")
 
     # ---- 2. lookups ---------------------------------------------------
     theta = tr.challenge()
+    _fine("phase2 start", sync=False)
 
     ap_host, sp_host = _lookup_columns(builder, n, usable, theta, rng)
     lk_raw = dev(np.concatenate([ap_host, sp_host]))
+    _fine("lookup host permute+to_mont", sync=False)
     lk8 = _coeff(lk_raw, plan_inv)
+    _fine("lookup iNTT")
     ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
     sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
     for pt in commit_many([c for l in LOOKUPS for c in (ap_coeff[l], sp_coeff[l])], "lookup"):
         tr.write_point(pt)
+    _fine("lookup commit+fold", sync=False)
     _phase("lookup permuted")
 
     # ---- 3. grand products -------------------------------------------
     beta = tr.challenge()
     gamma = tr.challenge()
     active = torch.arange(n, device=device) < usable
+    _fine("phase3 start", sync=False)
 
     omega_dev = powers(ctx, domain.omega, n, device)
+    _fine("gp omega host", sync=False)
     sigma_raw = _evals_batch(torch.stack(pk.sigma_coeff), plan_fwd)
     # all 5 grand products (permutation + 4 lookups) batched; y is not drawn yet
     num, den = gp_fracs(raw6, sigma_raw, omega_dev, pk.raw_stack, lk_raw,
                         challenge_words(theta, beta, gamma, 0, pk.delta_powers), usable)
     num_a, pre, suf, totals = _gp_partials(num, den, active, SCAN)
     del num, den
+    _fine("gp fracs+partials launch", sync=False)
     total_ints = L.from_device_mont(ctx, totals)
+    _fine("gp totals d2h", sync=False)
     if any(t == 0 for t in total_ints):
         raise ValueError("grand product denominator vanished")
     total_inv_m = L.to_device_mont(ctx, [pow(t, -1, FR.p) for t in total_ints], device)
@@ -355,10 +379,12 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
                 ).reshape(5, n - usable - 1, L.NW)
     z5 = _gp_finish(num_a, pre, suf, total_inv_m, blind, SCAN)
     z5_coeff = _coeff(z5, plan_inv)
+    _fine("gp finish+iNTT")
     z_perm_coeff = z5_coeff[0]
     z_lookup_coeff = {l: z5_coeff[1 + i] for i, l in enumerate(LOOKUPS)}
     for pt in commit_many(z5_coeff, "gp"):
         tr.write_point(pt)
+    _fine("gp commit+fold", sync=False)
     _phase("grand products")
 
     # ---- 4. random poly ----------------------------------------------
@@ -381,16 +407,20 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
         h_coeff = split_quotient(witness_coeffs, pk, consts, plan_fwd, plan_coset)
     else:
         # one batched extended-coset NTT for every opened witness polynomial
+        _fine("phase5 start", sync=False)
         ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_coset)
+        _fine("quotient ext NTT")
         h_coeff = quotient_stacked(ext_stack, pk.ext_stack, pk.x_ext,
                                    pk.zh_inv_ext[:MAX_DEGREE], consts, pk.quotient_unscale,
                                    plan_quot)
         # the extended-domain arrays are not needed by the openings
         del ext_stack
+    _fine("quotient eval+iNTT")
     h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]
     for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW),
                           "quotient"):
         tr.write_point(pt)
+    _fine("quotient commit+fold", sync=False)
     _phase("quotient")
 
     # ---- 6. evaluations ------------------------------------------------

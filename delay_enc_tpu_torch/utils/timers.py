@@ -6,7 +6,8 @@ calling thread's current stream when the span is given the device it ran
 on, so a span measures its device work and not only its enqueue, and does
 not wait for other threads' streams.
 
-Spans are shared by every thread and added under a lock (`add`).  Where
+Spans and counters (`count`) are shared by every thread and added under a
+lock (`add`); `dump` gives both as JSON in the JAX package's shape.  Where
 proofs run concurrently (`plonk/pipeline.py`), a name's seconds are the sum
 over the threads that ran it: they can exceed the wall time that passed.
 `collect` keeps one thread's spans apart as well (the daemon's jobs and
@@ -15,6 +16,7 @@ its warmups, `runtime/daemon.py`).
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from contextlib import contextmanager
@@ -24,6 +26,7 @@ from dataclasses import dataclass, field
 @dataclass
 class Metrics:
     spans: dict = field(default_factory=dict)
+    counters: dict = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
     _local: threading.local = field(default_factory=threading.local, repr=False, compare=False)
 
@@ -47,9 +50,21 @@ class Metrics:
         finally:
             self._local.sink = outer
 
+    def count(self, name: str, delta: int = 1) -> None:
+        """Add delta to a counter; safe from any thread."""
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + delta
+
+    def dump(self) -> str:
+        """Spans and counters as JSON, {"spans_s": …, "counters": …}."""
+        with self._lock:
+            return json.dumps({"spans_s": dict(self.spans), "counters": dict(self.counters)},
+                              indent=2)
+
     def clear(self) -> None:
         with self._lock:
             self.spans.clear()
+            self.counters.clear()
 
     def snapshot(self) -> dict:
         """A copy of the spans, consistent under concurrent `add`s."""
