@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one line each (stderr carries detail):
- 0. the card's name and power limit; build the CUDA kernels; then SRS setup,
+ 0. the card's name and power limit; whether the host C libraries
+    (`native.get_lib`, `get_eclib`) loaded, which they must; build the CUDA
+    kernels; then SRS setup,
     keygen and create_proof of the k=7 test circuit on the card, whose vk
     and proof bytes must equal the JAX package's (tests/data/torch_port_k7.npz),
     with ntt="mxu" too;
@@ -53,7 +55,9 @@ Phases, one line each (stderr carries detail):
     circuit and seed (tests/data/torch_port_k11.npz), verify; then the
     base-16 MSM: its table, a keygen that must reproduce the committed vk and
     a proof that must equal the base-4 one;
- 4. delay_enc at k=16, the headline: SRS setup, keygen, create_proof,
+ 4. delay_enc at k=16, the headline: SRS setup, keygen (its vk equal to the
+    JAX package's, tests/data/torch_port_vk_delay_enc_k16.npz, byte for
+    byte, in base 4 and, after the base-16 proofs, base 16), create_proof,
     verify, with every kernel's launch count from this phase and from the
     proof alone, which must stay within the counts the redesigns reached;
     then one more proof under torch.profiler for the device time by kernel;
@@ -64,12 +68,14 @@ Phases, one line each (stderr carries detail):
     then the base-16 MSM on the same SRS and keys: its table (seconds,
     launches, bytes), one proof that must equal the base-4 one, beside a
     base-4 proof's wall time, and one more under the profiler;
- 5. mod_pow at k=17 (bench.py's draw): SRS setup, keygen, two proofs from
+ 5. mod_pow at k=17 (bench.py's draw): SRS setup, keygen (its vk equal to
+    the JAX package's in both bases, as in phase 4), two proofs from
     default_rng(0) that must be byte-identical, verify, with its own launch
     counts a proof held to the same plan; then ntt="mxu" as in phase 4
     (n1 = n2 = 1024 on the 2^20 coset);
  6. delay_enc at k=18 (bench.py's draw, |T| = 31, 241,348 rows): SRS setup,
-    a keygen that picks the split quotient, two split proofs from
+    a keygen that picks the split quotient (its vk equal to the JAX
+    package's in both bases, as in phase 4), two split proofs from
     default_rng(0) that must be byte-identical and verify, their launch
     counts held to the split plan (8 launches of K6's coset form), one more
     under torch.profiler; then keygen(split=False), which must give the same
@@ -141,6 +147,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "bench_data_cpu")
 VK_FILE = "keys_pose_enc_03b0f1e6255bb975e1394ff696635139.vk.npz"
+# the JAX package's vk of each row that phases 4, 5 and 6 key (written by the
+# slow tests of tests/test_torch_vk_goldens.py), held byte for byte in both bases
+VK_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_vk_{}_k{}.npz")
+VK_GOLDENS = (("delay_enc", 16), ("mod_pow", 17), ("delay_enc", 18))
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 INT_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 TC_INT8_PER_SM_CLK = 4096  # dense int8 tensor-core multiply-adds per SM per clock
@@ -1792,6 +1802,59 @@ def check_vk(vk, want, what: str) -> None:
         raise AssertionError(f"{what}: transcript_repr differs from the committed vk")
 
 
+def vk_affine(pts) -> np.ndarray:
+    """(m, 2, 32) uint8: each affine point's x and y, little-endian; the
+    point at infinity as zeros (the goldens' encoding)."""
+    out = np.zeros((len(pts), 2, 32), np.uint8)
+    for i, p in enumerate(pts):
+        if p is not None:
+            for j, v in enumerate(p):
+                out[i, j] = np.frombuffer(int(v).to_bytes(32, "little"), np.uint8)
+    return out
+
+
+def vk_parity(phase: str, workload: str, b, vk, msm: str, t_key: float) -> None:
+    """The port's vk of (workload, k) against the JAX package's
+    (tests/data/torch_port_vk_<workload>_k<k>.npz), byte for byte: the
+    commitments as affine coordinates, transcript_repr, k and the circuit's
+    rows.  Prints one line; a difference raises.  A row without a golden
+    (not in VK_GOLDENS) is not checked."""
+    from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED
+
+    k = vk.domain.k
+    if (workload, k) not in VK_GOLDENS:
+        return
+    path = VK_GOLDEN.format(workload, k)
+    with np.load(path) as z:
+        want = {key: z[key] for key in z.files}
+    have = {"k": np.array(k), "rows": np.array(b.rows), "fixed_names": np.array(ALL_FIXED),
+            "fixed": vk_affine([vk.fixed_commitments[n] for n in ALL_FIXED]),
+            "sigma": vk_affine(vk.sigma_commitments),
+            "transcript_repr": np.array(str(vk.transcript_repr))}
+    diff = [key for key, v in have.items()
+            if want[key].shape != v.shape or not np.array_equal(want[key], v)]
+    print(f"{phase} vk_parity k={k} base={msm} equal={str(not diff).lower()}: {workload}, "
+          f"{len(ALL_FIXED)} fixed + {len(vk.sigma_commitments)} sigma commitments and "
+          f"transcript_repr against the JAX package's {os.path.relpath(path, ROOT)} "
+          f"({os.path.getsize(path)} B); keygen {t_key:.3f} s", flush=True)
+    if diff:
+        raise AssertionError(f"{workload} k={k} msm={msm}: the vk's {diff} differ from the JAX "
+                             f"package's")
+
+
+def vk_parity_b16(phase: str, workload: str, b, srs, k: int, dev) -> None:
+    """keygen with msm="b16" on the same SRS and circuit, held to the JAX
+    package's vk by `vk_parity`."""
+    from delay_enc_tpu_torch.plonk import keygen
+
+    if (workload, k) not in VK_GOLDENS:
+        return
+    t0 = time.time()
+    _, vk = keygen(b, srs, k=k, device=dev, msm="b16")
+    torch.cuda.synchronize()
+    vk_parity(phase, workload, b, vk, "b16", time.time() - t0)
+
+
 def spans(prefix=""):
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
@@ -2337,6 +2400,7 @@ def mod_pow_phase(dev, card: str) -> None:
     t0 = time.time()
     pk, vk = keygen(b, srs, k=k, device=dev)
     t_key = time.time() - t0
+    vk_parity("phase 5", "mod_pow", b, vk, "b4", t_key)
     before = _cuda.launch_counts()
     proofs, t_prove = [], []
     for _ in range(2):
@@ -2363,6 +2427,8 @@ def mod_pow_phase(dev, card: str) -> None:
     check_proof_launches(proof_launches, k)
     profile_proof(srs, pk, b, proofs[0], dev, "phase 5")
     mxu_proof_phase(dev, card, srs, pk, b, proofs[0], "phase 5")
+    del pk
+    vk_parity_b16("phase 5", "mod_pow", b, srs, k, dev)
 
 
 def split_proofs(dev, card: str, phase: str, workload: str, k: int, tau: int) -> tuple:
@@ -2398,6 +2464,7 @@ def split_proofs(dev, card: str, phase: str, workload: str, k: int, tau: int) ->
     if not pk.split or pk.ext_stack is not None:
         raise AssertionError(f"keygen at k={k} did not pick the split quotient")
     key_spans, key_peak = spans("keygen/"), torch.cuda.max_memory_allocated()
+    vk_parity(phase, workload, b, vk, "b4", t_key)
     before = _cuda.launch_counts()
     proofs, t_prove, prove_spans = [], [], []
     torch.cuda.reset_peak_memory_stats()
@@ -2485,7 +2552,10 @@ def delay_enc_split_phase(dev, card: str, k: int = 18) -> dict:
           f"spans {json.dumps(spans('prove/'))}", flush=True)
     check_proof_launches({name: after[name] - before[name] for name in after}, k)
     profile_proof(srs, pk_f, b, proof_f, dev, "phase 6 fused")
-    del pk_f, srs
+    del pk_f
+    torch.cuda.empty_cache()
+    vk_parity_b16("phase 6", "delay_enc", b, srs, k, dev)
+    del srs
     return launches
 
 
@@ -2789,6 +2859,17 @@ def main() -> int:
     card = smi("name,power.limit")
     print(f"phase 0 card: {card}", flush=True)
 
+    # the host path: the C libraries behind to_mont, lookup_fvals, the plane
+    # folds and the verifier, which must not fall back to Python on the card
+    from delay_enc_tpu_torch import native
+
+    t0 = time.time()
+    libs = native.status()
+    print("phase 0 host C libraries: " + ", ".join(
+        f"{name} {'loaded from ' + os.path.relpath(path, ROOT) if path else 'NOT loaded'}"
+        for name, path in libs.items()) + f" ({time.time() - t0:.2f} s)", flush=True)
+    native.require()
+
     from delay_enc_tpu_torch.ops import _cuda
     from delay_enc_tpu_torch.plonk import SRS, create_proof, keygen, verify_proof
     from delay_enc_tpu_torch.plonk.keygen import ALL_FIXED, load_vk, min_k
@@ -2900,6 +2981,7 @@ def main() -> int:
     t0 = time.time()
     pk16, vk16 = keygen(b16, srs16, k=k16, device=dev)
     t_key = time.time() - t0
+    vk_parity("phase 4", "delay_enc", b16, vk16, "b4", t_key)
     before = _cuda.launch_counts()
     t0 = time.time()
     proof16 = create_proof(srs16, pk16, b16, np.random.default_rng(0), device=dev)
@@ -2975,7 +3057,9 @@ def main() -> int:
                            msm="b16")["by_kernel"]
     if groups and ("plane_sums16" not in groups or "plane_sums (K-c)" in groups):
         raise AssertionError(f"the profiled b16 proof ran {sorted(groups)}")
-    del pk16, srs16, b16, tab16
+    del pk16
+    vk_parity_b16("phase 4", "delay_enc", b16, srs16, k16, dev)
+    del srs16, b16, tab16
 
     # ---- 5. mod_pow k=17 ----------------------------------------------
     mod_pow_phase(dev, card)

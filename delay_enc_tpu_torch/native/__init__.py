@@ -2,10 +2,12 @@
 
 `limbops` — host-side Montgomery limb conversion; `ecops` — host-side BN254
 G1 point kernels (MSM plane folds for the prover, multi-scalar mul for the
-verifier).  Both are compiled on first import with the system C compiler
-(cc -O3 -shared -fPIC) and loaded via ctypes, falling back silently to the
-pure-Python implementations when no compiler is available (the Python API
-surfaces are unchanged either way).
+verifier).  Both are compiled on first use with the system C compiler
+(cc -O3 -shared -fPIC) and loaded via ctypes.  Where that fails, `get_lib`
+and `get_eclib` return None and their callers take the pure-Python paths
+(the Python API surfaces are unchanged either way); `status()` says which
+library loaded and why one did not, and `require()` raises instead, for a
+caller that must not run the host path in Python.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ _BUILD = os.path.join(os.path.dirname(_HERE), "build")
 _lib = None
 _eclib = None
 _ECLIB_TRIED = False
+_ERRORS: dict = {}  # library name -> why it did not load
 
 
 def _build(src: str, so: str) -> bool:
@@ -30,6 +33,7 @@ def _build(src: str, so: str) -> bool:
     # dlopen'd (SIGBUS hazard for a concurrently-running bench)
     # the temp name is per process: test workers may build concurrently
     tmp = f"{so}.{os.getpid()}.tmp"
+    name = os.path.basename(src)[:-2]
     for flags in (["-O3", "-march=native", "-pthread"], ["-O3", "-pthread"]):
         try:
             subprocess.run(
@@ -39,22 +43,31 @@ def _build(src: str, so: str) -> bool:
             )
             os.replace(tmp, so)
             return True
-        except Exception:
-            continue
+        except subprocess.CalledProcessError as e:
+            _ERRORS[name] = f"cc {' '.join(flags)}: {e.stderr.decode(errors='replace')[-400:]}"
+        except OSError as e:
+            _ERRORS[name] = f"cc: {e}"
     return False
+
+
+def _so(name: str) -> str:
+    return os.path.join(_BUILD, f"_{name}.so")
 
 
 def _load(name: str):
     src = os.path.join(_HERE, f"{name}.c")
-    so = os.path.join(_BUILD, f"_{name}.so")
+    so = _so(name)
     os.makedirs(_BUILD, exist_ok=True)
     if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
         if not _build(src, so):
             return None
     try:
-        return ctypes.CDLL(so)
-    except OSError:
+        lib = ctypes.CDLL(so)
+    except OSError as e:
+        _ERRORS[name] = f"dlopen: {e}"
         return None
+    _ERRORS.pop(name, None)
+    return lib
 
 
 def get_lib():
@@ -177,3 +190,22 @@ def get_eclib():
     ]
     _eclib = lib
     return _eclib
+
+
+def status() -> dict:
+    """{library: its shared object's path if it loaded, else None}, after
+    trying to load both."""
+    loaded = {"limbops": get_lib(), "ecops": get_eclib()}
+    return {name: _so(name) if lib is not None else None for name, lib in loaded.items()}
+
+
+def require() -> dict:
+    """Load both C libraries or raise RuntimeError naming each that did not
+    load and why; returns `status()`.  The libraries stay loaded, so every
+    later caller takes the C path."""
+    st = status()
+    missing = [name for name, path in st.items() if path is None]
+    if missing:
+        raise RuntimeError("host C libraries not loaded: " + "; ".join(
+            f"{name} ({_ERRORS.get(name, 'no reason recorded')})" for name in missing))
+    return st

@@ -401,6 +401,12 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
     return (a == 0).all(dim=-1)
 
 
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Word-wise equality along the last axis (broadcast over the rest): the
+    JAX package's `eq` of the (…, 16) limbs of the same bytes."""
+    return (a == b).all(dim=-1)
+
+
 def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """cond ? a : b, cond shaped like the batch (no word axis)."""
     return torch.where(cond[..., None], a, b)

@@ -178,6 +178,8 @@ def create_proofs_batched(srs, pk: ProvingKey, builders, rng=None, device="cuda"
     instances over its devices (`axis` must name its axis; B a multiple of
     its size); the key and the SRS may then lie on any device, and
     `device` is not read.  The bytes do not depend on the mesh."""
+    if mesh is None:
+        device = resolve(device)
     _check_batch(pk, builders)
     B = len(builders)
     groups = _groups(srs, pk, B, device, msm, mesh, axis)

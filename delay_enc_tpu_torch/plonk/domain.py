@@ -112,6 +112,21 @@ class Domain:
         return self._plans[key]
 
     # ---- host-side Lagrange helpers (verifier) -----------------------
+    def lagrange_at(self, i: int, x: int) -> int:
+        """l_i(x) = omega^i (x^n - 1) / (n (x - omega^i)); at x = omega^i the
+        formula divides by 0 and raises ValueError, as the JAX package's."""
+        p = FR.p
+        wi = pow(self.omega, i, p)
+        num = wi * (pow(x, self.n, p) - 1) % p
+        den = self.n * (x - wi) % p
+        return num * pow(den, -1, p) % p
+
+    def l_blind_at(self, x: int) -> int:
+        """The sum of l_i(x) over the blinding rows, usable_rows + 1 .. n - 1
+        (the rows of keygen's l_blind mask)."""
+        vals = self.lagranges_at(range(self.usable_rows + 1, self.n), x)
+        return sum(vals.values()) % FR.p
+
     def lagranges_at(self, idxs, x: int) -> dict:
         """{i: l_i(x)} for several indices with one field inversion."""
         idxs = list(idxs)

@@ -18,6 +18,7 @@ from ..curves.bn254 import g1_from_bytes, g1_to_bytes
 from ..fields.bn254 import FR
 from ..ops import limbs as L
 from ..ops.ntt import powers
+from ..utils.device import resolve
 from .domain import Domain
 from .keygen import ALL_FIXED, ProvingKey, VerifyingKey, transcript_repr
 
@@ -119,6 +120,7 @@ def load_pk(path: str, device="cuda") -> ProvingKey:
     none (`shape` None), and the batch is then held to its first builder."""
     from ..state import proving_key_from_jax
 
+    device = resolve(device)
     vk = load_vk(path + ".vk.npz")
     with np.load(path + ".pk.npz") as z:
         split = bool(z["split"]) if "split" in z.files else False
