@@ -1,0 +1,10 @@
+"""advice_s.serial: seconds a proof in the program's span `prove/advice commit`, over the
+window (the span closes on a stream synchronize)."""
+
+SPAN = "prove/advice commit"
+
+
+def read(run):
+    if SPAN not in run.spans or not run.proofs:
+        return None
+    return run.spans[SPAN] / run.proofs
