@@ -1906,7 +1906,9 @@ def profile_run(run, phase: str, what: str) -> dict:
         g[1] += count
 
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # the program's spans are record_function ranges, which the card
+        # reports as user annotations covering their whole interval
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         name = KERNEL_SYMBOLS.get(kernel_function(e.key), "torch (other)")
@@ -2465,19 +2467,21 @@ def split_proofs(dev, card: str, phase: str, workload: str, k: int, tau: int) ->
         raise AssertionError(f"keygen at k={k} did not pick the split quotient")
     key_spans, key_peak = spans("keygen/"), torch.cuda.max_memory_allocated()
     vk_parity(phase, workload, b, vk, "b4", t_key)
-    before = _cuda.launch_counts()
-    proofs, t_prove, prove_spans = [], [], []
+    launches = _cuda.launch_counts()
+    proofs, t_prove, prove_spans, proved = [], [], [], dict.fromkeys(launches, 0)
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
-        GLOBAL_METRICS.clear()
+        GLOBAL_METRICS.clear()  # the spans and the launch counts
         t0 = time.time()
         proofs.append(create_proof(srs, pk, b, np.random.default_rng(0), device=dev))
         torch.cuda.synchronize()
         t_prove.append(time.time() - t0)
         prove_spans.append(spans("prove/"))
+        for name, n in _cuda.launch_counts().items():
+            proved[name] += n
     split_peak = torch.cuda.max_memory_allocated()
-    launches = _cuda.launch_counts()
-    proof_launches = {name: (launches[name] - before[name]) // 2 for name in launches}
+    launches = {name: launches[name] + n for name, n in proved.items()}
+    proof_launches = {name: n // 2 for name, n in proved.items()}
     if proofs[0] != proofs[1]:
         raise AssertionError(f"{workload} k={k} split proofs from one rng seed differ")
     t0 = time.time()

@@ -6,11 +6,14 @@ together) and loaded with `ctypes`.  Every pointer and the stream go over
 as `c_void_p`; each C entry point launches on the given stream and returns
 `cudaGetLastError()`, which `Kernel.__call__` turns into an exception.
 
-Each `Kernel` keeps a launch count, so a run can show which kernels its
-main path went through (`reset_launches`, `launch_counts`).  The counts,
-the build and the bindings are shared by every thread (the pipelined
-prover launches from several) and kept under one lock; a launch goes to
-the calling thread's current stream (`stream`).
+Each launch of a `Kernel` counts into the port's registry of spans and
+counters as `launches/<kernel>` (`utils/timers.py`), so a run can show
+which kernels its main path went through (`reset_launches`,
+`launch_counts` are views of those counters; the registry's `clear` zeroes
+them too).  The build and the bindings
+are shared by every thread (the pipelined prover launches from several)
+and kept under one lock; a launch goes to the calling thread's current
+stream (`stream`).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..utils.timers import GLOBAL_METRICS
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -157,22 +162,28 @@ def query(symbol: str, *args) -> None:
         raise RuntimeError(f"{symbol} failed: error {rc}")
 
 
+LAUNCHES = "launches/"  # prefix of the kernels' launch counters in the registry
+
+
 class Kernel:
-    """One CUDA entry point with its launch count."""
+    """One CUDA entry point; its launches count as `launches/<name>`."""
 
     def __init__(self, name: str, symbol: str, replaces: str, source: str):
         self.name = name
         self.symbol = symbol
         self.replaces = replaces
         self.source = source
-        self.launches = 0
+        self.counter = LAUNCHES + name
+
+    @property
+    def launches(self) -> int:
+        return GLOBAL_METRICS.counters.get(self.counter, 0)
 
     def __call__(self, *args) -> None:
         rc = _bind(self.symbol)(*args)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {rc}")
-        with _lock:
-            self.launches += 1
+        GLOBAL_METRICS.count(self.counter)
 
 
 KERNELS: dict[str, Kernel] = {}
@@ -185,14 +196,11 @@ def kernel(name: str, symbol: str, replaces: str, source: str) -> Kernel:
 
 
 def reset_launches() -> None:
-    with _lock:
-        for k in KERNELS.values():
-            k.launches = 0
+    GLOBAL_METRICS.reset(LAUNCHES)
 
 
 def launch_counts() -> dict:
-    with _lock:
-        return {name: k.launches for name, k in KERNELS.items()}
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def require_cuda(*tensors) -> None:

@@ -29,6 +29,7 @@ import torch
 
 from ..fields.bn254 import FQ, FR
 from ..fields.prime import PrimeField
+from ..utils.timers import GLOBAL_METRICS
 from . import _cuda
 
 NW = 8  # 32-bit words per element
@@ -78,14 +79,19 @@ def words_to_ints_np(w) -> list[int]:
 
 
 def to_tensor(words: np.ndarray, device) -> torch.Tensor:
-    """uint32 (…, 8) numpy words -> int32 tensor on `device`."""
-    w = np.ascontiguousarray(words, dtype=np.uint32)
-    return torch.from_numpy(w.view(np.int32).copy()).to(device)
+    """uint32 (…, 8) numpy words -> int32 tensor on `device`: a copy from
+    pageable host memory, the span `htod`, its bytes counted (`htod bytes`)."""
+    with GLOBAL_METRICS.span("htod"):
+        w = np.ascontiguousarray(words, dtype=np.uint32)
+        GLOBAL_METRICS.count("htod bytes", w.nbytes)
+        return torch.from_numpy(w.view(np.int32).copy()).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 word tensor -> uint32 numpy words on the host."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+    """int32 word tensor -> uint32 numpy words on the host: waits for the
+    work queued on the stream, then copies (the span `device wait`)."""
+    with GLOBAL_METRICS.span("device wait"):
+        return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
 # ------------------------------------------------------------- contexts
@@ -115,22 +121,23 @@ class FieldCtx:
         return self._nc
 
     def to_mont_np(self, xs) -> np.ndarray:
-        """ints -> (N, 8) uint32 Montgomery words."""
+        """ints -> (N, 8) uint32 Montgomery words (the span `to_mont`)."""
         from ..native import get_lib
 
-        lib = get_lib()
-        p = self.p
-        if lib is not None:
-            n = len(xs)
-            buf = b"".join(int(x % p).to_bytes(32, "little") for x in xs)
-            inp = np.frombuffer(buf, dtype=np.uint8)
-            out = np.empty((n, NLIMB), dtype=np.uint32)
-            pw, r2w, n0 = self._native_consts()
-            lib.to_mont(
-                inp.ctypes.data, n, pw.ctypes.data, r2w.ctypes.data, n0, out.ctypes.data
-            )
-            return limbs_to_words_np(out)
-        return ints_to_words_np([(int(x) << 256) % p for x in xs])
+        with GLOBAL_METRICS.span("to_mont"):
+            lib = get_lib()
+            p = self.p
+            if lib is not None:
+                n = len(xs)
+                buf = b"".join(int(x % p).to_bytes(32, "little") for x in xs)
+                inp = np.frombuffer(buf, dtype=np.uint8)
+                out = np.empty((n, NLIMB), dtype=np.uint32)
+                pw, r2w, n0 = self._native_consts()
+                lib.to_mont(
+                    inp.ctypes.data, n, pw.ctypes.data, r2w.ctypes.data, n0, out.ctypes.data
+                )
+                return limbs_to_words_np(out)
+            return ints_to_words_np([(int(x) << 256) % p for x in xs])
 
     def from_mont_np(self, a) -> list[int]:
         """(…, 8) uint32 Montgomery words -> ints."""

@@ -27,6 +27,7 @@ import torch
 
 from ..curves.bn254 import G1, _jac_add_affine, _jac_double, _jac_to_affine
 from ..fields.bn254 import FQ
+from ..utils.timers import GLOBAL_METRICS
 from . import _cuda
 from . import limbs as L
 from . import msm_tree
@@ -282,17 +283,19 @@ def horner_host(plane_pts_affine, base_bits: int = 2) -> "tuple | None":
 def fold_planes_host(sums: torch.Tensor, base_bits: int = 2) -> list:
     """(B, P, 3, 8) plane sums of base 2^base_bits -> B affine MSM results,
     by the copied C fold (`native/ec.py:fold_planes_batch`, which reads
-    16-bit limbs), or by `horner_host` where the C library is missing."""
+    16-bit limbs), or by `horner_host` where the C library is missing.  The
+    span `fold`; its read of the sums is its child `device wait`."""
     from ..native.ec import fold_planes_batch
 
-    words = L.to_numpy(sums)
-    b, n_planes = words.shape[0], words.shape[1]
-    res = fold_planes_batch(L.words_to_limbs_np(words), base_bits)
-    if res is not None:
-        return res
-    affine = points_from_device(words)
-    return [horner_host(affine[i * n_planes : (i + 1) * n_planes], base_bits)
-            for i in range(b)]
+    with GLOBAL_METRICS.span("fold"):
+        words = L.to_numpy(sums)
+        b, n_planes = words.shape[0], words.shape[1]
+        res = fold_planes_batch(L.words_to_limbs_np(words), base_bits)
+        if res is not None:
+            return res
+        affine = points_from_device(words)
+        return [horner_host(affine[i * n_planes : (i + 1) * n_planes], base_bits)
+                for i in range(b)]
 
 
 def msm_with_tables(tables: torch.Tensor, scalar_words: torch.Tensor) -> list:

@@ -31,6 +31,9 @@ group's device work before it reads any result back, so the devices of a
 mesh of several cards work at once.  The proofs are independent, so no
 group exchanges anything with another, and the bytes are the unsharded
 batch's.
+
+Spans: a batch is the root span `prove_batch`, its phases and their
+children named as the single prover's (`plonk/prover.py`).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..ops.ntt import powers
 from ..ops.poly import powers_rows
 from ..parallel.mesh import Mesh, on
 from ..utils.device import resolve
+from ..utils.timers import GLOBAL_METRICS
 from .domain import MAX_DEGREE, QUOTIENT_PIECES
 from .keygen import LOOKUPS, ProvingKey, circuit_shape
 from .kernels import (
@@ -74,7 +78,6 @@ from .prover import (
     _points,
     _rand_fr,
     _rand_fr_mont_bulk,
-    _Spans,
 )
 from .transcript import Transcript
 
@@ -181,10 +184,15 @@ def create_proofs_batched(srs, pk: ProvingKey, builders, rng=None, device="cuda"
     if mesh is None:
         device = resolve(device)
     _check_batch(pk, builders)
+    groups = _groups(srs, pk, len(builders), device, msm, mesh, axis)
+    with GLOBAL_METRICS.span("prove_batch"):
+        return _prove_batch(pk, builders, rng, groups)
+
+
+def _prove_batch(pk: ProvingKey, builders, rng, groups: list) -> list[bytes]:
+    """create_proofs_batched's body, inside its root span `prove_batch`."""
+    span = GLOBAL_METRICS.span
     B = len(builders)
-    groups = _groups(srs, pk, B, device, msm, mesh, axis)
-    distinct = list(dict.fromkeys(g.device for g in groups))
-    _phase = _Spans(distinct, "prove_batch")
     if rng is None:
         rng = np.random.default_rng()
     ctx = CTX
@@ -224,112 +232,126 @@ def create_proofs_batched(srs, pk: ProvingKey, builders, rng=None, device="cuda"
     def from_mont(tensors: list) -> list:
         return [v for t in tensors for v in L.from_device_mont(ctx, t)]
 
-    trs = [Transcript() for _ in range(B)]
-    for tr, b in zip(trs, builders):
-        tr.common_scalar(pk.vk.transcript_repr)
-        for v in b.instance:
-            tr.common_scalar(v)
-
     # ---- 1. advice --------------------------------------------------------
-    cols = [col for b in builders for col in _advice_columns(b, n, usable, rng)]
-    raw = dev(np.stack([ctx.to_mont_np(c) for c in cols]).reshape(B, NUM_ADVICE + 1, n, L.NW))
-    coeff = each(lambda g: _coeff(raw[g.i], g.plan))  # (b, 6, n, 8) a group
-    commit([c[:, :NUM_ADVICE].reshape(-1, n, L.NW) for c in coeff], NUM_ADVICE)
-    _phase("advice commit")
+    with span("advice commit"):
+        trs = [Transcript() for _ in range(B)]
+        for tr, b in zip(trs, builders):
+            tr.common_scalar(pk.vk.transcript_repr)
+            for v in b.instance:
+                tr.common_scalar(v)
+        cols = [col for b in builders for col in _advice_columns(b, n, usable, rng)]
+        words = [ctx.to_mont_np(c) for c in cols]
+        with span("columns"):
+            words = np.stack(words).reshape(B, NUM_ADVICE + 1, n, L.NW)
+        raw = dev(words)
+        del words
+        coeff = each(lambda g: _coeff(raw[g.i], g.plan))  # (b, 6, n, 8) a group
+        commit([c[:, :NUM_ADVICE].reshape(-1, n, L.NW) for c in coeff], NUM_ADVICE)
 
     # ---- 2. lookups -------------------------------------------------------
-    thetas = [tr.challenge() for tr in trs]
-    lk_host = [np.concatenate(_lookup_columns(b, n, usable, theta, rng, separate_pads=True))
-               for b, theta in zip(builders, thetas)]
-    lk_raw = dev(np.stack(lk_host))  # (b, 8, n, 8): A'_a..d, then S'_a..d
-    lk_coeff = each(lambda g: _coeff(lk_raw[g.i], g.plan))
-    ap_coeff, sp_coeff = [c[:, :NL] for c in lk_coeff], [c[:, NL:] for c in lk_coeff]
-    # each instance's commitments in the single prover's order: A'_l, S'_l
-    commit([torch.stack([a, s], dim=2).reshape(-1, n, L.NW)
-            for a, s in zip(ap_coeff, sp_coeff)], 2 * NL)
-    _phase("lookup permuted")
+    with span("lookup permuted"):
+        thetas = [tr.challenge() for tr in trs]
+
+        def lookup_columns(b, theta) -> np.ndarray:
+            ap, sp = _lookup_columns(b, n, usable, theta, rng, separate_pads=True)
+            with span("columns"):
+                return np.concatenate([ap, sp])
+
+        lk_host = [lookup_columns(b, theta) for b, theta in zip(builders, thetas)]
+        with span("columns"):
+            lk_stack = np.stack(lk_host)  # (B, 8, n, 8): A'_a..d, then S'_a..d
+        lk_raw = dev(lk_stack)
+        del lk_stack
+        lk_coeff = each(lambda g: _coeff(lk_raw[g.i], g.plan))
+        ap_coeff, sp_coeff = [c[:, :NL] for c in lk_coeff], [c[:, NL:] for c in lk_coeff]
+        # each instance's commitments in the single prover's order: A'_l, S'_l
+        commit([torch.stack([a, s], dim=2).reshape(-1, n, L.NW)
+                for a, s in zip(ap_coeff, sp_coeff)], 2 * NL)
 
     # ---- 3. grand products ------------------------------------------------
-    betas = [tr.challenge() for tr in trs]
-    gammas = [tr.challenge() for tr in trs]
-    active = per_device(lambda g: torch.arange(n, device=g.device) < usable)
-    omega_dev = per_device(lambda g: powers(ctx, domain.omega, n, g.device))
-    sigma_raw = per_device(lambda g: _evals_batch(torch.stack(g.pk.sigma_coeff), g.plan))
-    fracs_consts = np.stack([challenge_words(t, b, g, 0, pk.delta_powers)
-                             for t, b, g in zip(thetas, betas, gammas)])
-    partials = each(lambda g: _gp_partials(
-        *gp_fracs(raw[g.i], sigma_raw[g.device], omega_dev[g.device], g.pk.raw_stack,
-                  lk_raw[g.i], fracs_consts[g.lo:g.hi], usable),  # (b * 5, n, 8) each
-        active[g.device], SCAN))
-    del omega_dev, sigma_raw
-    total_ints = from_mont([p[3] for p in partials])
-    if any(t == 0 for t in total_ints):
-        raise ValueError("grand product denominator vanished")
-    total_inv = ctx.to_mont_np([pow(t, -1, FR.p) for t in total_ints]).reshape(B, GP, L.NW)
-    blind = ctx.to_mont_np([_rand_fr(rng) for _ in range(B * GP * (n - usable - 1))])
-    blind = dev(blind.reshape(B, GP, n - usable - 1, L.NW))
-    total_inv = dev(total_inv)
-    z_coeff = each(lambda g: _coeff(_gp_finish(
-        *partials[g.i][:3], total_inv[g.i].reshape(-1, L.NW),
-        blind[g.i].reshape(-1, n - usable - 1, L.NW), SCAN), g.plan).reshape(-1, GP, n, L.NW))
-    del partials, blind
-    commit([z.reshape(-1, n, L.NW) for z in z_coeff], GP)
-    _phase("grand products")
+    with span("grand products"):
+        betas = [tr.challenge() for tr in trs]
+        gammas = [tr.challenge() for tr in trs]
+        active = per_device(lambda g: torch.arange(n, device=g.device) < usable)
+        omega_dev = per_device(lambda g: powers(ctx, domain.omega, n, g.device))
+        sigma_raw = per_device(lambda g: _evals_batch(torch.stack(g.pk.sigma_coeff), g.plan))
+        fracs_consts = np.stack([challenge_words(t, b, g, 0, pk.delta_powers)
+                                 for t, b, g in zip(thetas, betas, gammas)])
+        partials = each(lambda g: _gp_partials(
+            *gp_fracs(raw[g.i], sigma_raw[g.device], omega_dev[g.device], g.pk.raw_stack,
+                      lk_raw[g.i], fracs_consts[g.lo:g.hi], usable),  # (b * 5, n, 8) each
+            active[g.device], SCAN))
+        del omega_dev, sigma_raw
+        total_ints = from_mont([p[3] for p in partials])
+        if any(t == 0 for t in total_ints):
+            raise ValueError("grand product denominator vanished")
+        total_inv = ctx.to_mont_np([pow(t, -1, FR.p) for t in total_ints]).reshape(B, GP, L.NW)
+        blind = ctx.to_mont_np([_rand_fr(rng) for _ in range(B * GP * (n - usable - 1))])
+        blind = dev(blind.reshape(B, GP, n - usable - 1, L.NW))
+        total_inv = dev(total_inv)
+        z_coeff = each(lambda g: _coeff(_gp_finish(
+            *partials[g.i][:3], total_inv[g.i].reshape(-1, L.NW),
+            blind[g.i].reshape(-1, n - usable - 1, L.NW), SCAN), g.plan).reshape(-1, GP, n,
+                                                                               L.NW))
+        del partials, blind
+        commit([z.reshape(-1, n, L.NW) for z in z_coeff], GP)
 
-    # ---- 4. random polys --------------------------------------------------
-    random_coeff = dev(_rand_fr_mont_bulk(rng, B * n).reshape(B, n, L.NW))
-    commit(random_coeff, 1)
+    with span("quotient"):
+        # ---- 4. random polys ----------------------------------------------
+        random_coeff = dev(_rand_fr_mont_bulk(rng, B * n).reshape(B, n, L.NW))
+        commit(random_coeff, 1)
 
-    # ---- 5. quotient ------------------------------------------------------
-    ys = [tr.challenge() for tr in trs]
-    consts = np.stack([challenge_words(t, b, g, y, pk.delta_powers)
-                       for t, b, g, y in zip(thetas, betas, gammas, ys)])
-    del raw, lk_raw, lk_coeff
+        # ---- 5. quotient --------------------------------------------------
+        ys = [tr.challenge() for tr in trs]
+        consts = np.stack([challenge_words(t, b, g, y, pk.delta_powers)
+                           for t, b, g, y in zip(thetas, betas, gammas, ys)])
+        del raw, lk_raw, lk_coeff
 
-    def quotient(g: _Group) -> torch.Tensor:
-        # each instance's 19 witness rows in the quotient kernel's order
-        # (kernels.W_*): advice, instance, z_perm, z_l, A'_l, S'_l
-        i = g.i
-        wit = torch.cat([coeff[i], z_coeff[i], ap_coeff[i], sp_coeff[i]], dim=1)
-        b = wit.shape[0]
-        ext = _ext(wit.reshape(b * WIT_ROWS, n, L.NW), g.pk.zeta_powers, g.plan_ext)
-        del wit
-        h_coeff = quotient_stacked(ext.reshape(b, WIT_ROWS, domain.n_ext, L.NW),
-                                   g.pk.ext_stack, g.pk.x_ext, g.pk.zh_inv_ext[:MAX_DEGREE],
-                                   consts[g.lo:g.hi], g.pk.quotient_unscale,
-                                   g.plan_ext)  # (b, n_ext, 8)
-        return h_coeff[:, : QUOTIENT_PIECES * n].reshape(b, QUOTIENT_PIECES, n, L.NW)
+        def quotient(g: _Group) -> torch.Tensor:
+            # each instance's 19 witness rows in the quotient kernel's order
+            # (kernels.W_*): advice, instance, z_perm, z_l, A'_l, S'_l
+            i = g.i
+            wit = torch.cat([coeff[i], z_coeff[i], ap_coeff[i], sp_coeff[i]], dim=1)
+            b = wit.shape[0]
+            ext = _ext(wit.reshape(b * WIT_ROWS, n, L.NW), g.pk.zeta_powers, g.plan_ext)
+            del wit
+            h_coeff = quotient_stacked(ext.reshape(b, WIT_ROWS, domain.n_ext, L.NW),
+                                       g.pk.ext_stack, g.pk.x_ext, g.pk.zh_inv_ext[:MAX_DEGREE],
+                                       consts[g.lo:g.hi], g.pk.quotient_unscale,
+                                       g.plan_ext)  # (b, n_ext, 8)
+            return h_coeff[:, : QUOTIENT_PIECES * n].reshape(b, QUOTIENT_PIECES, n, L.NW)
 
-    h_pieces = each(quotient)
-    commit([h.reshape(-1, n, L.NW) for h in h_pieces], QUOTIENT_PIECES)
-    _phase("quotient")
+        h_pieces = each(quotient)
+        commit([h.reshape(-1, n, L.NW) for h in h_pieces], QUOTIENT_PIECES)
 
     # ---- 6. evaluations ---------------------------------------------------
-    xs = [tr.challenge() for tr in trs]
-    stacks = each(lambda g: [
-        _open_sets(g.pk, coeff[g.i][j, :NUM_ADVICE], z_coeff[g.i][j, 0], z_coeff[g.i][j, 1:],
-                   ap_coeff[g.i][j], sp_coeff[g.i][j], random_coeff[g.i][j], h_pieces[g.i][j])
-        for j in range(g.hi - g.lo)])
-    points = [p for x in xs for p in _points(domain, x)]  # 3 an instance
+    with span("evals"):
+        xs = [tr.challenge() for tr in trs]
+        stacks = each(lambda g: [
+            _open_sets(g.pk, coeff[g.i][j, :NUM_ADVICE], z_coeff[g.i][j, 0],
+                       z_coeff[g.i][j, 1:], ap_coeff[g.i][j], sp_coeff[g.i][j],
+                       random_coeff[g.i][j], h_pieces[g.i][j])
+            for j in range(g.hi - g.lo)])
+        points = [p for x in xs for p in _points(domain, x)]  # 3 an instance
 
-    def point_pows(g: _Group) -> list:
-        pows = powers_rows(ctx, L.to_device_mont(ctx, points[3 * g.lo : 3 * g.hi], g.device), n)
-        return [list(pows[3 * j : 3 * j + 3]) for j in range(g.hi - g.lo)]
+        def point_pows(g: _Group) -> list:
+            pows = powers_rows(ctx, L.to_device_mont(ctx, points[3 * g.lo : 3 * g.hi],
+                                                     g.device), n)
+            return [list(pows[3 * j : 3 * j + 3]) for j in range(g.hi - g.lo)]
 
-    pows = each(point_pows)
-    evals = from_mont(each(lambda g: _eval_stack_batch(stacks[g.i], pows[g.i])))
-    per = len(evals) // B
-    for i, tr in enumerate(trs):
-        for e in evals[i * per : (i + 1) * per]:
-            tr.write_scalar(e)
-    _phase("evals")
+        pows = each(point_pows)
+        evals = from_mont(each(lambda g: _eval_stack_batch(stacks[g.i], pows[g.i])))
+        per = len(evals) // B
+        for i, tr in enumerate(trs):
+            for e in evals[i * per : (i + 1) * per]:
+                tr.write_scalar(e)
 
     # ---- 7. GWC multiopen -------------------------------------------------
-    vs = [tr.challenge() for tr in trs]
-    zinv = [pow(p, -1, FR.p) for p in points]
-    ws = each(lambda g: _gwc_witness_batch(
-        stacks[g.i], pows[g.i], L.to_device_mont(ctx, vs[g.lo:g.hi], g.device),
-        L.to_device_mont(ctx, zinv[3 * g.lo : 3 * g.hi], g.device)))
-    commit(ws, 3)
-    _phase("gwc")
+    with span("gwc"):
+        vs = [tr.challenge() for tr in trs]
+        zinv = [pow(p, -1, FR.p) for p in points]
+        ws = each(lambda g: _gwc_witness_batch(
+            stacks[g.i], pows[g.i], L.to_device_mont(ctx, vs[g.lo:g.hi], g.device),
+            L.to_device_mont(ctx, zinv[3 * g.lo : 3 * g.hi], g.device)))
+        commit(ws, 3)
     return [bytes(tr.data) for tr in trs]

@@ -238,10 +238,19 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
     means from k = SPLIT_QUOTIENT_K on.  Both modes give the same vk and the
     same proof bytes.  `msm` picks the commitments' pair tables, "b4" or
     "b16" (`SRS.msm_tables`); both give the same vk.  `pinned_vk` bytes
-    replace the pinned vk string in `transcript_repr` (see there)."""
+    replace the pinned vk string in `transcript_repr` (see there).  Its
+    steps are spans inside the span `keygen`: `host columns`, `sigma
+    labels`, `transforms` and `commit`."""
+    device = resolve(device)
+    with GLOBAL_METRICS.span("keygen", device):
+        return _keygen(builder, srs, k, split, device, msm, pinned_vk)
+
+
+def _keygen(builder: Builder, srs, k: int | None, split: bool | None, device, msm: str,
+            pinned_vk: bytes | None):
+    """keygen's body, inside its span `keygen`."""
     from .kernels import _canon_batch, _coeff, _ext, msm_commit_batch
 
-    device = resolve(device)
     if builder.field.p != FR.p:
         raise ValueError("proving backend is BN254-Fr only")
     if k is None:
@@ -261,7 +270,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
     plan, plan_ext = domain.plan(device), domain.plan_ext(device)
 
     # ---- fixed columns (padded to n) + table columns ------------------
-    with GLOBAL_METRICS.span("keygen/host columns"):
+    with GLOBAL_METRICS.span("host columns"):
         tags_col, values_col = build_table(builder.lookup_widths)
         if len(tags_col) > domain.usable_rows:
             raise ValueError("lookup table exceeds usable rows")
@@ -273,7 +282,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
         fixed_host["table_value"] = values_col + [0] * (n - len(values_col))
 
     # ---- permutation sigmas -------------------------------------------
-    with GLOBAL_METRICS.span("keygen/sigma labels"):
+    with GLOBAL_METRICS.span("sigma labels"):
         omega_pows = _host_powers(domain.omega, n, 1)
         delta_powers = [pow(DELTA, c, FR.p) for c in range(NUM_PERM_COLS)]
         # sigma starts as the identity labelling (5 advice + instance column)
@@ -297,13 +306,12 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
         + [lag_host([0]), lag_host([domain.usable_rows]),
            lag_host(range(domain.usable_rows + 1, n))]
     )
-    with GLOBAL_METRICS.span("keygen/to_mont"):
-        dev_stack = L.to_tensor(np.stack([ctx.to_mont_np(col) for col in host_cols]), device)
+    dev_stack = L.to_tensor(np.stack([ctx.to_mont_np(col) for col in host_cols]), device)
 
     # ---- device tables and transforms: one stacked launch for all 24 columns
     nf = len(ALL_FIXED)
     nm = nf + NUM_PERM_COLS
-    with GLOBAL_METRICS.span("keygen/transforms", device):
+    with GLOBAL_METRICS.span("transforms", device):
         quotient_unscale = powers(ctx, FR.inv(domain.zeta), domain.n_ext, device,
                                    start=FR.inv(domain.n_ext))
         coeff_stack = _coeff(dev_stack, plan)
@@ -316,7 +324,7 @@ def keygen(builder: Builder, srs, k: int | None = None, split: bool | None = Non
             ext_stack = _ext(coeff_stack, zeta_powers, plan_ext)
 
     # ---- commitments (one batched MSM over the shared pair tables) ----
-    with GLOBAL_METRICS.span("keygen/commit", device):
+    with GLOBAL_METRICS.span("commit", device):
         all_comms = msm_commit_batch(srs.msm_tables(msm), _canon_batch(coeff_stack[:nm]))
     fixed_comms = dict(zip(ALL_FIXED, all_comms[:nf]))
     sigma_comms = list(all_comms[nf:])

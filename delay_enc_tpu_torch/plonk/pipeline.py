@@ -6,8 +6,10 @@ folds) cannot overlap its own device work; across instances it can: while
 one worker waits on a commitment's fetch or builds columns on the host,
 another's kernels run.  Each worker thread proves on a CUDA stream of its
 own, kept for its proofs (the caching allocator reuses memory within a
-stream), and a proof's phases wait for that stream only (`prover._Spans`),
-so the workers do not run in lock step.  Python holds the GIL through the
+stream), and a proof waits for that stream only, where it reads a result
+to the host (`ops/limbs.py:to_numpy`), so the workers do not run in lock
+step.  Each worker's proof is a root span `prove` of its own, with its own
+request id (`utils/timers.py`).  Python holds the GIL through the
 host phases, so the overlap is what the GIL leaves.
 
 Each instance draws from its own `np.random.default_rng(seed)`, so every

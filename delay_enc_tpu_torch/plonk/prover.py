@@ -23,13 +23,23 @@ Protocol (transcript order is the spec; the verifier mirrors it exactly):
 `rng` is drawn from in exactly the JAX package's order (advice blinding,
 lookup pads, grand-product blinds, the random poly), so the same circuit,
 SRS and seed give the same proof bytes.  The helpers below the draws (the
-columns, the commitments, the open sets, the phase spans) are shared with
-the batched prover (`plonk/batch_prover.py`).
+columns, the commitments, the open sets) are shared with the batched prover
+(`plonk/batch_prover.py`).
+
+Spans (`utils/timers.py`): a proof is the root span `prove`, its phases
+the spans `advice commit`, `lookup permuted`, `grand products` (each
+from the phase's challenges to its commitments), `quotient` (the random
+polynomial's commitment too), `evals` and `gwc`; they tile the root.  No
+phase waits for the device to close: each ends by reading its result to
+the host.  Inside them the host's work is named where it happens: the
+spans `columns` (the advice columns, the lookups' table keys, the random
+polynomial) and `permute` (the lookup permutation) here, `to_mont`,
+`htod` and `device wait` in `ops/limbs.py`, `fold` in `ops/msm.py`.
 """
 
 from __future__ import annotations
 
-import time as _time
+import time
 
 import numpy as np
 import torch
@@ -72,14 +82,15 @@ def _rand_fr(rng) -> int:
 
 def _rand_fr_mont_bulk(rng, count: int) -> np.ndarray:
     """count wide-reduced random Fr as (count, 8) Montgomery words, through
-    the copied C wide reduction (Python fallback)."""
-    raw = rng.integers(0, 256, (count, 64), dtype="uint8")
+    the copied C wide reduction (Python fallback); the span `columns`."""
     from ..native.ec import uniform_to_fr_mont
 
-    out = uniform_to_fr_mont(raw)
-    if out is not None:
-        return L.limbs_to_words_np(out)
-    return CTX.to_mont_np([FR.from_uniform_bytes(bytes(raw[i])) for i in range(count)])
+    with GLOBAL_METRICS.span("columns"):
+        raw = rng.integers(0, 256, (count, 64), dtype="uint8")
+        out = uniform_to_fr_mont(raw)
+        if out is not None:
+            return L.limbs_to_words_np(out)
+        return CTX.to_mont_np([FR.from_uniform_bytes(bytes(raw[i])) for i in range(count)])
 
 
 def _table_keys(tbl_tags, tbl_vals, usable: int, theta: int):
@@ -174,14 +185,15 @@ def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire):
 def _advice_columns(builder: Builder, n: int, usable: int, rng) -> list:
     """The 5 advice columns, their rows from `usable` on drawn from rng, and
     the instance column (the public values padded with zeros, not blinded),
-    as host ints."""
-    cols = []
-    for c in range(NUM_ADVICE):
-        col = list(builder.advice[c]) + [0] * (n - builder.rows)
-        for r in range(usable, n):
-            col[r] = _rand_fr(rng)
-        cols.append(col)
-    return cols + [list(builder.instance) + [0] * (n - len(builder.instance))]
+    as host ints; the span `columns`."""
+    with GLOBAL_METRICS.span("columns"):
+        cols = []
+        for c in range(NUM_ADVICE):
+            col = list(builder.advice[c]) + [0] * (n - builder.rows)
+            for r in range(usable, n):
+                col[r] = _rand_fr(rng)
+            cols.append(col)
+        return cols + [list(builder.instance) + [0] * (n - len(builder.instance))]
 
 
 def _lookup_columns(builder: Builder, n: int, usable: int, theta: int, rng,
@@ -189,21 +201,27 @@ def _lookup_columns(builder: Builder, n: int, usable: int, theta: int, rng,
     """The permuted lookup columns A'_l and S'_l of the four lookups as
     (4, n, 8) Montgomery words each, their rows from `usable` on drawn from
     rng: one pad a lookup for both columns (the single prover), or a pad for
-    A'_l then one for S'_l (the batched prover, JAX batch_prover.py:186)."""
-    tbl_tags, tbl_vals = build_table(builder.lookup_widths)
-    tkeys_padded, fvals = _table_keys(tbl_tags, tbl_vals, usable, theta)
+    A'_l then one for S'_l (the batched prover, JAX batch_prover.py:186).
+    The table's keys and the columns' assembly are the spans `columns`,
+    each permutation `permute`."""
+    with GLOBAL_METRICS.span("columns"):
+        tbl_tags, tbl_vals = build_table(builder.lookup_widths)
+        tkeys_padded, fvals = _table_keys(tbl_tags, tbl_vals, usable, theta)
     ap_cols, sp_cols = [], []
     for l in LOOKUPS:
-        ap, sp = _permuted_columns(
-            builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
-            usable, tkeys_padded, fvals, l,
-        )
+        with GLOBAL_METRICS.span("permute"):
+            ap, sp = _permuted_columns(
+                builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
+                usable, tkeys_padded, fvals, l,
+            )
         pad = CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)])
         pad2 = CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)]) if separate_pads \
             else pad
-        ap_cols.append(np.concatenate([ap, pad]))
-        sp_cols.append(np.concatenate([sp, pad2]))
-    return np.stack(ap_cols), np.stack(sp_cols)
+        with GLOBAL_METRICS.span("columns"):
+            ap_cols.append(np.concatenate([ap, pad]))
+            sp_cols.append(np.concatenate([sp, pad2]))
+    with GLOBAL_METRICS.span("columns"):
+        return np.stack(ap_cols), np.stack(sp_cols)
 
 
 def _commit(pair_tables, coeffs) -> list:
@@ -228,24 +246,20 @@ def _points(domain, x: int) -> list:
     return [x, x * domain.omega % FR.p, x * domain.omega_inv % FR.p]
 
 
-class _Spans:
-    """Phase spans of one proof (or batch) into GLOBAL_METRICS, each from the
-    end of the one before: a phase ends by waiting for the calling thread's
-    stream on each of `devices` (one device, or a mesh's), not the whole
-    device, so concurrent provers do not wait for each other; with
-    sync=False it ends without waiting."""
+def _fine_marks(device):
+    """`fine=True`'s marks: mark(name) adds the seconds since the mark
+    before (the first: since this call) as `prove/fine/<name>`, having
+    first waited for the calling thread's stream unless sync=False."""
+    last = [time.perf_counter_ns()]
 
-    def __init__(self, devices, prefix: str):
-        self.devices = list(devices) if isinstance(devices, (list, tuple)) else [devices]
-        self.prefix = prefix
-        self.t = _time.time()
-
-    def __call__(self, name: str, sync: bool = True) -> None:
-        for device in self.devices if sync else ():
+    def mark(name: str, sync: bool = True) -> None:
+        if sync:
             sync_stream(device)
-        now = _time.time()
-        GLOBAL_METRICS.add(f"{self.prefix}/{name}", now - self.t)
-        self.t = now
+        now = time.perf_counter_ns()
+        GLOBAL_METRICS.add(f"prove/fine/{name}", (now - last[0]) * 1e-9)
+        last[0] = now
+
+    return mark
 
 
 def transform_plans(domain, device, ntt: str) -> tuple:
@@ -285,168 +299,183 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
                          "(keygen(split=False) builds a fused one)")
     if pk.device != device or srs.device != device:
         raise ValueError(f"keys on {pk.device} and SRS on {srs.device}, proof asked for {device}")
-    _phase = _Spans(device, "prove")
-    _fine = _Spans(device, "prove/fine") if fine else lambda name, sync=False: None
+    with GLOBAL_METRICS.span("prove"):
+        return _prove(srs, pk, builder, rng, device, msm, selfcheck, checks, ntt, fine)
 
-    if rng is None:
-        rng = np.random.default_rng()
-    ctx = CTX
-    domain = pk.vk.domain
-    n, usable = domain.n, domain.usable_rows
-    srs = srs.truncated(domain.k)
-    plan_inv, plan_fwd, plan_coset, plan_quot = transform_plans(domain, device, ntt)
 
-    def mont1(x: int) -> torch.Tensor:
-        return L.to_device_mont(ctx, [x], device)  # (1, 8)
-
-    def dev(words: np.ndarray) -> torch.Tensor:
-        return L.to_tensor(words, device)
-
-    tr = Transcript()
-    # vk.hash_into(transcript): the vk's transcript_repr comes first
-    tr.common_scalar(pk.vk.transcript_repr)
-    # bind the public inputs (instance column values)
-    for v in builder.instance:
-        tr.common_scalar(v)
-
-    pair_tables = srs.msm_tables(msm)
-    if selfcheck:
-        from . import selfcheck as SC
-
-    def record(label: str, results) -> None:
-        if checks is not None:
-            checks.extend((f"{label}[{j}]", ok) for j, ok in enumerate(results))
-
-    def commit_many(coeffs, tag: str):
-        pts = _commit(pair_tables, coeffs)
-        if selfcheck:
-            record(tag, SC.check_commits(srs, coeffs, pts, tag))
-        return pts
+def _prove(srs, pk: ProvingKey, builder: Builder, rng, device, msm: str, selfcheck: int,
+           checks: list | None, ntt: str, fine: bool) -> bytes:
+    """create_proof's body, inside its root span `prove`."""
+    span = GLOBAL_METRICS.span
+    _fine = _fine_marks(device) if fine else lambda name, sync=False: None
 
     # ---- 1. advice columns -------------------------------------------
-    _fine("phase1 start", sync=False)
-    cols6 = _advice_columns(builder, n, usable, rng)
-    _fine("advice host build", sync=False)
-    raw6 = dev(np.stack([ctx.to_mont_np(col) for col in cols6]))
-    del cols6
-    _fine("advice to_mont", sync=False)
-    coeffs6 = _coeff(raw6, plan_inv)
-    _fine("advice iNTT")
-    advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
-    instance_coeff = coeffs6[NUM_ADVICE]
-    for pt in commit_many(coeffs6[:NUM_ADVICE], "advice"):
-        tr.write_point(pt)
-    _fine("advice commit+fold", sync=False)
-    _phase("advice commit")
+    with span("advice commit"):
+        if rng is None:
+            rng = np.random.default_rng()
+        ctx = CTX
+        domain = pk.vk.domain
+        n, usable = domain.n, domain.usable_rows
+        srs = srs.truncated(domain.k)
+        plan_inv, plan_fwd, plan_coset, plan_quot = transform_plans(domain, device, ntt)
+
+        def mont1(x: int) -> torch.Tensor:
+            return L.to_device_mont(ctx, [x], device)  # (1, 8)
+
+        def dev(words: np.ndarray) -> torch.Tensor:
+            return L.to_tensor(words, device)
+
+        tr = Transcript()
+        # vk.hash_into(transcript): the vk's transcript_repr comes first
+        tr.common_scalar(pk.vk.transcript_repr)
+        # bind the public inputs (instance column values)
+        for v in builder.instance:
+            tr.common_scalar(v)
+
+        pair_tables = srs.msm_tables(msm)
+        if selfcheck:
+            from . import selfcheck as SC
+
+        def record(label: str, results) -> None:
+            if checks is not None:
+                checks.extend((f"{label}[{j}]", ok) for j, ok in enumerate(results))
+
+        def commit_many(coeffs, tag: str):
+            pts = _commit(pair_tables, coeffs)
+            if selfcheck:
+                record(tag, SC.check_commits(srs, coeffs, pts, tag))
+            return pts
+
+        _fine("phase1 start", sync=False)
+        cols6 = _advice_columns(builder, n, usable, rng)
+        _fine("advice host build", sync=False)
+        words6 = [ctx.to_mont_np(col) for col in cols6]
+        with span("columns"):
+            words6 = np.stack(words6)
+        raw6 = dev(words6)
+        del words6, cols6
+        _fine("advice to_mont", sync=False)
+        coeffs6 = _coeff(raw6, plan_inv)
+        _fine("advice iNTT")
+        advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
+        instance_coeff = coeffs6[NUM_ADVICE]
+        for pt in commit_many(coeffs6[:NUM_ADVICE], "advice"):
+            tr.write_point(pt)
+        _fine("advice commit+fold", sync=False)
 
     # ---- 2. lookups ---------------------------------------------------
-    theta = tr.challenge()
-    _fine("phase2 start", sync=False)
+    with span("lookup permuted"):
+        theta = tr.challenge()
+        _fine("phase2 start", sync=False)
 
-    ap_host, sp_host = _lookup_columns(builder, n, usable, theta, rng)
-    lk_raw = dev(np.concatenate([ap_host, sp_host]))
-    _fine("lookup host permute+to_mont", sync=False)
-    lk8 = _coeff(lk_raw, plan_inv)
-    _fine("lookup iNTT")
-    ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
-    sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
-    for pt in commit_many([c for l in LOOKUPS for c in (ap_coeff[l], sp_coeff[l])], "lookup"):
-        tr.write_point(pt)
-    _fine("lookup commit+fold", sync=False)
-    _phase("lookup permuted")
+        ap_host, sp_host = _lookup_columns(builder, n, usable, theta, rng)
+        with span("columns"):
+            lk_host = np.concatenate([ap_host, sp_host])
+        lk_raw = dev(lk_host)
+        del lk_host
+        _fine("lookup host permute+to_mont", sync=False)
+        lk8 = _coeff(lk_raw, plan_inv)
+        _fine("lookup iNTT")
+        ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
+        sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
+        for pt in commit_many([c for l in LOOKUPS for c in (ap_coeff[l], sp_coeff[l])],
+                              "lookup"):
+            tr.write_point(pt)
+        _fine("lookup commit+fold", sync=False)
 
     # ---- 3. grand products -------------------------------------------
-    beta = tr.challenge()
-    gamma = tr.challenge()
-    active = torch.arange(n, device=device) < usable
-    _fine("phase3 start", sync=False)
+    with span("grand products"):
+        beta = tr.challenge()
+        gamma = tr.challenge()
+        active = torch.arange(n, device=device) < usable
+        _fine("phase3 start", sync=False)
 
-    omega_dev = powers(ctx, domain.omega, n, device)
-    _fine("gp omega host", sync=False)
-    sigma_raw = _evals_batch(torch.stack(pk.sigma_coeff), plan_fwd)
-    # all 5 grand products (permutation + 4 lookups) batched; y is not drawn yet
-    num, den = gp_fracs(raw6, sigma_raw, omega_dev, pk.raw_stack, lk_raw,
-                        challenge_words(theta, beta, gamma, 0, pk.delta_powers), usable)
-    num_a, pre, suf, totals = _gp_partials(num, den, active, SCAN)
-    del num, den
-    _fine("gp fracs+partials launch", sync=False)
-    total_ints = L.from_device_mont(ctx, totals)
-    _fine("gp totals d2h", sync=False)
-    if any(t == 0 for t in total_ints):
-        raise ValueError("grand product denominator vanished")
-    total_inv_m = L.to_device_mont(ctx, [pow(t, -1, FR.p) for t in total_ints], device)
-    blind = dev(ctx.to_mont_np([_rand_fr(rng) for _ in range(5 * (n - usable - 1))])
-                ).reshape(5, n - usable - 1, L.NW)
-    z5 = _gp_finish(num_a, pre, suf, total_inv_m, blind, SCAN)
-    z5_coeff = _coeff(z5, plan_inv)
-    _fine("gp finish+iNTT")
-    z_perm_coeff = z5_coeff[0]
-    z_lookup_coeff = {l: z5_coeff[1 + i] for i, l in enumerate(LOOKUPS)}
-    for pt in commit_many(z5_coeff, "gp"):
-        tr.write_point(pt)
-    _fine("gp commit+fold", sync=False)
-    _phase("grand products")
+        omega_dev = powers(ctx, domain.omega, n, device)
+        _fine("gp omega host", sync=False)
+        sigma_raw = _evals_batch(torch.stack(pk.sigma_coeff), plan_fwd)
+        # all 5 grand products (permutation + 4 lookups) batched; y is not drawn yet
+        num, den = gp_fracs(raw6, sigma_raw, omega_dev, pk.raw_stack, lk_raw,
+                            challenge_words(theta, beta, gamma, 0, pk.delta_powers), usable)
+        num_a, pre, suf, totals = _gp_partials(num, den, active, SCAN)
+        del num, den
+        _fine("gp fracs+partials launch", sync=False)
+        total_ints = L.from_device_mont(ctx, totals)
+        _fine("gp totals d2h", sync=False)
+        if any(t == 0 for t in total_ints):
+            raise ValueError("grand product denominator vanished")
+        total_inv_m = L.to_device_mont(ctx, [pow(t, -1, FR.p) for t in total_ints], device)
+        blind = dev(ctx.to_mont_np([_rand_fr(rng) for _ in range(5 * (n - usable - 1))])
+                    ).reshape(5, n - usable - 1, L.NW)
+        z5 = _gp_finish(num_a, pre, suf, total_inv_m, blind, SCAN)
+        z5_coeff = _coeff(z5, plan_inv)
+        _fine("gp finish+iNTT")
+        z_perm_coeff = z5_coeff[0]
+        z_lookup_coeff = {l: z5_coeff[1 + i] for i, l in enumerate(LOOKUPS)}
+        for pt in commit_many(z5_coeff, "gp"):
+            tr.write_point(pt)
+        _fine("gp commit+fold", sync=False)
 
-    # ---- 4. random poly ----------------------------------------------
-    random_coeff = dev(_rand_fr_mont_bulk(rng, n))
-    tr.write_point(commit_many([random_coeff], "random")[0])
+    with span("quotient"):
+        # ---- 4. random poly ------------------------------------------
+        random_coeff = dev(_rand_fr_mont_bulk(rng, n))
+        tr.write_point(commit_many([random_coeff], "random")[0])
 
-    # ---- 5. quotient ---------------------------------------------------
-    y = tr.challenge()
+        # ---- 5. quotient -----------------------------------------------
+        y = tr.challenge()
 
-    witness_coeffs = (
-        advice_coeff
-        + [instance_coeff, z_perm_coeff]
-        + [z_lookup_coeff[l] for l in LOOKUPS]
-        + [ap_coeff[l] for l in LOOKUPS]
-        + [sp_coeff[l] for l in LOOKUPS]
-    )
-    del lk_raw, num_a, pre, suf, omega_dev, sigma_raw
-    consts = challenge_words(theta, beta, gamma, y, pk.delta_powers)
-    if pk.split:
-        h_coeff = split_quotient(witness_coeffs, pk, consts, plan_fwd, plan_coset)
-    else:
-        # one batched extended-coset NTT for every opened witness polynomial
-        _fine("phase5 start", sync=False)
-        ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_coset)
-        _fine("quotient ext NTT")
-        h_coeff = quotient_stacked(ext_stack, pk.ext_stack, pk.x_ext,
-                                   pk.zh_inv_ext[:MAX_DEGREE], consts, pk.quotient_unscale,
-                                   plan_quot)
-        # the extended-domain arrays are not needed by the openings
-        del ext_stack
-    _fine("quotient eval+iNTT")
-    h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]
-    for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW),
-                          "quotient"):
-        tr.write_point(pt)
-    _fine("quotient commit+fold", sync=False)
-    _phase("quotient")
+        witness_coeffs = (
+            advice_coeff
+            + [instance_coeff, z_perm_coeff]
+            + [z_lookup_coeff[l] for l in LOOKUPS]
+            + [ap_coeff[l] for l in LOOKUPS]
+            + [sp_coeff[l] for l in LOOKUPS]
+        )
+        del lk_raw, num_a, pre, suf, omega_dev, sigma_raw
+        consts = challenge_words(theta, beta, gamma, y, pk.delta_powers)
+        if pk.split:
+            h_coeff = split_quotient(witness_coeffs, pk, consts, plan_fwd, plan_coset)
+        else:
+            # one batched extended-coset NTT for every opened witness polynomial
+            _fine("phase5 start", sync=False)
+            ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_coset)
+            _fine("quotient ext NTT")
+            h_coeff = quotient_stacked(ext_stack, pk.ext_stack, pk.x_ext,
+                                       pk.zh_inv_ext[:MAX_DEGREE], consts, pk.quotient_unscale,
+                                       plan_quot)
+            # the extended-domain arrays are not needed by the openings
+            del ext_stack
+        _fine("quotient eval+iNTT")
+        h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]
+        for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW),
+                              "quotient"):
+            tr.write_point(pt)
+        _fine("quotient commit+fold", sync=False)
 
     # ---- 6. evaluations ------------------------------------------------
-    x = tr.challenge()
-    # the powers of each point serve its evaluations and its GWC witness; K7
-    # takes the opened rows where they lie, every point in one launch
-    stacks = _open_sets(pk, advice_coeff, z_perm_coeff,
-                        [z_lookup_coeff[l] for l in LOOKUPS], [ap_coeff[l] for l in LOOKUPS],
-                        [sp_coeff[l] for l in LOOKUPS], random_coeff, h_pieces)
-    points = _points(domain, x)
-    point_pows = [powers_of(ctx, mont1(p)[0], n) for p in points]
-    for e in L.from_device_mont(ctx, _eval_stack(stacks, point_pows)):
-        tr.write_scalar(e)
-    _phase("evals")
+    with span("evals"):
+        x = tr.challenge()
+        # the powers of each point serve its evaluations and its GWC witness;
+        # K7 takes the opened rows where they lie, every point in one launch
+        stacks = _open_sets(pk, advice_coeff, z_perm_coeff,
+                            [z_lookup_coeff[l] for l in LOOKUPS],
+                            [ap_coeff[l] for l in LOOKUPS],
+                            [sp_coeff[l] for l in LOOKUPS], random_coeff, h_pieces)
+        points = _points(domain, x)
+        point_pows = [powers_of(ctx, mont1(p)[0], n) for p in points]
+        for e in L.from_device_mont(ctx, _eval_stack(stacks, point_pows)):
+            tr.write_scalar(e)
 
     # ---- 7. GWC multiopen ---------------------------------------------
-    # the three W commitments share one challenge, so their MSMs batch
-    v = tr.challenge()
-    ws = _gwc_witness(stacks, point_pows, mont1(v)[0],
-                      [mont1(pow(p, -1, FR.p))[0] for p in points])
-    if selfcheck >= 2:
-        for rows, w, z, key in zip(stacks, ws, points, ("x", "wx", "winvx")):
-            record(f"gwc {key}", [SC.check_gwc_witness(rows, w, v, z, key)])
-    for pt in commit_many(ws, "gwc"):
-        tr.write_point(pt)
-    _phase("gwc")
+    with span("gwc"):
+        # the three W commitments share one challenge, so their MSMs batch
+        v = tr.challenge()
+        ws = _gwc_witness(stacks, point_pows, mont1(v)[0],
+                          [mont1(pow(p, -1, FR.p))[0] for p in points])
+        if selfcheck >= 2:
+            for rows, w, z, key in zip(stacks, ws, points, ("x", "wx", "winvx")):
+                record(f"gwc {key}", [SC.check_gwc_witness(rows, w, v, z, key)])
+        for pt in commit_many(ws, "gwc"):
+            tr.write_point(pt)
 
     return bytes(tr.data)
 

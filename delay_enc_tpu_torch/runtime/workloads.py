@@ -105,23 +105,24 @@ def key_path(workload: str, builder, k: int, cache_dir: str) -> str:
 def get_keys(workload: str, builder, srs, k: int, cache_dir: str, msm: str = "b4",
              split: bool | None = None, device="cuda"):
     """(pk, vk, key_path): the cached key if `key_path.pk.npz` exists, else
-    keygen, whose key is then saved there.  The steps are spans
-    `keys/load_pk`, `keys/keygen` and `keys/save_pk`."""
+    keygen, whose key is then saved there.  The steps are spans inside the
+    span `keys`: `keys/load_pk`, or keygen's own `keys/keygen` and
+    `keys/save_pk`."""
     from ..plonk import keygen
     from ..plonk.serialize import load_pk, save_pk
 
     device = resolve(device)
     path = key_path(workload, builder, k, cache_dir)
-    if os.path.exists(path + ".pk.npz"):
-        with GLOBAL_METRICS.span("keys/load_pk", device):
-            pk = load_pk(path, device)
-        print(f"# keys {os.path.basename(path)} loaded", file=sys.stderr, flush=True)
-        return pk, pk.vk, path
-    with GLOBAL_METRICS.span("keys/keygen", device):
+    with GLOBAL_METRICS.span("keys"):
+        if os.path.exists(path + ".pk.npz"):
+            with GLOBAL_METRICS.span("load_pk", device):
+                pk = load_pk(path, device)
+            print(f"# keys {os.path.basename(path)} loaded", file=sys.stderr, flush=True)
+            return pk, pk.vk, path
         pk, vk = keygen(builder, srs, k=k, split=split, device=device, msm=msm)
-    os.makedirs(cache_dir, exist_ok=True)
-    with GLOBAL_METRICS.span("keys/save_pk"):
-        save_pk(pk, path)
+        os.makedirs(cache_dir, exist_ok=True)
+        with GLOBAL_METRICS.span("save_pk"):
+            save_pk(pk, path)
     print(f"# keys {os.path.basename(path)} made and saved, "
           f"{os.path.getsize(path + '.pk.npz')} bytes", file=sys.stderr, flush=True)
     return pk, vk, path

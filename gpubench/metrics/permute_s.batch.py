@@ -1,0 +1,10 @@
+"""permute_s.batch: seconds a proof in every `permute` span inside `prove_batch`
+(the lookup permutation), over the window."""
+
+from gpubench import program_spans
+
+ROOT = "prove_batch"
+
+
+def read(run):
+    return program_spans.per_proof(run, program_spans.leaf_total(run, ROOT, "permute"))
