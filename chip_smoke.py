@@ -4,8 +4,8 @@
 
 Phases, one line each (stderr carries detail):
  0. the card's name and power limit; whether the host C libraries
-    (`native.get_lib`, `get_eclib`) loaded, which they must; build the CUDA
-    kernels; then SRS setup,
+    (`native.get_lib`, `get_eclib`, `get_pyints`) loaded, which they must;
+    build the CUDA kernels; then SRS setup,
     keygen and create_proof of the k=7 test circuit on the card, whose vk
     and proof bytes must equal the JAX package's (tests/data/torch_port_k7.npz),
     with ntt="mxu" too;

@@ -2,10 +2,15 @@
 
 `limbops` — host-side Montgomery limb conversion; `ecops` — host-side BN254
 G1 point kernels (MSM plane folds for the prover, multi-scalar mul for the
-verifier).  Both are compiled on first use with the system C compiler
-(cc -O3 -shared -fPIC) and loaded via ctypes.  Where that fails, `get_lib`
-and `get_eclib` return None and their callers take the pure-Python paths
-(the Python API surfaces are unchanged either way); `status()` says which
+verifier); `pyints` — reads a list of Python ints into 256-bit words for
+`FieldCtx.to_mont_np`.  Each is compiled on first use with the system C
+compiler (cc -O3 -shared -fPIC) and loaded via ctypes.  `pyints` alone
+includes `Python.h`, so it also needs the interpreter's headers
+(`sysconfig.get_paths()["include"]`); it is its own shared object, loaded
+with `ctypes.PyDLL` (the GIL held), so that a machine without those headers
+still loads the other two.  Where a build fails, `get_lib`, `get_eclib` and
+`get_pyints` return None and their callers take the pure-Python paths (the
+Python API surfaces are unchanged either way); `status()` says which
 library loaded and why one did not, and `require()` raises instead, for a
 caller that must not run the host path in Python.
 """
@@ -15,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sysconfig
 
 _HERE = os.path.dirname(__file__)
 # the shared objects go to the package's build directory, not beside the
@@ -24,10 +30,12 @@ _BUILD = os.path.join(os.path.dirname(_HERE), "build")
 _lib = None
 _eclib = None
 _ECLIB_TRIED = False
+_pylib = None
+_PYLIB_TRIED = False
 _ERRORS: dict = {}  # library name -> why it did not load
 
 
-def _build(src: str, so: str) -> bool:
+def _build(src: str, so: str, cflags: tuple = ()) -> bool:
     # compile to a temp path, then atomically rename: overwriting the .so
     # in place would remap pages under any live process that has it
     # dlopen'd (SIGBUS hazard for a concurrently-running bench)
@@ -37,7 +45,7 @@ def _build(src: str, so: str) -> bool:
     for flags in (["-O3", "-march=native", "-pthread"], ["-O3", "-pthread"]):
         try:
             subprocess.run(
-                ["cc", *flags, "-shared", "-fPIC", "-o", tmp, src],
+                ["cc", *flags, *cflags, "-shared", "-fPIC", "-o", tmp, src],
                 check=True,
                 capture_output=True,
             )
@@ -54,15 +62,15 @@ def _so(name: str) -> str:
     return os.path.join(_BUILD, f"_{name}.so")
 
 
-def _load(name: str):
+def _load(name: str, cflags: tuple = (), dll=ctypes.CDLL):
     src = os.path.join(_HERE, f"{name}.c")
     so = _so(name)
     os.makedirs(_BUILD, exist_ok=True)
     if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-        if not _build(src, so):
+        if not _build(src, so, cflags):
             return None
     try:
-        lib = ctypes.CDLL(so)
+        lib = dll(so)
     except OSError as e:
         _ERRORS[name] = f"dlopen: {e}"
         return None
@@ -85,14 +93,14 @@ def get_lib():
         ctypes.c_uint64,
         ctypes.c_void_p,
     ]
-    lib.to_mont.argtypes = [
-        ctypes.c_void_p,
+    lib.to_mont_words.argtypes = [
+        ctypes.c_void_p,  # words u64[n][4], in place
         ctypes.c_size_t,
-        ctypes.c_void_p,
-        ctypes.c_void_p,
-        ctypes.c_uint64,
-        ctypes.c_void_p,
+        ctypes.c_void_p,  # p words
+        ctypes.c_void_p,  # r2 words
+        ctypes.c_uint64,  # n0inv
     ]
+    lib.to_mont_words.restype = None
     # lookup_fvals may be absent from a stale pre-round-5 .so: load
     # without it (prover falls back to the Python path)
     try:
@@ -192,15 +200,36 @@ def get_eclib():
     return _eclib
 
 
+def get_pyints():
+    """ctypes handle (PyDLL: the GIL held) to the Python-int reader, or
+    None."""
+    global _pylib, _PYLIB_TRIED
+    if _pylib is not None or _PYLIB_TRIED:
+        return _pylib
+    _PYLIB_TRIED = True
+    lib = _load("pyints", ("-I" + sysconfig.get_paths()["include"],), ctypes.PyDLL)
+    if lib is None:
+        return None
+    lib.ints_to_words.argtypes = [
+        ctypes.py_object,  # list or tuple
+        ctypes.c_ssize_t,  # its length
+        ctypes.c_void_p,   # out u64[n][4]
+        ctypes.c_void_p,   # taken u8[n]
+    ]
+    lib.ints_to_words.restype = ctypes.c_ssize_t
+    _pylib = lib
+    return _pylib
+
+
 def status() -> dict:
     """{library: its shared object's path if it loaded, else None}, after
-    trying to load both."""
-    loaded = {"limbops": get_lib(), "ecops": get_eclib()}
+    trying to load all three."""
+    loaded = {"limbops": get_lib(), "ecops": get_eclib(), "pyints": get_pyints()}
     return {name: _so(name) if lib is not None else None for name, lib in loaded.items()}
 
 
 def require() -> dict:
-    """Load both C libraries or raise RuntimeError naming each that did not
+    """Load the three C libraries or raise RuntimeError naming each that did not
     load and why; returns `status()`.  The libraries stay loaded, so every
     later caller takes the C path."""
     st = status()

@@ -104,17 +104,21 @@ void from_mont(const uint32_t *limbs, size_t n, const uint64_t *p_words,
     }
 }
 
-/* canonical 32-byte LE values -> limbs (n,16) Montgomery. */
-void to_mont(const uint8_t *in, size_t n, const uint64_t *p_words,
-             const uint64_t *r2_words, uint64_t n0inv, uint32_t *out) {
+/* (n, 4) 64-bit LE words, each value in [0, 2^256) -> its Montgomery form
+ * mod p, in place: the port's (n, 8) 32-bit words.  No reduction first: for
+ * v < 2^256 and R^2 mod p < p the CIOS result stays below 2p, and
+ * mont_mul's conditional subtraction finishes it. */
+void to_mont_words(uint64_t *words, size_t n, const uint64_t *p_words,
+                   const uint64_t *r2_words, uint64_t n0inv) {
     u256 p, r2;
     memcpy(p.w, p_words, 32);
     memcpy(r2.w, r2_words, 32);
     for (size_t k = 0; k < n; k++) {
         u256 v, r;
-        memcpy(v.w, in + 32 * k, 32);
+        memcpy(v.w, words + 4 * k, 32);
+        if ((v.w[0] | v.w[1] | v.w[2] | v.w[3]) == 0) continue; /* 0 * R = 0 */
         mont_mul(&v, &r2, &p, n0inv, &r); /* v * R^2 * R^-1 = v * R */
-        store_to_u16limbs(&r, out + 16 * k);
+        memcpy(words + 4 * k, r.w, 32);
     }
 }
 

@@ -121,23 +121,40 @@ class FieldCtx:
         return self._nc
 
     def to_mont_np(self, xs) -> np.ndarray:
-        """ints -> (N, 8) uint32 Montgomery words (the span `to_mont`)."""
-        from ..native import get_lib
+        """ints -> (N, 8) uint32 Montgomery words (the span `to_mont`).
+
+        A list or tuple is read in C (`native/pyints.c`): each exact int in
+        [0, 2^256) goes into the words as it is, with no Python step.  Every
+        other element (a negative int, one of 2^256 or more, a bool, a numpy
+        scalar), and every element of any other sequence, becomes
+        int(x) % p in Python.  The C Montgomery product then runs over all
+        the words in place.  The counters `to_mont native` and
+        `to_mont python` count the elements that took each way."""
+        from ..native import get_lib, get_pyints
 
         with GLOBAL_METRICS.span("to_mont"):
             lib = get_lib()
             p = self.p
-            if lib is not None:
-                n = len(xs)
-                buf = b"".join(int(x % p).to_bytes(32, "little") for x in xs)
-                inp = np.frombuffer(buf, dtype=np.uint8)
-                out = np.empty((n, NLIMB), dtype=np.uint32)
-                pw, r2w, n0 = self._native_consts()
-                lib.to_mont(
-                    inp.ctypes.data, n, pw.ctypes.data, r2w.ctypes.data, n0, out.ctypes.data
-                )
-                return limbs_to_words_np(out)
-            return ints_to_words_np([(int(x) << 256) % p for x in xs])
+            n = len(xs)
+            if lib is None:
+                GLOBAL_METRICS.count("to_mont python", n)
+                return ints_to_words_np([(int(x) << 256) % p for x in xs])
+            words = np.empty((n, 4), dtype=np.uint64)
+            pyints = get_pyints() if isinstance(xs, (list, tuple)) else None
+            if pyints is not None:
+                taken = np.empty(n, dtype=np.uint8)
+                missed = pyints.ints_to_words(xs, n, words.ctypes.data, taken.ctypes.data)
+                rest = np.flatnonzero(taken == 0) if missed else ()
+            else:
+                rest = range(n)
+            if len(rest):
+                buf = b"".join((int(xs[i]) % p).to_bytes(32, "little") for i in rest)
+                words[rest] = np.frombuffer(buf, dtype="<u8").reshape(-1, 4)
+            GLOBAL_METRICS.count("to_mont native", n - len(rest))
+            GLOBAL_METRICS.count("to_mont python", len(rest))
+            pw, r2w, n0 = self._native_consts()
+            lib.to_mont_words(words.ctypes.data, n, pw.ctypes.data, r2w.ctypes.data, n0)
+            return words.view(np.uint32)
 
     def from_mont_np(self, a) -> list[int]:
         """(…, 8) uint32 Montgomery words -> ints."""

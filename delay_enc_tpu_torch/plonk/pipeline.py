@@ -30,7 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..native import get_lib
+from ..native import get_lib, get_pyints
 from ..utils.device import resolve, sync_stream
 from .prover import create_proof, transform_plans
 
@@ -44,6 +44,7 @@ def _prepare(srs, pk, device, msm: str, ntt: str = "stockham"):
     if ntt == "mxu" and not pk.split:
         transform_plans(domain, device, ntt)
     get_lib()
+    get_pyints()
     sync_stream(device)
 
 

@@ -260,23 +260,51 @@ print("ok")
 
 def test_native_status_names_the_loaded_libraries():
     st = native.status()
-    assert set(st) == {"limbops", "ecops"}
+    assert set(st) == {"limbops", "ecops", "pyints"}
     assert all(path and os.path.exists(path) for path in st.values()), st
     assert native.require() == st
 
 
 def test_native_require_raises_when_a_library_does_not_build(tmp_path, monkeypatch):
-    """A source the compiler refuses: get_lib and get_eclib give None (the
-    Python paths), status says so, require raises with cc's reason."""
+    """A source the compiler refuses (limbops) or a missing one (ecops,
+    pyints): get_lib, get_eclib and get_pyints give None (the Python paths),
+    status says so, require raises with cc's reason for each."""
     (tmp_path / "limbops.c").write_text("this is not C;\n")
     monkeypatch.setattr(native, "_HERE", str(tmp_path))
     monkeypatch.setattr(native, "_BUILD", str(tmp_path / "build"))
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_eclib", None)
     monkeypatch.setattr(native, "_ECLIB_TRIED", False)
+    monkeypatch.setattr(native, "_pylib", None)
+    monkeypatch.setattr(native, "_PYLIB_TRIED", False)
     monkeypatch.setattr(native, "_ERRORS", {})
     assert native.get_lib() is None and native.get_eclib() is None
-    assert native.status() == {"limbops": None, "ecops": None}
-    with pytest.raises(RuntimeError, match=r"(?s)limbops \(cc .*ecops \(cc") as e:
+    assert native.get_pyints() is None
+    assert native.status() == {"limbops": None, "ecops": None, "pyints": None}
+    with pytest.raises(RuntimeError, match=r"(?s)limbops \(cc .*ecops \(cc .*pyints \(cc") as e:
         native.require()
     assert "not C" in str(e.value) or "error" in str(e.value)
+
+
+def test_native_pyints_alone_needs_the_python_headers(tmp_path, monkeypatch):
+    """Without the interpreter's headers only the int reader fails to build:
+    limbops and ecops still load, to_mont_np gives the same words through
+    Python, and require names pyints with cc's reason."""
+    from delay_enc_tpu_torch.ops import limbs as TL
+
+    vals = [0, 1, TL.FR_CTX.p - 1, 1 << 200]
+    want = TL.FR_CTX.to_mont_np(vals)
+    monkeypatch.setattr(native, "_eclib", native.get_eclib())  # loaded: no rebuild
+    monkeypatch.setattr(native, "_BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_pylib", None)
+    monkeypatch.setattr(native, "_PYLIB_TRIED", False)
+    monkeypatch.setattr(native, "_ERRORS", {})
+    monkeypatch.setattr(native.sysconfig, "get_paths",
+                        lambda: {"include": str(tmp_path / "no_headers")})
+    st = native.status()
+    assert st["pyints"] is None and st["limbops"] and st["ecops"], st
+    assert np.array_equal(TL.FR_CTX.to_mont_np(vals), want)
+    with pytest.raises(RuntimeError, match=r"pyints \(cc .*Python\.h") as e:
+        native.require()
+    assert "limbops" not in str(e.value) and "ecops" not in str(e.value)

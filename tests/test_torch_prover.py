@@ -190,6 +190,27 @@ def test_proof_is_deterministic_per_rng(port):
     assert create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu") == proof
 
 
+def test_proof_converts_every_int_in_c(port, golden):
+    """Every list a proof converts to Montgomery words holds exact ints
+    below 2^256 (the advice columns, the pads, the blinds, the inverses):
+    the C reader takes them all, and the bytes stay the golden's."""
+    from delay_enc_tpu_torch.plonk import create_proof
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    srs, pk, _, b, _ = port
+
+    def counts():
+        c = GLOBAL_METRICS.counters
+        return c.get("to_mont native", 0), c.get("to_mont python", 0)
+
+    before = counts()
+    proof = create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu")
+    after = counts()
+    assert np.array_equal(np.frombuffer(proof, np.uint8), golden["proof"])
+    assert after[1] - before[1] == 0
+    assert after[0] - before[0] >= 6 * pk.vk.domain.n  # the advice and instance columns
+
+
 def test_port_verifies_committed_jax_proof():
     """The committed pose_enc k=11 proof, with its committed vk and SRS, as
     bench.py's verify workload reads them."""
