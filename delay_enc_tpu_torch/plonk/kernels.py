@@ -43,6 +43,7 @@ from ..ops import msm16 as M16
 from ..ops import poly as P
 from ..ops.ntt import NTTPlan, stockham
 from ..ops.ntt_mxu import MXUPlan, ntt_mxu_stack
+from ..utils.timers import GLOBAL_METRICS
 from .domain import MAX_DEGREE
 from .keygen import ALL_FIXED, KEY_ROWS, NUM_PERM_COLS
 
@@ -543,7 +544,8 @@ def split_quotient(witness_coeffs, pk, consts, plan: NTTPlan, plan_ext: NTTPlan)
     in its first load (`_jit_coset_evals`), then K6 with rot 1 stores its
     rows at 8i + j of the extended coset (`_jit_quotient_coset`); one inverse
     of length 8n with zeta^-i / n_ext in its last store ends it
-    (`_jit_interleave_intt`)."""
+    (`_jit_interleave_intt`).  Each coset adds 1 to the counter `split
+    cosets`."""
     coeffs = torch.stack(list(witness_coeffs) + list(pk.coeff_stack))
     n = coeffs.shape[1]
     h_ext = torch.empty((MAX_DEGREE * n, L.NW), dtype=torch.int32, device=coeffs.device)
@@ -552,6 +554,7 @@ def split_quotient(witness_coeffs, pk, consts, plan: NTTPlan, plan_ext: NTTPlan)
         quotient_h(evals[:WIT_ROWS], evals[WIT_ROWS:], pk.coset_x[j], pk.coset_zh_inv[j : j + 1],
                    consts, rot=1, out=h_ext, out_stride=MAX_DEGREE, out_offset=j)
         del evals
+        GLOBAL_METRICS.count("split cosets")
     del coeffs
     return stockham(CTX, h_ext, plan_ext.tw_inv, out_scale=pk.quotient_unscale)
 

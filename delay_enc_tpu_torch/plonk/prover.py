@@ -33,8 +33,9 @@ polynomial's commitment too), `evals` and `gwc`; they tile the root.  No
 phase waits for the device to close: each ends by reading its result to
 the host.  Inside them the host's work is named where it happens: the
 spans `columns` (the advice columns, the lookups' table keys, the random
-polynomial) and `permute` (the lookup permutation) here, `to_mont`,
-`htod` and `device wait` in `ops/limbs.py`, `fold` in `ops/msm.py`.
+polynomial), `permute` (the lookup permutation) and `split` (a split-mode
+key's quotient: its cosets and inverse, enqueued) here, `to_mont`, `htod`
+and `device wait` in `ops/limbs.py`, `fold` in `ops/msm.py`.
 """
 
 from __future__ import annotations
@@ -433,7 +434,8 @@ def _prove(srs, pk: ProvingKey, builder: Builder, rng, device, msm: str, selfche
         del lk_raw, num_a, pre, suf, omega_dev, sigma_raw
         consts = challenge_words(theta, beta, gamma, y, pk.delta_powers)
         if pk.split:
-            h_coeff = split_quotient(witness_coeffs, pk, consts, plan_fwd, plan_coset)
+            with span("split"):
+                h_coeff = split_quotient(witness_coeffs, pk, consts, plan_fwd, plan_coset)
         else:
             # one batched extended-coset NTT for every opened witness polynomial
             _fine("phase5 start", sync=False)

@@ -19,8 +19,9 @@ over the kernels on the profiler's clock.  Without either, a span costs a
 clock read on each side and an `add`.
 
 Counters (`count`) sit beside the spans: the bytes copied from the host to
-the device (`ops/limbs.py`) and the kernels' launches under
-`launches/<kernel>` (`ops/_cuda.py`).  `snapshot` gives the span totals and
+the device (`ops/limbs.py`), the kernels' launches under
+`launches/<kernel>` (`ops/_cuda.py`) and the split quotient's cosets
+(`split cosets`, `plonk/kernels.py`).  `snapshot` gives the span totals and
 the counters, each counter under `#<name>`, so that a before/after
 difference of two snapshots covers both; `clear` drops both, as the JAX
 package's does.

@@ -148,12 +148,15 @@ def test_proof_bytes_equal_the_goldens(traced):
 def test_htod_bytes_count_the_inputs(traced):
     """`htod bytes` is the bytes of to_tensor's inputs; it is the one
     counter at the host-device boundary.  Beside it and the launches, only
-    to_mont's two counters, with every element taken by the C reader."""
+    to_mont's two counters, with every element taken by the C reader, and
+    the split quotient's, which a fused proof leaves where it was."""
     _, t = traced
     c = t["counters"]
     assert t["inputs"] and c["#htod bytes"] == sum(t["inputs"])
-    assert {k for k in c if not k.startswith(("#launches/", "#to_mont "))} == {"#htod bytes"}
+    assert {k for k in c if not k.startswith(("#launches/", "#to_mont ", "#split cosets"))} \
+        == {"#htod bytes"}
     assert c["#to_mont python"] == 0 and c["#to_mont native"] > 0
+    assert c.get("#split cosets", 0) == 0
 
 
 def test_spans_are_profiler_ranges(keys):
