@@ -3095,6 +3095,13 @@ def main() -> int:
     print(json.dumps({"kernels": list(rep.rows.values())}), flush=True)
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # the lookup keys of the proofs since the counters were last cleared,
+    # every one read by the C reader
+    readers = {k: GLOBAL_METRICS.counters.get(k, 0)
+               for k in ("permute native", "permute python", "to_mont native", "to_mont python")}
+    print("host readers: " + ", ".join(f"{k} {v}" for k, v in readers.items()), flush=True)
+    if readers["permute python"]:
+        raise AssertionError("lookup keys read in Python on the card")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

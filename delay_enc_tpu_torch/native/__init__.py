@@ -1,9 +1,11 @@
 """Native (C) runtime components.
 
-`limbops` — host-side Montgomery limb conversion; `ecops` — host-side BN254
-G1 point kernels (MSM plane folds for the prover, multi-scalar mul for the
-verifier); `pyints` — reads a list of Python ints into 256-bit words for
-`FieldCtx.to_mont_np`.  Each is compiled on first use with the system C
+`limbops` — host-side Montgomery limb conversion and the lookup
+permutation by counting; `ecops` — host-side BN254 G1 point kernels (MSM
+plane folds for the prover, multi-scalar mul for the verifier); `pyints` —
+reads lists of Python ints in C: into 256-bit words for
+`FieldCtx.to_mont_np`, and a lookup's tag and wire columns into pair keys
+for `_permuted_columns`.  Each is compiled on first use with the system C
 compiler (cc -O3 -shared -fPIC) and loaded via ctypes.  `pyints` alone
 includes `Python.h`, so it also needs the interpreter's headers
 (`sysconfig.get_paths()["include"]`); it is its own shared object, loaded
@@ -101,6 +103,16 @@ def get_lib():
         ctypes.c_uint64,  # n0inv
     ]
     lib.to_mont_words.restype = None
+    lib.lookup_permute.argtypes = [
+        ctypes.c_void_p,  # keys u32[rows]
+        ctypes.c_size_t,  # rows
+        ctypes.c_size_t,  # usable
+        ctypes.c_void_p,  # table u32[usable], sorted
+        ctypes.c_void_p,  # fvals u32[usable][8]
+        ctypes.c_void_p,  # out A' u32[usable][8]
+        ctypes.c_void_p,  # out S' u32[usable][8]
+    ]
+    lib.lookup_permute.restype = ctypes.c_int64
     # lookup_fvals may be absent from a stale pre-round-5 .so: load
     # without it (prover falls back to the Python path)
     try:
@@ -217,6 +229,13 @@ def get_pyints():
         ctypes.c_void_p,   # taken u8[n]
     ]
     lib.ints_to_words.restype = ctypes.c_ssize_t
+    lib.lookup_keys.argtypes = [
+        ctypes.py_object,  # tag column, list or tuple
+        ctypes.py_object,  # advice wire, list or tuple
+        ctypes.c_ssize_t,  # rows
+        ctypes.c_void_p,   # out u32[rows]
+    ]
+    lib.lookup_keys.restype = ctypes.c_ssize_t
     _pylib = lib
     return _pylib
 

@@ -14,6 +14,7 @@
 
 #include <stdint.h>
 #include <stddef.h>
+#include <stdlib.h>
 #include <string.h>
 
 typedef unsigned __int128 u128;
@@ -154,4 +155,88 @@ void lookup_fvals(const uint32_t *keys, size_t n, const uint8_t *theta_bytes,
         mont_mul(&prod, &r2, &p, n0inv, &f_m); /* -> Montgomery */
         store_to_u16limbs(&f_m, out + 16 * k);
     }
+}
+
+/* halo2's lookup permutation (plonk/prover.py _permuted_columns), by
+ * counting over the table's keys instead of sorting the column.
+ *
+ * keys u32[rows]: the lookup's pair keys (tag << 16 | value, 0 untagged);
+ * the rows from `rows` to `usable` are key 0.  table u32[usable]: the
+ * padded table's keys, sorted; equal keys form a group, whose first row
+ * stands for it.  fvals u32[usable][8]: each table row's compressed value
+ * as Montgomery words.  Writes ap and sp, u32[usable][8] each:
+ *   A' = each group's value repeated by the count of its key among the
+ *        `usable` keys, in the table's order (the keys sorted);
+ *   S' = a used group's value at the first row of its run in A', and the
+ *        table's other rows, in order, at the other rows; every row takes
+ *        the value of its key's group.
+ * One pass counts the keys (a binary search over the groups, skipped while
+ * a run of equal keys lasts), then each output row is written once.
+ * Returns -1; or the smallest key not in the table, with nothing written;
+ * or -2 when out of memory.  Needs rows <= usable.  Holds no Python
+ * object: ctypes releases the GIL for the call. */
+int64_t lookup_permute(const uint32_t *keys, size_t rows, size_t usable,
+                       const uint32_t *table, const uint32_t *fvals,
+                       uint32_t *ap, uint32_t *sp) {
+    size_t *first = malloc((usable + 1) * sizeof(size_t)); /* group j's first row */
+    size_t *count = calloc(usable + 1, sizeof(size_t));    /* group j's keys */
+    uint32_t *gkey = malloc((usable + 1) * sizeof(uint32_t));
+    if (!first || !count || !gkey) {
+        free(first), free(count), free(gkey);
+        return -2;
+    }
+    size_t m = 0;
+    for (size_t i = 0; i < usable; i++)
+        if (i == 0 || table[i] != table[i - 1]) {
+            gkey[m] = table[i];
+            first[m++] = i;
+        }
+    first[m] = usable;
+    int64_t missing = -1;
+    size_t last = 0; /* the group of the key before */
+    for (size_t i = 0; i <= rows; i++) {
+        uint32_t k = 0;
+        size_t c = 1;
+        if (i < rows)
+            k = keys[i];
+        else if (rows < usable)
+            c = usable - rows; /* the rows past the circuit's: key 0 */
+        else
+            break;
+        if (m == 0 || gkey[last] != k) {
+            size_t lo = 0, hi = m; /* the first group whose key is >= k */
+            while (lo < hi) {
+                size_t mid = (lo + hi) / 2;
+                if (gkey[mid] < k) lo = mid + 1;
+                else hi = mid;
+            }
+            if (lo == m || gkey[lo] != k) {
+                if (missing < 0 || k < (uint64_t)missing) missing = k;
+                continue;
+            }
+            last = lo;
+        }
+        count[last] += c;
+    }
+    if (missing < 0) {
+        size_t r = 0;
+        for (size_t j = 0; j < m; j++)
+            for (size_t c = 0; c < count[j]; c++, r++)
+                memcpy(ap + 8 * r, fvals + 8 * first[j], 32);
+        size_t li = 0, g = 0; /* the next table row to fill with, its group */
+        r = 0;
+        for (size_t j = 0; j < m; j++) {
+            if (count[j] == 0) continue;
+            memcpy(sp + 8 * r++, fvals + 8 * first[j], 32);
+            for (size_t c = 1; c < count[j]; c++, li++) {
+                for (;; li++) { /* skip the first rows of used groups */
+                    while (first[g + 1] <= li) g++;
+                    if (li != first[g] || count[g] == 0) break;
+                }
+                memcpy(sp + 8 * r++, fvals + 8 * first[g], 32);
+            }
+        }
+    }
+    free(first), free(count), free(gkey);
+    return missing;
 }

@@ -1,14 +1,23 @@
-/* Python ints -> 256-bit little-endian words, read in one C pass.
+/* Python ints read in one C pass.
  *
- * `FieldCtx.to_mont_np` (ops/limbs.py) converts lists of Python ints (the
- * advice columns, a proof's pads and blinds) to Montgomery words.  Turning
- * each int into bytes in Python costs several bytecode steps an element;
- * this pass reads the list's ints here instead, and the Montgomery product
- * (`to_mont_words`, limbops.c) then runs over the words in place.
+ * Two readers of a circuit's columns, which are lists of Python ints
+ * (cs/builder.py), each one C pass over the list's items in place of a
+ * Python step an element:
  *
- * Compiled against the interpreter's headers and loaded with ctypes.PyDLL,
- * so the caller holds the GIL for the whole call: the list cannot change
- * while it is read, and the borrowed items stay alive.
+ * - `ints_to_words`, for `FieldCtx.to_mont_np` (ops/limbs.py): the advice
+ *   columns, a proof's pads and blinds, as 256-bit words; the Montgomery
+ *   product (`to_mont_words`, limbops.c) then runs over the words in place.
+ * - `lookup_keys`, for `_permuted_columns` (plonk/prover.py): a lookup's tag
+ *   column and advice wire, read together into the u32 pair keys
+ *   tag << 16 | value; the permutation by counting (`lookup_permute`,
+ *   limbops.c) then runs over the keys.
+ *
+ * Each reader takes the items it can and says which it could not; Python
+ * reads those by its own rule, so every other object behaves as it would
+ * without this file.  Compiled against the interpreter's headers and loaded
+ * with ctypes.PyDLL, so the caller holds the GIL for the whole call: the
+ * lists cannot change while they are read, and the borrowed items stay
+ * alive.
  */
 
 #define PY_SSIZE_T_CLEAN
@@ -59,4 +68,53 @@ Py_ssize_t ints_to_words(PyObject *seq, Py_ssize_t n, uint64_t *out, uint8_t *ta
         missed += !ok;
     }
     return missed;
+}
+
+/* A small exact int: an int (not a bool, not a subclass) whose value fits
+ * one machine word, stored in *v.  0 for every other object. */
+static inline int small_int(PyObject *x, Py_ssize_t *v) {
+    if (!PyLong_CheckExact(x)) return 0;
+#if PY_VERSION_HEX >= 0x030C0000
+    if (!PyUnstable_Long_IsCompact((PyLongObject *)x)) return 0;
+    *v = PyUnstable_Long_CompactValue((PyLongObject *)x);
+    return 1;
+#else
+    int overflow;
+    long long r = PyLong_AsLongLongAndOverflow(x, &overflow);
+    if (overflow || (r == -1 && PyErr_Occurred())) {
+        PyErr_Clear();
+        return 0;
+    }
+    *v = (Py_ssize_t)r;
+    return 1;
+#endif
+}
+
+/* The pair keys of a lookup's first `rows` rows: for row i, with the tag
+ * t = tags[i] and the advice value v = wire[i], keys[i] = t << 16 | v where
+ * t != 0, and 0 where t == 0 (v is then not read, whatever it is).  Stops
+ * at the first row it cannot take and returns it (rows when it took them
+ * all): a tag that is not a small exact int in [0, 2^16), a tagged row
+ * whose value is not one, a row past the end of `wire`, or any row when
+ * `tags` or `wire` is neither a list nor a tuple, or `tags` has fewer than
+ * `rows` items.  The caller reads the rows from there on in Python. */
+Py_ssize_t lookup_keys(PyObject *tags, PyObject *wire, Py_ssize_t rows, uint32_t *keys) {
+    if (!(PyList_CheckExact(tags) || PyTuple_CheckExact(tags))
+        || !(PyList_CheckExact(wire) || PyTuple_CheckExact(wire))
+        || PySequence_Fast_GET_SIZE(tags) < rows)
+        return 0;
+    PyObject **ts = PySequence_Fast_ITEMS(tags);
+    PyObject **ws = PySequence_Fast_ITEMS(wire);
+    Py_ssize_t end = PySequence_Fast_GET_SIZE(wire) < rows ? PySequence_Fast_GET_SIZE(wire) : rows;
+    for (Py_ssize_t i = 0; i < end; i++) {
+        Py_ssize_t t, v;
+        if (!small_int(ts[i], &t) || t < 0 || t >= (1 << 16)) return i;
+        if (t == 0) {
+            keys[i] = 0;
+            continue;
+        }
+        if (!small_int(ws[i], &v) || v < 0 || v >= (1 << 16)) return i;
+        keys[i] = ((uint32_t)t << 16) | (uint32_t)v;
+    }
+    return end;
 }

@@ -135,17 +135,50 @@ def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire):
     """halo2's lookup permutation (lookup/prover.rs permute_expression_pair):
     A' = A sorted (grouped by value), S' = the matching table value at each
     first occurrence, the remaining table rows filling the rest.  Computed
-    in key space with numpy; returns (usable, 8) Montgomery word arrays
-    gathered from `fvals`."""
+    in key space over the table's keys; returns (usable, 8) Montgomery word
+    arrays copied from `fvals`.
+
+    Two passes.  The keys (`_lookup_keys`): the tag and wire columns read
+    together into u32 pair keys, in C (`native/pyints.c:lookup_keys`, the
+    GIL held) for as long as the rows hold small exact ints, in Python from
+    the first row that does not.  The columns (`_permute_by_count`): each
+    key counted against the table's sorted keys, then each row of A' and S'
+    written once from `fvals` (`native/limbops.c:lookup_permute`, the GIL
+    released; the same counting in numpy without the C library).  Nothing
+    is kept across calls."""
+    keys = _lookup_keys(tag_col, adv_col, wire)
+    return _permute_by_count(keys, usable, tkeys_padded, fvals, wire)
+
+
+def _lookup_keys(tag_col, adv_col, wire) -> np.ndarray:
+    """The u32 pair keys tag << 16 | value of a lookup's rows (0 where the
+    tag is 0), one a row of `tag_col`.  `native/pyints.c` reads lists and
+    tuples while each tag, and each tagged row's value, is an exact int in
+    [0, 2^16); from the first row that is not (a bool, a numpy scalar, a
+    wide or negative int, any row of another sequence), Python reads to the
+    end by the rule below.  The counters `permute native` and
+    `permute python` count the rows that took each way."""
+    from ..native import get_pyints
+
     rows = len(tag_col)
-    keys = np.zeros(usable, dtype=np.uint32)
-    t = np.fromiter((int(x) for x in tag_col), dtype=np.uint32, count=rows)
+    keys = np.empty(rows, dtype=np.uint32)
+    done = 0
+    if isinstance(tag_col, (list, tuple)) and isinstance(adv_col, (list, tuple)):
+        pyints = get_pyints()
+        if pyints is not None:
+            done = pyints.lookup_keys(tag_col, adv_col, rows, keys.ctypes.data)
+    GLOBAL_METRICS.count("permute native", done)
+    GLOBAL_METRICS.count("permute python", rows - done)
+    if done == rows:
+        return keys
+    tags = tag_col[done:rows]
+    t = np.fromiter((int(x) for x in tags), dtype=np.uint32, count=rows - done)
 
     # tagged rows must hold sub-2^16 values (cs/range.py table widths); a
     # wider value is a buggy witness or gadget: raise here rather than
     # truncate into a possibly valid key
     def masked():
-        for i, (tv, av) in enumerate(zip(tag_col, adv_col[:rows])):
+        for i, (tv, av) in enumerate(zip(tags, adv_col[done:rows]), done):
             av = int(av)
             if av >= (1 << 16) and int(tv) != 0:
                 raise ValueError(
@@ -154,33 +187,69 @@ def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire):
                 )
             yield av & 0xFFFF
 
-    a = np.fromiter(masked(), dtype=np.uint32, count=rows)
-    keys[:rows] = np.where(t != 0, (t << 16) | a, 0)
+    a = np.fromiter(masked(), dtype=np.uint32, count=rows - done)
+    keys[done:] = np.where(t != 0, (t << 16) | a, 0)
+    return keys
 
-    ks = np.sort(keys)
+
+def _permute_by_count(keys, usable: int, tkeys_padded, fvals, wire):
+    """A' and S' of the keys (the rows past them key 0) against the sorted
+    padded table `tkeys_padded` by counting: A' is each table key repeated
+    by its count, in the table's order; S' holds each used key at the first
+    row of its run in A', and the table's other rows, in order, at the
+    others.  Equal table keys (the zero padding) form a group, whose first
+    row's `fvals` stand for it.  Raises the lookup failure of the smallest
+    key not in the table."""
+    from ..native import get_lib
+
+    keys = np.ascontiguousarray(keys, dtype=np.uint32)
+    table = np.ascontiguousarray(tkeys_padded, dtype=np.uint32)
+    fvals = np.ascontiguousarray(fvals, dtype=np.uint32)
+    rows = len(keys)
+    if rows > usable or table.shape != (usable,) or fvals.shape != (usable, L.NW):
+        raise ValueError(f"lookup: {rows} keys, a table of {table.shape} and values of "
+                         f"{fvals.shape} for {usable} usable rows (wire {wire})")
+    lib = get_lib()
+    if lib is not None:
+        ap = np.empty((usable, L.NW), dtype=np.uint32)
+        sp = np.empty((usable, L.NW), dtype=np.uint32)
+        missing = lib.lookup_permute(keys.ctypes.data, rows, usable, table.ctypes.data,
+                                     fvals.ctypes.data, ap.ctypes.data, sp.ctypes.data)
+        if missing == -2:
+            raise MemoryError("lookup_permute")
+        if missing >= 0:
+            _not_in_table(missing, wire)
+        return ap, sp
+    full = np.zeros(usable, dtype=np.uint32)
+    full[:rows] = keys
     is_first = np.empty(usable, dtype=bool)
-    is_first[0] = True
-    is_first[1:] = ks[1:] != ks[:-1]
-    firsts = ks[is_first]
-    pos = np.searchsorted(tkeys_padded, firsts, side="left")
-    ok = (pos < usable) & (tkeys_padded[np.minimum(pos, usable - 1)] == firsts)
-    if not ok.all():
-        bad = firsts[~ok][0]
-        raise ValueError(
-            f"lookup failure: (tag={bad >> 16}, value={bad & 0xFFFF}) not in table (wire {wire})"
-        )
-    used = np.zeros(usable, dtype=bool)
-    used[pos] = True
-    leftovers = tkeys_padded[~used]
-    sp_keys = np.empty(usable, dtype=np.uint32)
-    sp_keys[is_first] = firsts
-    sp_keys[~is_first] = leftovers[: usable - len(firsts)]
+    is_first[:1] = True
+    is_first[1:] = table[1:] != table[:-1]
+    first = np.flatnonzero(is_first)
+    group = np.cumsum(is_first) - 1  # each table row's group
+    gkeys = table[first]
+    j = np.searchsorted(gkeys, full)
+    found = gkeys[np.minimum(j, len(gkeys) - 1)] == full
+    if not found.all():
+        _not_in_table(int(full[~found].min()), wire)
+    count = np.bincount(j, minlength=len(first))
+    ap = fvals[np.repeat(first, count)]
+    used = count > 0
+    starts = (np.cumsum(count) - count)[used]
+    at_start = np.zeros(usable, dtype=bool)
+    at_start[starts] = True
+    taken = np.zeros(usable, dtype=bool)
+    taken[first[used]] = True
+    src = np.empty(usable, dtype=np.int64)
+    src[starts] = first[used]
+    src[~at_start] = first[group[~taken]]
+    return ap, fvals[src]
 
-    # key -> word row by one searchsorted gather per column (the zero pad
-    # keys land on index 0, whose fvals row is 0 by the compression formula)
-    ap = fvals[np.searchsorted(tkeys_padded, ks, side="left")]
-    sp = fvals[np.searchsorted(tkeys_padded, sp_keys, side="left")]
-    return ap, sp
+
+def _not_in_table(key: int, wire):
+    raise ValueError(
+        f"lookup failure: (tag={key >> 16}, value={key & 0xFFFF}) not in table (wire {wire})"
+    )
 
 
 def _advice_columns(builder: Builder, n: int, usable: int, rng) -> list:

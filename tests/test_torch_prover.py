@@ -211,6 +211,26 @@ def test_proof_converts_every_int_in_c(port, golden):
     assert after[0] - before[0] >= 6 * pk.vk.domain.n  # the advice and instance columns
 
 
+def test_proof_reads_every_lookup_key_in_c(port, golden):
+    """The four lookups' tag and wire columns hold small exact ints wherever
+    a tag is set: the C reader takes every row of each, and the bytes stay
+    the golden's."""
+    from delay_enc_tpu_torch.plonk import create_proof
+    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
+
+    srs, pk, _, b, _ = port
+
+    def counts():
+        c = GLOBAL_METRICS.counters
+        return c.get("permute native", 0), c.get("permute python", 0)
+
+    before = counts()
+    proof = create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu")
+    after = counts()
+    assert np.array_equal(np.frombuffer(proof, np.uint8), golden["proof"])
+    assert (after[0] - before[0], after[1] - before[1]) == (4 * b.rows, 0)
+
+
 def test_port_verifies_committed_jax_proof():
     """The committed pose_enc k=11 proof, with its committed vk and SRS, as
     bench.py's verify workload reads them."""

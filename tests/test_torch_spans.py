@@ -148,14 +148,16 @@ def test_proof_bytes_equal_the_goldens(traced):
 def test_htod_bytes_count_the_inputs(traced):
     """`htod bytes` is the bytes of to_tensor's inputs; it is the one
     counter at the host-device boundary.  Beside it and the launches, only
-    to_mont's two counters, with every element taken by the C reader, and
-    the split quotient's, which a fused proof leaves where it was."""
+    to_mont's two counters and the lookup permutation's two, with every
+    element and every row taken by the C readers, and the split quotient's,
+    which a fused proof leaves where it was."""
     _, t = traced
     c = t["counters"]
     assert t["inputs"] and c["#htod bytes"] == sum(t["inputs"])
-    assert {k for k in c if not k.startswith(("#launches/", "#to_mont ", "#split cosets"))} \
-        == {"#htod bytes"}
+    assert {k for k in c if not k.startswith(
+        ("#launches/", "#to_mont ", "#permute ", "#split cosets"))} == {"#htod bytes"}
     assert c["#to_mont python"] == 0 and c["#to_mont native"] > 0
+    assert c["#permute python"] == 0 and c["#permute native"] > 0
     assert c.get("#split cosets", 0) == 0
 
 
