@@ -119,8 +119,7 @@ Phases, one line each (stderr carries detail):
     k=19 (T_BITS 32) and mod_pow k=19 (T_BITS 33), nothing cut: SRS setup
     and keygen(k=19), which must pick the split quotient; two proofs from
     default_rng(0) that must be byte-identical and verify, their launches
-    held to the split plan; one under torch.profiler; one with fine=True
-    (the same bytes; its prove/fine/* sub-phase spans printed); for
+    held to the split plan; one under torch.profiler; for
     delay_enc the base-16 table (seconds, K-d launches, bytes, peak), a
     msm="b16" proof with the base-4 bytes and its peak, and the table's
     copy into the card from pinned host memory (seconds);
@@ -593,6 +592,19 @@ def phase1(rep: Report, dev):
                  ms=timed(fn, 10), nbytes=32 * count,
                  int_ops=max(0, count - 1) * MONT_MULS * WIDE,
                  note=f" (device time {ms_text(device_ms(fn, 10, 'scan_kernel'))})")
+    # the prover's opening powers: the points (3, n), the inverse points
+    # (3, n + 1) and v (1, the tallest stack), one launch each
+    for rows, count in ((3, 1 << 16), (3, (1 << 16) + 1), (1, 47)):
+        xs = x5[:rows, 7].contiguous()
+        want = torch.stack([P.powers_of_plain(L.FR_CTX, x, count) for x in xs])
+        err = max(max_err(P.powers_rows(L.FR_CTX, xs, count), want)
+                  for _ in range(repeats(rows, count)))
+        fn = lambda: P.powers_rows(L.FR_CTX, xs, count)
+        rep.also("field_scan", f"({rows}, {count}) powers, one element a row (powers_rows)",
+                 err=err, ms=timed(fn, 10), nbytes=32 * rows * count,
+                 int_ops=rows * max(0, count - 1) * MONT_MULS * WIDE,
+                 note=f" (device time {ms_text(device_ms(fn, 10, 'scan_kernel'))}; each "
+                      f"{repeats(rows, count)} times, every result compared)")
     del x5, holed, row20
 
     # K-d: 2^16 pairs with identities, doublings and P + (-P)
@@ -1947,23 +1959,18 @@ def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4",
     return profile_run(run, phase, "proof")
 
 
-# K-a launches a proof since K5, K6 and K7 took the fractions, the quotient
-# and the openings: the canonical form before each of 6 commitment batches,
-# 4 products in the grand products' finish, and the product by z^-(i+1) in
-# each of the 3 GWC divisions; no longer a function of k
-PLANNED_ELEMENTWISE = COMMIT_BATCHES + 4 + 3
+# K-a launches a proof or a batch, whatever B (one pipeline, plonk/prover.py),
+# since K5, K6 and K7 took the fractions, the quotient and the openings: the
+# canonical form before each of 6 commitment batches, 4 products in the
+# grand products' finish, and one product by the z^-(i+1) for every
+# instance's three GWC divisions; no longer a function of k
+PLANNED_ELEMENTWISE = COMMIT_BATCHES + 4 + 1
 # field_scan calls, each one launch: the powers of omega, the grand
-# products' prefix, suffix and finishing products, the powers of the 3
-# points, of v (one table for the three stacks) and of the 3 inverse points,
-# and the 3 GWC suffix sums
-PLANNED_SCANS = 1 + 3 + 3 + 1 + 3 + 3
-# a batch, whatever B: the same canonical forms and finishing products, and
-# one product by the z^-(i+1) for every instance's three GWC divisions
-PLANNED_BATCH_ELEMENTWISE = COMMIT_BATCHES + 4 + 1
-# and one scan launch for each of: the powers of omega, the three grand
-# product scans, the powers of every point, of every v and of every inverse
-# point, and the GWC suffix sums of every point
-PLANNED_BATCH_SCANS = 1 + 3 + 1 + 1 + 1 + 1
+# products' prefix, suffix and finishing products, the powers of every
+# point, of every v and of every inverse point, and the GWC suffix sums of
+# every point (a proof before one pipeline: 3 launches each for the points'
+# powers, the inverse points' powers and the suffix sums, and 3 products)
+PLANNED_SCANS = 1 + 3 + 1 + 1 + 1 + 1
 
 
 def mxu_planned(k: int) -> int:
@@ -2046,7 +2053,7 @@ def check_batch_launches(launches: dict, k: int) -> None:
 
     want = {"gp_fracs": 1, "quotient_h": 1, "open_eval": 1, "open_combine": 1,
             "quotient_h_coset": 0, "pair_sel": COMMIT_BATCHES, "plane_sums16": 0,
-            "field_scan": PLANNED_BATCH_SCANS, "field_mont_mul": PLANNED_BATCH_ELEMENTWISE,
+            "field_scan": PLANNED_SCANS, "field_mont_mul": PLANNED_ELEMENTWISE,
             "ntt_fused": 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3)),
             "g1_complete_add": 0, "g1_fixed_base_mul": 0, "ntt_mxu_split": 0,
             "ntt_mxu_product": 0, **{name: 0 for name in NOT_ON_PROOF}}
@@ -2567,32 +2574,17 @@ LARGEST_ROWS = (("delay_enc", 19, 0x5EED_0F_DE1A7_19), ("mod_pow", 19, 0x5EED_0F
 
 
 def largest_rows_phase(dev, card: str, workload: str, k: int, tau: int) -> dict:
-    """bench.py's largest row of `workload`: `split_proofs` at k; one more
-    proof with fine=True, the same bytes, whose `prove/fine/*` spans are
-    printed; for delay_enc the base-16 table (seconds, K-d launches, bytes)
-    and one msm="b16" proof with the base-4 bytes, its peak beside the split
+    """bench.py's largest row of `workload`: `split_proofs` at k; for
+    delay_enc the base-16 table (seconds, K-d launches, bytes) and one
+    msm="b16" proof with the base-4 bytes, its peak beside the split
     proofs'.  Returns the launch counts of the split run."""
     from delay_enc_tpu_torch.ops import _cuda
     from delay_enc_tpu_torch.plonk import create_proof
-    from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
     t_phase = time.time()
     b, srs, pk, vk, proof, split_peak, launches = split_proofs(
         dev, card, "phase 10", workload, k, tau)
     del vk
-
-    GLOBAL_METRICS.clear()
-    t0 = time.time()
-    proof_fine = create_proof(srs, pk, b, np.random.default_rng(0), device=dev, fine=True)
-    torch.cuda.synchronize()
-    t_fine = time.time() - t0
-    if proof_fine != proof:
-        raise AssertionError(f"{workload} k={k}: the fine=True proof differs")
-    fine = spans("prove/fine/")
-    phases = {name: t for name, t in spans("prove/").items() if name not in fine}
-    print(f"phase 10 {workload} k={k} fine=True: prove {t_fine:.3f} s, the same bytes; "
-          f"{len(fine)} sub-phase spans (s) {json.dumps(fine)}; phases {json.dumps(phases)}",
-          flush=True)
 
     if workload == "delay_enc":
         torch.cuda.synchronize()

@@ -10,14 +10,16 @@ the fused 8n coset or, in its coset form, on one size-n coset of the split
 quotient (K9).  The openings' contractions of coefficient rows with
 the powers of a point are K7 (`open_stack`, `csrc/open.cu`): one launch
 evaluates every opened row at its point, one forms every point's v-weighted
-sum times z^i, so `_eval_stack` and `_gwc_witness` take the stacks of all
-the points at once, where the JAX package calls them a point at a time.
+sum times z^i, so `_eval_stack_batch` and `_gwc_witness_batch` take the
+stacks of all the points at once, where the JAX package calls them a point
+at a time.
 On CPU tensors they run their plain versions, which are the
-functions below them.  The batched prover (`plonk/batch_prover.py`)
-gives K5, K6 and K7 a leading instance axis: one launch serves every
-instance of the batch (up to `MAX_INSTANCES`), each with its own witness
-rows and challenges over the key's shared rows, as the JAX package's vmaps
-do; their plain versions loop the single-instance ones over the instances.
+functions below them.  The proving pipeline (`plonk/prover.py:
+prove_instances`, a single proof being a batch of one) gives K5, K6 and
+K7 a leading instance axis: one launch serves every instance of the batch
+(up to `MAX_INSTANCES`), each with its own witness rows and challenges
+over the key's shared rows, as the JAX package's vmaps do; their plain
+versions loop the single-instance ones over the instances.
 Field arithmetic goes through `ops.limbs`
 (kernel K-a on a card), transforms through `ops.ntt.stockham` (kernel K-b,
 with the coset scaling, the zero padding, 1/n or zeta^-i / n_ext fused into
@@ -695,39 +697,23 @@ def open_stacks(kind: str, stacks_b, pows_b, v_pows_b=None) -> torch.Tensor:
     return out
 
 
-def _eval_stack(stacks, pows) -> torch.Tensor:
-    """Evaluate every poly of every stack at its point -> (rows, 8), the rows
-    of every point in order.  stacks[s]: the (n, 8) polys opened at point
-    x_s (an (m, n, 8) tensor or a list of rows); pows[s]: x_s^0 .. x_s^(n-1)
-    or more.  One launch of K7 for all the points."""
-    return open_stack("eval", stacks, pows)
-
-
 def _eval_stack_batch(stacks_b, pows_b) -> torch.Tensor:
-    """`_eval_stack` for every instance of a batch (the JAX package's
-    _jit_eval_stack_batch, a point at a time there) -> (rows of all, 8),
-    instance after instance.  One launch of K7 for every instance."""
+    """Evaluate every poly of every stack at its point, for every instance
+    (the JAX package's _jit_eval_stack_batch, a point at a time there) ->
+    (rows of all, 8), instance after instance, each instance's points in
+    order.  stacks_b[b][s]: instance b's (n, 8) polys opened at point x_s
+    (an (m, n, 8) tensor or a list of rows); pows_b[b][s]: x_s^0 ..
+    x_s^(n-1) or more.  One launch of K7 for every instance."""
     return open_stacks("eval", stacks_b, pows_b)
 
 
-def _gwc_witness(stacks, pows, v_m: torch.Tensor, zinv_ms) -> list:
-    """W_s = (Q_s - Q_s(z_s)) / (X - z_s) with Q_s = sum_j v^j p_{s,j} over
-    stack s, for every point z_s at once -> one (n, 8) a point.  pows[s]:
-    z_s^0 .. z_s^(n-1) or more; v_m and zinv_ms[s] = 1/z_s: (8,) Montgomery
-    elements.  One launch of K7 for all the points, then for each point the
-    exclusive suffix sums times z_s^-(i+1)."""
-    n = stacks[0][0].shape[0]
-    v_pows = P.powers_of(CTX, v_m, max(len(rows) for rows in stacks))
-    scaled = open_stack("combine", stacks, pows, v_pows)
-    return [P.divide_scaled(CTX, t, P.powers_of(CTX, zinv_m, n + 1))
-            for t, zinv_m in zip(scaled, zinv_ms)]
-
-
 def _gwc_witness_batch(stacks_b, pows_b, v_ms: torch.Tensor, zinv_ms: torch.Tensor):
-    """`_gwc_witness` for every instance of a batch (the JAX package's
-    _jit_gwc_witness_batch, a point at a time there): v_ms (B, 8), instance
-    b's v; zinv_ms (points of all, 8), 1/z_s of every point of every
-    instance in order -> (points of all, n, 8).  One launch each of K7 and
+    """W_s = (Q_s - Q_s(z_s)) / (X - z_s) with Q_s = sum_j v^j p_{s,j} over
+    stack s, for every point z_s of every instance at once (the JAX
+    package's _jit_gwc_witness_batch, a point at a time there): stacks_b
+    and pows_b as `_eval_stack_batch`'s; v_ms (B, 8), instance b's v;
+    zinv_ms (points of all, 8), 1/z_s of every point of every instance in
+    order -> (points of all, n, 8).  One launch each of K7 and
     of the scans for every instance: the powers of the v's, of the 1/z_s,
     and the suffix sums."""
     n = stacks_b[0][0][0].shape[0]

@@ -1,10 +1,22 @@
-"""create_proof: the proving pipeline on the card.
+"""The proving pipeline on the card: `prove_instances`, and create_proof on it.
 
-Counterpart of `delay_enc_tpu/plonk/prover.py`: the fused 8n quotient, or
-the split one for a split-mode key (k >= 18).  The JAX package's
-DELAY_ENC_NTT=mxu is the argument `ntt="mxu"` here: every transform of a
-fused-quotient proof through the matmul NTT (K11); its
-DELAY_ENC_PROFILE_FINE is `fine=True`: the sub-phase marks as spans.
+Counterpart of `delay_enc_tpu/plonk/prover.py` and of the instance axis of
+its `batch_prover.py`.  `prove_instances` is the one body of a proof.  It
+proves B witnesses of one key's circuit, each with its own transcript, in
+groups (`Group`): a group is a run of instances on one device.  Fiat-Shamir
+brings every instance's commitments back to the host at each phase
+boundary; between the boundaries each phase runs once over a group's
+instances: one set of transforms over the stacked rows, one commitment call
+(one `pair_sel` launch and one plane-sum launch plan for all its columns),
+and K5, K6 and K7 with a leading instance axis (`plonk/kernels.py`).  Each
+phase launches every group's device work before it reads any result back.
+`create_proof` is a batch of one on one device; `create_proofs_batched`
+(`plonk/batch_prover.py`) is a batch of B on one device or over a mesh;
+`create_proofs_pipelined` (`plonk/pipeline.py`) runs create_proof on worker
+threads.  The quotient is the fused 8n one, or the split one for a
+split-mode key (k >= 18), an instance at a time.  The JAX package's
+DELAY_ENC_NTT=mxu is the argument `ntt="mxu"` of create_proof: every
+transform of a fused-quotient proof through the matmul NTT (K11).
 Protocol (transcript order is the spec; the verifier mirrors it exactly):
 
  1. commit the 5 advice columns (blinding rows randomized),
@@ -20,27 +32,31 @@ Protocol (transcript order is the spec; the verifier mirrors it exactly):
  6. x; batch-evaluate every opened polynomial at x / omega*x / omega^-1*x,
  7. v; GWC multiopen: one witness commitment per point, W = (Q - Q(z))/(X-z).
 
-`rng` is drawn from in exactly the JAX package's order (advice blinding,
-lookup pads, grand-product blinds, the random poly), so the same circuit,
-SRS and seed give the same proof bytes.  The helpers below the draws (the
-columns, the commitments, the open sets) are shared with the batched prover
-(`plonk/batch_prover.py`).
+`rng` is drawn from in the JAX package's batched order: (1) for each
+instance, each advice column's blinded rows; (2) for each instance, each
+lookup, a pad for A'_l and then one for S'_l; (3) one list of B * 5 * (n -
+usable - 1) grand-product blinds; (4) B * n draws for the random
+polynomials.  A single proof is a batch of one that shares each lookup's
+pad between A'_l and S'_l, which is the JAX single prover's order.  So the
+same circuit, SRS and seed give the JAX create_proof's bytes, and the same
+builders the JAX create_proofs_batched's.
 
-Spans (`utils/timers.py`): a proof is the root span `prove`, its phases
-the spans `advice commit`, `lookup permuted`, `grand products` (each
-from the phase's challenges to its commitments), `quotient` (the random
-polynomial's commitment too), `evals` and `gwc`; they tile the root.  No
-phase waits for the device to close: each ends by reading its result to
-the host.  Inside them the host's work is named where it happens: the
-spans `columns` (the advice columns, the lookups' table keys, the random
-polynomial), `permute` (the lookup permutation) and `split` (a split-mode
-key's quotient: its cosets and inverse, enqueued) here, `to_mont`, `htod`
-and `device wait` in `ops/limbs.py`, `fold` in `ops/msm.py`.
+Spans (`utils/timers.py`): a proof is the root span `prove` (a batch:
+`prove_batch`), its phases the spans `advice commit`, `lookup permuted`,
+`grand products` (each from the phase's challenges to its commitments),
+`quotient` (the random polynomial's commitment too), `evals` and `gwc`;
+they tile the root.  No phase waits for the device to close: each ends by
+reading its result to the host.  Inside them the host's work is named where
+it happens: the spans `columns` (the advice columns, the lookups' table
+keys, the random polynomial), `permute` (the lookup permutation) and
+`split` (a split-mode key's quotient: its cosets and inverse, enqueued)
+here, `to_mont`, `htod` and `device wait` in `ops/limbs.py`, `fold` in
+`ops/msm.py`.
 """
 
 from __future__ import annotations
 
-import time
+import dataclasses
 
 import numpy as np
 import torch
@@ -49,32 +65,39 @@ from ..cs.builder import Builder, NUM_ADVICE
 from ..cs.range import build_table
 from ..fields.bn254 import FR
 from ..ops import limbs as L
+from ..ops.msm import fold_planes_host
 from ..ops.ntt import powers
-from ..ops.poly import powers_of
-from ..utils.device import resolve, sync_stream
+from ..ops.poly import powers_rows
+from ..parallel.mesh import on
+from ..utils.device import resolve
 from ..utils.timers import GLOBAL_METRICS
 from .domain import MAX_DEGREE, QUOTIENT_PIECES
 from .keygen import ALL_FIXED, LOOKUPS, ProvingKey
 from .kernels import (
+    WIT_ROWS,
     _canon_batch,
     _coeff,
-    _eval_stack,
+    _eval_stack_batch,
     _evals_batch,
     _ext,
     _gp_finish,
     _gp_partials,
-    _gwc_witness,
+    _gwc_witness_batch,
     challenge_words,
     gp_fracs,
-    msm_commit_batch,
+    msm_plane_sums,
     quotient_stacked,
     split_quotient,
 )
+from .kzg import SRS
 from .transcript import Transcript
 
 WIRE_COL = {"a": 0, "b": 1, "c": 2, "d": 3}
 CTX = L.FR_CTX
 SCAN = "block"  # the scan every grand product names (ops/poly.py)
+NL = len(LOOKUPS)
+GP = 1 + NL  # grand products an instance: the permutation and the lookups
+GWC_KEYS = ("x", "wx", "winvx")  # the opening points, as the selfcheck names them
 
 
 def _rand_fr(rng) -> int:
@@ -266,39 +289,39 @@ def _advice_columns(builder: Builder, n: int, usable: int, rng) -> list:
         return cols + [list(builder.instance) + [0] * (n - len(builder.instance))]
 
 
-def _lookup_columns(builder: Builder, n: int, usable: int, theta: int, rng,
-                    separate_pads: bool = False):
-    """The permuted lookup columns A'_l and S'_l of the four lookups as
-    (4, n, 8) Montgomery words each, their rows from `usable` on drawn from
-    rng: one pad a lookup for both columns (the single prover), or a pad for
-    A'_l then one for S'_l (the batched prover, JAX batch_prover.py:186).
-    The table's keys and the columns' assembly are the spans `columns`,
-    each permutation `permute`."""
+def _lookup_columns(builder: Builder, n: int, usable: int, theta: int, rng, out: np.ndarray,
+                    shared_pads: bool) -> None:
+    """The permuted lookup columns A'_a..d then S'_a..d written to `out`,
+    (8, n, 8) Montgomery words, their rows from `usable` on drawn from rng:
+    one pad a lookup for both columns (`shared_pads`, a single proof), or a
+    pad for A'_l then one for S'_l (a batch, JAX batch_prover.py:186).  The
+    table's keys and the columns' writes are the spans `columns`, each
+    permutation `permute`."""
     with GLOBAL_METRICS.span("columns"):
         tbl_tags, tbl_vals = build_table(builder.lookup_widths)
         tkeys_padded, fvals = _table_keys(tbl_tags, tbl_vals, usable, theta)
-    ap_cols, sp_cols = [], []
-    for l in LOOKUPS:
+    for i, l in enumerate(LOOKUPS):
         with GLOBAL_METRICS.span("permute"):
             ap, sp = _permuted_columns(
                 builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
                 usable, tkeys_padded, fvals, l,
             )
         pad = CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)])
-        pad2 = CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)]) if separate_pads \
-            else pad
+        pad2 = pad if shared_pads else CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)])
         with GLOBAL_METRICS.span("columns"):
-            ap_cols.append(np.concatenate([ap, pad]))
-            sp_cols.append(np.concatenate([sp, pad2]))
-    with GLOBAL_METRICS.span("columns"):
-        return np.stack(ap_cols), np.stack(sp_cols)
+            out[i, :usable], out[i, usable:] = ap, pad
+            out[NL + i, :usable], out[NL + i, usable:] = sp, pad2
 
 
-def _commit(pair_tables, coeffs) -> list:
-    """Host affine commitments to (m, n, 8) Montgomery coefficient rows (a
-    tensor or a list of rows), in one batch of MSMs."""
-    stack = coeffs if isinstance(coeffs, torch.Tensor) else torch.stack(coeffs)
-    return msm_commit_batch(pair_tables, _canon_batch(stack))
+def _commit(groups: list, rows: list) -> list:
+    """Host affine commitments to each group's (m, n, 8) Montgomery
+    coefficient rows, group after group: every group's plane sums are
+    launched, then each is folded on the host."""
+    sums = []
+    for g in groups:
+        with on(g.device):
+            sums.append(msm_plane_sums(g.tables, _canon_batch(rows[g.i])))
+    return [pt for s, base_bits in sums for pt in fold_planes_host(s, base_bits)]
 
 
 def _open_sets(pk: ProvingKey, advice, z_perm, z_l, ap, sp, random, h_pieces) -> list:
@@ -316,22 +339,6 @@ def _points(domain, x: int) -> list:
     return [x, x * domain.omega % FR.p, x * domain.omega_inv % FR.p]
 
 
-def _fine_marks(device):
-    """`fine=True`'s marks: mark(name) adds the seconds since the mark
-    before (the first: since this call) as `prove/fine/<name>`, having
-    first waited for the calling thread's stream unless sync=False."""
-    last = [time.perf_counter_ns()]
-
-    def mark(name: str, sync: bool = True) -> None:
-        if sync:
-            sync_stream(device)
-        now = time.perf_counter_ns()
-        GLOBAL_METRICS.add(f"prove/fine/{name}", (now - last[0]) * 1e-9)
-        last[0] = now
-
-    return mark
-
-
 def transform_plans(domain, device, ntt: str) -> tuple:
     """The plans of a fused-quotient proof's transforms: (inverse, forward,
     coset, quotient's inverse), the domain's NTT plans for "stockham" (K-b)
@@ -342,9 +349,36 @@ def transform_plans(domain, device, ntt: str) -> tuple:
     return plan, plan, plan_ext, plan_ext
 
 
+@dataclasses.dataclass
+class Group:
+    """The instances lo .. hi - 1 of a run, proved on one device: the key and
+    the SRS there (truncated to the key's domain), the SRS's pair tables and
+    the four `transform_plans`."""
+
+    i: int
+    lo: int
+    hi: int
+    device: torch.device
+    pk: ProvingKey
+    srs: SRS
+    tables: tuple
+    plans: tuple
+
+
+def group(i: int, lo: int, hi: int, device, pk: ProvingKey, srs, msm: str,
+          ntt: str = "stockham") -> Group:
+    """The group of instances lo .. hi - 1 on `device`; its pair tables and
+    plans are built there (and kept by the SRS and the domain)."""
+    domain = pk.vk.domain
+    with on(device):
+        srs = srs.truncated(domain.k)
+        return Group(i, lo, hi, device, pk, srs, srs.msm_tables(msm),
+                     transform_plans(domain, device, ntt))
+
+
 def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
                  msm: str = "b4", selfcheck: int = 0, checks: list | None = None,
-                 ntt: str = "stockham", fine: bool = False) -> bytes:
+                 ntt: str = "stockham") -> bytes:
     """A proof for the builder's witness.  `msm` picks the commitments' pair
     tables, "b4" or "b16" (`SRS.msm_tables`); both give the same bytes.
     `ntt` picks the transforms' kernel: "stockham" (K-b) or "mxu" (K11,
@@ -352,13 +386,8 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     raises); both give the same bytes.  `selfcheck` 1 checks every
     commitment against the host's C MSM, 2 also the GWC witnesses
     (`plonk/selfcheck.py`); each result goes to stderr and, as a (label,
-    ok) pair, to `checks` where given.  `fine` adds the JAX package's
-    sub-phase marks (DELAY_ENC_PROFILE_FINE, `prover.py:366-551`) as spans
-    `prove/fine/<mark>`, each the seconds since the mark before; where the
-    JAX mark blocks on arrays, the span waits for the proof's stream first
-    (a split proof has no "phase5 start" and "quotient ext NTT"; "gp omega
-    host" times the powers of omega, made on the card here).  The bytes do
-    not change with any of them."""
+    ok) pair, to `checks` where given.  The bytes do not change with any of
+    them."""
     device = resolve(device)
     if selfcheck not in (0, 1, 2):
         raise ValueError(f"selfcheck level {selfcheck!r}: 0, 1 or 2")
@@ -370,183 +399,202 @@ def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
     if pk.device != device or srs.device != device:
         raise ValueError(f"keys on {pk.device} and SRS on {srs.device}, proof asked for {device}")
     with GLOBAL_METRICS.span("prove"):
-        return _prove(srs, pk, builder, rng, device, msm, selfcheck, checks, ntt, fine)
+        return prove_instances(pk, [builder], rng,
+                               lambda: [group(0, 0, 1, device, pk, srs, msm, ntt)],
+                               shared_pads=True, selfcheck=selfcheck, checks=checks)[0]
 
 
-def _prove(srs, pk: ProvingKey, builder: Builder, rng, device, msm: str, selfcheck: int,
-           checks: list | None, ntt: str, fine: bool) -> bytes:
-    """create_proof's body, inside its root span `prove`."""
+def prove_instances(pk: ProvingKey, builders, rng, make_groups, shared_pads: bool,
+                    selfcheck: int = 0, checks: list | None = None) -> list[bytes]:
+    """The proofs of `builders`, instance i in the group with lo <= i < hi,
+    inside the caller's root span; `make_groups()` gives the groups, and is
+    called in the span `advice commit`, where a group's set-up (the SRS's
+    truncation, pair tables and plans) is timed.  `shared_pads`: one pad a
+    lookup for A'_l and S'_l (create_proof's draws); `selfcheck` and
+    `checks` as create_proof's."""
     span = GLOBAL_METRICS.span
-    _fine = _fine_marks(device) if fine else lambda name, sync=False: None
+    B = len(builders)
+    if rng is None:
+        rng = np.random.default_rng()
+    domain = pk.vk.domain
+    n, usable = domain.n, domain.usable_rows
+    if selfcheck:
+        from . import selfcheck as SC
 
-    # ---- 1. advice columns -------------------------------------------
-    with span("advice commit"):
-        if rng is None:
-            rng = np.random.default_rng()
-        ctx = CTX
-        domain = pk.vk.domain
-        n, usable = domain.n, domain.usable_rows
-        srs = srs.truncated(domain.k)
-        plan_inv, plan_fwd, plan_coset, plan_quot = transform_plans(domain, device, ntt)
+    def each(fn) -> list:
+        """fn(group) for every group, its launches on the group's device."""
+        out = []
+        for g in groups:
+            with on(g.device):
+                out.append(fn(g))
+        return out
 
-        def mont1(x: int) -> torch.Tensor:
-            return L.to_device_mont(ctx, [x], device)  # (1, 8)
+    def per_device(fn) -> dict:
+        """fn(group) once for each device: what its groups share."""
+        out = {}
+        for g in groups:
+            if g.device not in out:
+                with on(g.device):
+                    out[g.device] = fn(g)
+        return out
 
-        def dev(words: np.ndarray) -> torch.Tensor:
-            return L.to_tensor(words, device)
+    def dev(words: np.ndarray) -> list:
+        """(B, …) host words -> each group's rows on its device."""
+        return each(lambda g: L.to_tensor(words[g.lo:g.hi], g.device))
 
-        tr = Transcript()
-        # vk.hash_into(transcript): the vk's transcript_repr comes first
-        tr.common_scalar(pk.vk.transcript_repr)
-        # bind the public inputs (instance column values)
-        for v in builder.instance:
-            tr.common_scalar(v)
+    def record(label: str, results) -> None:
+        if checks is not None:
+            checks.extend((f"{label}[{j}]", ok) for j, ok in enumerate(results))
 
-        pair_tables = srs.msm_tables(msm)
+    def commit(rows: list, per: int, tag: str) -> None:
+        """Commit each group's (b * per, n, 8) rows, instance after
+        instance, each instance's `per` points into its transcript."""
+        points = _commit(groups, rows)
         if selfcheck:
-            from . import selfcheck as SC
+            record(tag, SC.check_commits(groups[0].srs, [r for g in groups for r in rows[g.i]],
+                                         points, tag))
+        for j, pt in enumerate(points):
+            trs[j // per].write_point(pt)
 
-        def record(label: str, results) -> None:
-            if checks is not None:
-                checks.extend((f"{label}[{j}]", ok) for j, ok in enumerate(results))
+    def from_mont(tensors: list) -> list:
+        return [v for t in tensors for v in L.from_device_mont(CTX, t)]
 
-        def commit_many(coeffs, tag: str):
-            pts = _commit(pair_tables, coeffs)
-            if selfcheck:
-                record(tag, SC.check_commits(srs, coeffs, pts, tag))
-            return pts
+    # ---- 1. advice --------------------------------------------------------
+    with span("advice commit"):
+        groups = make_groups()
+        trs = [Transcript() for _ in range(B)]
+        for tr, b in zip(trs, builders):
+            # vk.hash_into(transcript), then the public inputs
+            tr.common_scalar(pk.vk.transcript_repr)
+            for v in b.instance:
+                tr.common_scalar(v)
+        words = np.empty((B, NUM_ADVICE + 1, n, L.NW), dtype=np.uint32)
+        for i, b in enumerate(builders):
+            for c, col in enumerate(_advice_columns(b, n, usable, rng)):
+                w = CTX.to_mont_np(col)
+                with span("columns"):
+                    words[i, c] = w
+        raw = dev(words)
+        del words
+        coeff = each(lambda g: _coeff(raw[g.i], g.plans[0]))  # (b, 6, n, 8) a group
+        commit([c[:, :NUM_ADVICE].reshape(-1, n, L.NW) for c in coeff], NUM_ADVICE, "advice")
 
-        _fine("phase1 start", sync=False)
-        cols6 = _advice_columns(builder, n, usable, rng)
-        _fine("advice host build", sync=False)
-        words6 = [ctx.to_mont_np(col) for col in cols6]
-        with span("columns"):
-            words6 = np.stack(words6)
-        raw6 = dev(words6)
-        del words6, cols6
-        _fine("advice to_mont", sync=False)
-        coeffs6 = _coeff(raw6, plan_inv)
-        _fine("advice iNTT")
-        advice_coeff = [coeffs6[c] for c in range(NUM_ADVICE)]
-        instance_coeff = coeffs6[NUM_ADVICE]
-        for pt in commit_many(coeffs6[:NUM_ADVICE], "advice"):
-            tr.write_point(pt)
-        _fine("advice commit+fold", sync=False)
-
-    # ---- 2. lookups ---------------------------------------------------
+    # ---- 2. lookups -------------------------------------------------------
     with span("lookup permuted"):
-        theta = tr.challenge()
-        _fine("phase2 start", sync=False)
-
-        ap_host, sp_host = _lookup_columns(builder, n, usable, theta, rng)
-        with span("columns"):
-            lk_host = np.concatenate([ap_host, sp_host])
+        thetas = [tr.challenge() for tr in trs]
+        lk_host = np.empty((B, 2 * NL, n, L.NW), dtype=np.uint32)  # A'_a..d, then S'_a..d
+        for i, (b, theta) in enumerate(zip(builders, thetas)):
+            _lookup_columns(b, n, usable, theta, rng, lk_host[i], shared_pads)
         lk_raw = dev(lk_host)
         del lk_host
-        _fine("lookup host permute+to_mont", sync=False)
-        lk8 = _coeff(lk_raw, plan_inv)
-        _fine("lookup iNTT")
-        ap_coeff = {l: lk8[i] for i, l in enumerate(LOOKUPS)}
-        sp_coeff = {l: lk8[4 + i] for i, l in enumerate(LOOKUPS)}
-        for pt in commit_many([c for l in LOOKUPS for c in (ap_coeff[l], sp_coeff[l])],
-                              "lookup"):
-            tr.write_point(pt)
-        _fine("lookup commit+fold", sync=False)
+        lk_coeff = each(lambda g: _coeff(lk_raw[g.i], g.plans[0]))
+        ap_coeff, sp_coeff = [c[:, :NL] for c in lk_coeff], [c[:, NL:] for c in lk_coeff]
+        # each instance's commitments in the order A'_l, S'_l
+        commit([torch.stack([a, s], dim=2).reshape(-1, n, L.NW)
+                for a, s in zip(ap_coeff, sp_coeff)], 2 * NL, "lookup")
 
-    # ---- 3. grand products -------------------------------------------
+    # ---- 3. grand products ------------------------------------------------
     with span("grand products"):
-        beta = tr.challenge()
-        gamma = tr.challenge()
-        active = torch.arange(n, device=device) < usable
-        _fine("phase3 start", sync=False)
-
-        omega_dev = powers(ctx, domain.omega, n, device)
-        _fine("gp omega host", sync=False)
-        sigma_raw = _evals_batch(torch.stack(pk.sigma_coeff), plan_fwd)
-        # all 5 grand products (permutation + 4 lookups) batched; y is not drawn yet
-        num, den = gp_fracs(raw6, sigma_raw, omega_dev, pk.raw_stack, lk_raw,
-                            challenge_words(theta, beta, gamma, 0, pk.delta_powers), usable)
-        num_a, pre, suf, totals = _gp_partials(num, den, active, SCAN)
-        del num, den
-        _fine("gp fracs+partials launch", sync=False)
-        total_ints = L.from_device_mont(ctx, totals)
-        _fine("gp totals d2h", sync=False)
+        betas = [tr.challenge() for tr in trs]
+        gammas = [tr.challenge() for tr in trs]
+        active = per_device(lambda g: torch.arange(n, device=g.device) < usable)
+        omega_dev = per_device(lambda g: powers(CTX, domain.omega, n, g.device))
+        sigma_raw = per_device(lambda g: _evals_batch(torch.stack(g.pk.sigma_coeff),
+                                                      g.plans[1]))
+        # all 5 grand products of every instance batched; y is not drawn yet
+        fracs_consts = np.stack([challenge_words(t, b, g, 0, pk.delta_powers)
+                                 for t, b, g in zip(thetas, betas, gammas)])
+        partials = each(lambda g: _gp_partials(
+            *gp_fracs(raw[g.i], sigma_raw[g.device], omega_dev[g.device], g.pk.raw_stack,
+                      lk_raw[g.i], fracs_consts[g.lo:g.hi], usable),  # (b * 5, n, 8) each
+            active[g.device], SCAN))
+        del omega_dev, sigma_raw
+        total_ints = from_mont([p[3] for p in partials])
         if any(t == 0 for t in total_ints):
             raise ValueError("grand product denominator vanished")
-        total_inv_m = L.to_device_mont(ctx, [pow(t, -1, FR.p) for t in total_ints], device)
-        blind = dev(ctx.to_mont_np([_rand_fr(rng) for _ in range(5 * (n - usable - 1))])
-                    ).reshape(5, n - usable - 1, L.NW)
-        z5 = _gp_finish(num_a, pre, suf, total_inv_m, blind, SCAN)
-        z5_coeff = _coeff(z5, plan_inv)
-        _fine("gp finish+iNTT")
-        z_perm_coeff = z5_coeff[0]
-        z_lookup_coeff = {l: z5_coeff[1 + i] for i, l in enumerate(LOOKUPS)}
-        for pt in commit_many(z5_coeff, "gp"):
-            tr.write_point(pt)
-        _fine("gp commit+fold", sync=False)
+        total_inv = CTX.to_mont_np([pow(t, -1, FR.p) for t in total_ints]).reshape(B, GP, L.NW)
+        blind = CTX.to_mont_np([_rand_fr(rng) for _ in range(B * GP * (n - usable - 1))])
+        blind = dev(blind.reshape(B, GP, n - usable - 1, L.NW))
+        total_inv = dev(total_inv)
+        z_coeff = each(lambda g: _coeff(_gp_finish(
+            *partials[g.i][:3], total_inv[g.i].reshape(-1, L.NW),
+            blind[g.i].reshape(-1, n - usable - 1, L.NW), SCAN), g.plans[0]).reshape(-1, GP, n,
+                                                                                   L.NW))
+        del partials, blind
+        commit([z.reshape(-1, n, L.NW) for z in z_coeff], GP, "gp")
 
     with span("quotient"):
-        # ---- 4. random poly ------------------------------------------
-        random_coeff = dev(_rand_fr_mont_bulk(rng, n))
-        tr.write_point(commit_many([random_coeff], "random")[0])
+        # ---- 4. random polys ----------------------------------------------
+        random_coeff = dev(_rand_fr_mont_bulk(rng, B * n).reshape(B, n, L.NW))
+        commit(random_coeff, 1, "random")
 
-        # ---- 5. quotient -----------------------------------------------
-        y = tr.challenge()
+        # ---- 5. quotient --------------------------------------------------
+        ys = [tr.challenge() for tr in trs]
+        consts = np.stack([challenge_words(t, b, g, y, pk.delta_powers)
+                           for t, b, g, y in zip(thetas, betas, gammas, ys)])
+        del raw, lk_raw, lk_coeff
 
-        witness_coeffs = (
-            advice_coeff
-            + [instance_coeff, z_perm_coeff]
-            + [z_lookup_coeff[l] for l in LOOKUPS]
-            + [ap_coeff[l] for l in LOOKUPS]
-            + [sp_coeff[l] for l in LOOKUPS]
-        )
-        del lk_raw, num_a, pre, suf, omega_dev, sigma_raw
-        consts = challenge_words(theta, beta, gamma, y, pk.delta_powers)
-        if pk.split:
-            with span("split"):
-                h_coeff = split_quotient(witness_coeffs, pk, consts, plan_fwd, plan_coset)
-        else:
-            # one batched extended-coset NTT for every opened witness polynomial
-            _fine("phase5 start", sync=False)
-            ext_stack = _ext(torch.stack(witness_coeffs), pk.zeta_powers, plan_coset)
-            _fine("quotient ext NTT")
-            h_coeff = quotient_stacked(ext_stack, pk.ext_stack, pk.x_ext,
-                                       pk.zh_inv_ext[:MAX_DEGREE], consts, pk.quotient_unscale,
-                                       plan_quot)
-            # the extended-domain arrays are not needed by the openings
-            del ext_stack
-        _fine("quotient eval+iNTT")
-        h_pieces = [h_coeff[i * n : (i + 1) * n] for i in range(QUOTIENT_PIECES)]
-        for pt in commit_many(h_coeff[: QUOTIENT_PIECES * n].reshape(QUOTIENT_PIECES, n, L.NW),
-                              "quotient"):
-            tr.write_point(pt)
-        _fine("quotient commit+fold", sync=False)
+        def quotient(g: Group) -> torch.Tensor:
+            # each instance's 19 witness rows in the quotient kernel's order
+            # (kernels.W_*): advice, instance, z_perm, z_l, A'_l, S'_l
+            parts = (coeff[g.i], z_coeff[g.i], ap_coeff[g.i], sp_coeff[g.i])
+            b = g.hi - g.lo
+            if g.pk.split:
+                with span("split"):
+                    hs = [split_quotient([row for p in parts for row in p[j]], g.pk,
+                                         consts[g.lo + j], g.plans[1], g.plans[2])
+                          for j in range(b)]
+                    h_coeff = torch.stack(hs) if b > 1 else hs[0][None]
+            else:
+                # one extended-coset transform for every opened witness row
+                wit = torch.cat(parts, dim=1)
+                ext = _ext(wit.reshape(b * WIT_ROWS, n, L.NW), g.pk.zeta_powers, g.plans[2])
+                del wit
+                h_coeff = quotient_stacked(ext.reshape(b, WIT_ROWS, domain.n_ext, L.NW),
+                                           g.pk.ext_stack, g.pk.x_ext,
+                                           g.pk.zh_inv_ext[:MAX_DEGREE], consts[g.lo:g.hi],
+                                           g.pk.quotient_unscale, g.plans[3])  # (b, n_ext, 8)
+            return h_coeff[:, : QUOTIENT_PIECES * n].reshape(b, QUOTIENT_PIECES, n, L.NW)
 
-    # ---- 6. evaluations ------------------------------------------------
+        h_pieces = each(quotient)
+        commit([h.reshape(-1, n, L.NW) for h in h_pieces], QUOTIENT_PIECES, "quotient")
+
+    # ---- 6. evaluations ---------------------------------------------------
     with span("evals"):
-        x = tr.challenge()
-        # the powers of each point serve its evaluations and its GWC witness;
-        # K7 takes the opened rows where they lie, every point in one launch
-        stacks = _open_sets(pk, advice_coeff, z_perm_coeff,
-                            [z_lookup_coeff[l] for l in LOOKUPS],
-                            [ap_coeff[l] for l in LOOKUPS],
-                            [sp_coeff[l] for l in LOOKUPS], random_coeff, h_pieces)
-        points = _points(domain, x)
-        point_pows = [powers_of(ctx, mont1(p)[0], n) for p in points]
-        for e in L.from_device_mont(ctx, _eval_stack(stacks, point_pows)):
-            tr.write_scalar(e)
+        xs = [tr.challenge() for tr in trs]
+        stacks = each(lambda g: [
+            _open_sets(g.pk, coeff[g.i][j, :NUM_ADVICE], z_coeff[g.i][j, 0],
+                       z_coeff[g.i][j, 1:], ap_coeff[g.i][j], sp_coeff[g.i][j],
+                       random_coeff[g.i][j], h_pieces[g.i][j])
+            for j in range(g.hi - g.lo)])
+        points = [p for x in xs for p in _points(domain, x)]  # 3 an instance
 
-    # ---- 7. GWC multiopen ---------------------------------------------
+        def point_pows(g: Group) -> list:
+            # the powers of every point serve its evaluations and its GWC
+            # witness, one scan for the group
+            pows = powers_rows(CTX, L.to_device_mont(CTX, points[3 * g.lo : 3 * g.hi],
+                                                     g.device), n)
+            return [list(pows[3 * j : 3 * j + 3]) for j in range(g.hi - g.lo)]
+
+        pows = each(point_pows)
+        evals = from_mont(each(lambda g: _eval_stack_batch(stacks[g.i], pows[g.i])))
+        per = len(evals) // B
+        for i, tr in enumerate(trs):
+            for e in evals[i * per : (i + 1) * per]:
+                tr.write_scalar(e)
+
+    # ---- 7. GWC multiopen -------------------------------------------------
     with span("gwc"):
-        # the three W commitments share one challenge, so their MSMs batch
-        v = tr.challenge()
-        ws = _gwc_witness(stacks, point_pows, mont1(v)[0],
-                          [mont1(pow(p, -1, FR.p))[0] for p in points])
+        # each instance's three W commitments share one challenge
+        vs = [tr.challenge() for tr in trs]
+        zinv = [pow(p, -1, FR.p) for p in points]
+        ws = each(lambda g: _gwc_witness_batch(
+            stacks[g.i], pows[g.i], L.to_device_mont(CTX, vs[g.lo:g.hi], g.device),
+            L.to_device_mont(CTX, zinv[3 * g.lo : 3 * g.hi], g.device)))
         if selfcheck >= 2:
-            for rows, w, z, key in zip(stacks, ws, points, ("x", "wx", "winvx")):
-                record(f"gwc {key}", [SC.check_gwc_witness(rows, w, v, z, key)])
-        for pt in commit_many(ws, "gwc"):
-            tr.write_point(pt)
-
-    return bytes(tr.data)
-
+            rows = [r for g in groups for st in stacks[g.i] for r in st]  # 3 an instance
+            for s, (r, w, z) in enumerate(zip(rows, [w for t in ws for w in t], points)):
+                record(f"gwc {GWC_KEYS[s % 3]}",
+                       [SC.check_gwc_witness(r, w, vs[s // 3], z, GWC_KEYS[s % 3])])
+        commit(ws, 3, "gwc")
+    return [bytes(tr.data) for tr in trs]

@@ -354,8 +354,8 @@ def test_openings_batch_match_jax(inst):
     ws = TK._gwc_witness_batch(stacks_b, pows_b, _t(ctx.to_mont_np(c.vs)),
                                _t(ctx.to_mont_np([pow(z, -1, FR.p) for z in c.points])))
     assert np.array_equal(TL.to_numpy(ws), want["gwc"])
-    for b in range(B):  # the single-instance calls
-        assert np.array_equal(TL.to_numpy(TK._eval_stack(stacks_b[b], pows_b[b])),
+    for b in range(B):  # each instance alone
+        assert np.array_equal(TL.to_numpy(TK._eval_stack_batch([stacks_b[b]], [pows_b[b]])),
                               want["evals"][b])
 
 

@@ -1,15 +1,11 @@
 """Port parity for the prover's arguments that stand for the JAX package's
 environment variables, on the CPU: keygen(pinned_vk=) and
 transcript_repr(pinned=) for DELAY_ENC_VK_PINNED_FILE (the golden of
-tests/test_transcript.py), create_proof(fine=True) for
-DELAY_ENC_PROFILE_FINE (the golden k=7 bytes, one `prove/fine/*` span a
-JAX mark, under the JAX mark's name); Metrics.count and dump from two
-threads in the JAX package's shape; and runtime/workloads.py's T_BITS row
-by row against bench.py's (no circuit is built)."""
+tests/test_transcript.py); Metrics.count and dump from two threads in the
+JAX package's shape; and runtime/workloads.py's T_BITS row by row against
+bench.py's (no circuit is built)."""
 
 import json
-import os
-import re
 import threading
 
 import numpy as np
@@ -19,20 +15,11 @@ import bench
 from delay_enc_tpu.plonk.keygen import transcript_repr as jax_transcript_repr
 from delay_enc_tpu.utils.timers import Metrics as JaxMetrics
 from delay_enc_tpu_torch.runtime import workloads as W
-from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS, Metrics
+from delay_enc_tpu_torch.utils.timers import Metrics
 from test_torch_prover import GOLDEN, K, SEED, TAU, _build_circuit, one_thread  # noqa: F401
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PINNED = b"PinnedVerificationKey { parity-surface-fixture }"
 PINNED_GOLDEN = 0x25CCA57BC81D1175DBEC0799E3AB649166B6CBC14C583FAB9DDA92DC83065FCC
-
-
-def _jax_marks(split: bool) -> list:
-    """The names of the JAX prover's DELAY_ENC_PROFILE_FINE marks in source
-    order; a split proof passes neither mark of the fused quotient's branch."""
-    with open(os.path.join(ROOT, "delay_enc_tpu", "plonk", "prover.py")) as f:
-        names = re.findall(r'^\s*_fine\("([^"]+)"', f.read(), flags=re.M)
-    return [m for m in names if not (split and m in ("phase5 start", "quotient ext NTT"))]
 
 
 @pytest.fixture(scope="module")
@@ -77,30 +64,6 @@ def test_keygen_pinned_vk_matches_jax_override(k7, golden, tmp_path, monkeypatch
     proof = create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu")
     assert verify_proof(srs, vk, proof)
     assert not verify_proof(srs, plain, proof)
-
-
-@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
-def test_fine_spans_keep_the_golden_bytes(k7, golden, split):
-    from delay_enc_tpu_torch.plonk import create_proof, keygen
-
-    srs, b = k7
-    pk, _ = keygen(b, srs, device="cpu", split=split)
-    with GLOBAL_METRICS.collect() as fine_spans:
-        proof = create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu", fine=True)
-    assert np.array_equal(np.frombuffer(proof, np.uint8), golden["proof"])
-    fine = [name[len("prove/fine/"):] for name in fine_spans if name.startswith("prove/fine/")]
-    assert fine == _jax_marks(split)
-    assert all(fine_spans[f"prove/fine/{m}"] >= 0 for m in fine)
-    with GLOBAL_METRICS.collect() as plain_spans:
-        again = create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu")
-    assert again == proof
-    assert not [name for name in plain_spans if name.startswith("prove/fine/")]
-    assert [name for name in plain_spans] == [name for name in fine_spans
-                                              if not name.startswith("prove/fine/")]
-
-
-def test_jax_marks_are_read():
-    assert len(_jax_marks(False)) == 19 and len(_jax_marks(True)) == 17
 
 
 def test_metrics_count_and_dump_from_two_threads():

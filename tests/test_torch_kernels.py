@@ -126,7 +126,7 @@ def test_quotient_matches_jax():
 def test_eval_stack_matches_jax():
     x = Inputs(5)
     stack, pt = x.words(9, N), x.words(1)[0]
-    got = TK._eval_stack([t(stack)], [TP.powers_of(CTX, t(pt), N)])
+    got = TK._eval_stack_batch([[t(stack)]], [[TP.powers_of(CTX, t(pt), N)]])
     assert same(got, JK._jit_eval_stack(j(stack), j(pt)))
 
 
@@ -135,6 +135,7 @@ def test_gwc_witness_matches_jax():
     stack = x.words(6, N)
     v, z = FR.random(x.rng), FR.random(x.rng)
     vm, zm, zim = (CTX.to_mont_np([c])[0] for c in (v, z, pow(z, -1, FR.p)))
-    got = TK._gwc_witness([t(stack)], [TP.powers_of(CTX, t(zm), N)], t(vm), [t(zim)])
+    got = TK._gwc_witness_batch([[t(stack)]], [[TP.powers_of(CTX, t(zm), N)]], t(vm)[None],
+                                t(zim)[None])
     want = JK._jit_gwc_witness(j(stack), j(vm), j(zm), j(zim))
     assert len(got) == 1 and same(got[0], want)

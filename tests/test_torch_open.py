@@ -1,6 +1,7 @@
 """K7, the openings' contractions (`open_stack`, csrc/open.cu), without a
-card: its plain version and the port's `_eval_stack` and `_gwc_witness`
-against the JAX package's `_jit_eval_stack` and `_jit_gwc_witness` at
+card: its plain version and the port's `_eval_stack_batch` and
+`_gwc_witness_batch` with one instance against the JAX package's
+`_jit_eval_stack` and `_jit_gwc_witness` at
 m in {1, 5} rows and n in {64, 1000}, bit-exact; several points in one call
 against one call a point; and the kernel's row bodies (csrc/open_row.cuh is
 __host__ __device__), built by the host C++ compiler with the blocks and
@@ -54,7 +55,7 @@ def test_eval_stack_matches_jax_at(m, n):
     stack, x = _words(rng, m, n), _words(rng, 1)[0]
     want = JK._jit_eval_stack(_j(stack), _j(x))
     pows = TP.powers_of_plain(CTX, _t(x), n + 3)  # more powers than rows: the first n count
-    assert _same(TK._eval_stack([_t(stack)], [pows]), want)
+    assert _same(TK._eval_stack_batch([[_t(stack)]], [[pows]]), want)
     assert _same(TK.open_stack_plain("eval", [list(_t(stack))], [pows]), want)
 
 
@@ -66,7 +67,7 @@ def test_gwc_witness_matches_jax_at(m, n):
     vm, zm, zim = (CTX.to_mont_np([c])[0] for c in (v, z, pow(z, -1, FR.p)))
     want = JK._jit_gwc_witness(_j(stack), _j(vm), _j(zm), _j(zim))
     zp = TP.powers_of_plain(CTX, _t(zm), n)
-    got = TK._gwc_witness([_t(stack)], [zp], _t(vm), [_t(zim)])
+    got = TK._gwc_witness_batch([[_t(stack)]], [[zp]], _t(vm)[None], _t(zim)[None])
     assert len(got) == 1 and _same(got[0], want)
     # the plain contraction itself, then divide_scaled
     scaled = TK.open_stack_plain("combine", [list(_t(stack))], [zp],
@@ -94,9 +95,10 @@ def test_points_in_one_call_match_one_call_each():
     # the GWC witnesses of the three points, as one call and one call a point
     vm = _t(_words(rng, 1)[0])
     zinvs = [_t(w) for w in _words(rng, 3)]
-    ws = TK._gwc_witness(stacks, pows, vm, zinvs)
+    ws = TK._gwc_witness_batch([stacks], [pows], vm[None], torch.stack(zinvs))
     for s in range(3):
-        assert torch.equal(ws[s], TK._gwc_witness([stacks[s]], [pows[s]], vm, [zinvs[s]])[0])
+        assert torch.equal(ws[s], TK._gwc_witness_batch([[stacks[s]]], [[pows[s]]], vm[None],
+                                                        zinvs[s][None])[0])
 
 
 def test_bad_tables_raise():

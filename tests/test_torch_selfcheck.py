@@ -55,6 +55,25 @@ def test_selfcheck_passes_and_keeps_bytes(port, level, capfd):
     assert sum(ln.startswith("# selfcheck gwc ") for ln in lines) == (3 if level >= 2 else 0)
 
 
+def test_selfcheck_on_a_split_key_keeps_bytes(port, capfd):
+    """Level 2 on a split-mode key: the golden's bytes (the split proof
+    equals the fused one) and every check true, in the fused proof's
+    order."""
+    from delay_enc_tpu_torch.plonk import create_proof, keygen
+
+    srs, _, _, b, golden = port
+    pk, _ = keygen(b, srs, split=True, device="cpu")
+    assert pk.split
+    checks = []
+    proof = create_proof(srs, pk, b, np.random.default_rng(SEED), device="cpu", selfcheck=2,
+                         checks=checks)
+    assert proof == golden
+    assert [label for label, _ in checks] == _expected_labels(2)
+    assert all(ok is True for _, ok in checks), checks
+    lines = [ln for ln in capfd.readouterr().err.splitlines() if ln.startswith("# selfcheck ")]
+    assert len(lines) == len(checks) and all(ln.endswith(": ok") for ln in lines), lines
+
+
 def test_wrong_commitment_is_reported(port, monkeypatch, capfd):
     """The random polynomial's commitment is swapped for the generator
     before it is absorbed: that check, and no other, says MISMATCH."""

@@ -145,6 +145,28 @@ def test_proof_bytes_equal_the_goldens(traced):
     assert t["out"] == want
 
 
+def test_single_proof_and_batch_of_one_name_the_same_spans(keys):
+    """create_proof and create_proofs_batched of one builder run one
+    pipeline: the same span names under their roots `prove` and
+    `prove_batch`, the names the benchmark's readers take."""
+    from delay_enc_tpu_torch.plonk import create_proof, create_proofs_batched
+
+    srs, pk, builders = keys
+    runs = {"prove": lambda: create_proof(srs, pk, builders[0], np.random.default_rng(SEED),
+                                          device="cpu"),
+            "prove_batch": lambda: create_proofs_batched(srs, pk, builders[:1],
+                                                         np.random.default_rng(SEED),
+                                                         device="cpu")}
+    names = {}
+    for root, run in runs.items():
+        with GLOBAL_METRICS.record() as recs:
+            run()
+        assert {r.name.split("/", 1)[0] for r in recs} == {root}
+        names[root] = {r.name[len(root):] for r in recs}
+    assert names["prove"] == names["prove_batch"]
+    assert {f"/{p}" for p in PHASES} < names["prove"]
+
+
 def test_htod_bytes_count_the_inputs(traced):
     """`htod bytes` is the bytes of to_tensor's inputs; it is the one
     counter at the host-device boundary.  Beside it and the launches, only
@@ -180,7 +202,8 @@ def test_spans_are_profiler_ranges(keys):
                 L.to_tensor(np.stack([CTX.to_mont_np(c) for c in cols]), "cpu")
                 fold_planes_host(identity_proj("cpu").expand(1, 127, 3, L.NW))
             with span("lookup permuted"):
-                _lookup_columns(builders[0], n, usable, 5, rng)
+                _lookup_columns(builders[0], n, usable, 5, rng,
+                                np.empty((8, n, L.NW), dtype=np.uint32), shared_pads=True)
     ranges = [(e.name, e.cpu_parent.name if e.cpu_parent is not None else None)
               for e in prof.events() if " (request " in e.name]
     assert {r.name.rsplit("/", 1)[1] for r in recs if r.name.count("/") > 1} == \

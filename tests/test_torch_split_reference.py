@@ -48,7 +48,6 @@ def proved(request, statement):
     """keygen in the mode and one proof under `record()`: the spans, the
     counters' growth, and the span path open at every wait for the device."""
     from delay_enc_tpu_torch.plonk import create_proof, keygen
-    from delay_enc_tpu_torch.plonk import prover
     from delay_enc_tpu_torch.utils import device as D
     from delay_enc_tpu_torch.utils.timers import GLOBAL_METRICS
 
@@ -63,7 +62,7 @@ def proved(request, statement):
         return wait
 
     patch = pytest.MonkeyPatch()
-    for module, name in ((D, "sync_stream"), (D, "synchronize"), (prover, "sync_stream")):
+    for module, name in ((D, "sync_stream"), (D, "synchronize")):
         patch.setattr(module, name, spy(getattr(module, name)))
     before = GLOBAL_METRICS.snapshot()
     try:
