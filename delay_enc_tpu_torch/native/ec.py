@@ -307,15 +307,19 @@ def _fr_consts():
     return _FR_CONSTS
 
 
-def uniform_to_fr_mont(raw: np.ndarray):
-    """(n, 64) LE uniform bytes -> (n, 16) uint32 Montgomery Fr limbs via
-    the C wide reduction, or None when the C library is missing."""
+def uniform_to_fr_mont(raw: np.ndarray, out: np.ndarray | None = None):
+    """(n, 64) LE uniform bytes -> (n, 8) uint32 Montgomery Fr words via
+    the C wide reduction, written into `out` where given (C-contiguous
+    uint32 (n, 8), which is returned), or None when the C library is
+    missing."""
+    from ..ops.limbs import rows_to_write
+
     lib = get_eclib()
     if lib is None:
         return None
     raw = np.ascontiguousarray(raw, dtype=np.uint8)
     n = raw.shape[0]
-    out = np.empty((n, 16), dtype=np.uint32)
+    out = np.empty((n, 8), dtype=np.uint32) if out is None else rows_to_write(out, n)
     pw, r2w, n0 = _fr_consts()
     lib.fr_from_uniform_mont(
         raw.ctypes.data, n, pw.ctypes.data, r2w.ctypes.data, n0, out.ctypes.data

@@ -1526,21 +1526,12 @@ int g1_decompress_batch_mt(const uint8_t *in, size_t n,
 /* bulk uniform-bytes -> Montgomery Fr (the prover's random polynomial
  * draws n=2^k wide-reduced scalars per proof; Python bigint reduction
  * is ~0.2 s at k=16, this is ~15 ms).
- * in: (n, 64) LE uniform bytes; out: (n, 16) u32 u16-limbs, Montgomery.
+ * in: (n, 64) LE uniform bytes; out: (n, 4) u64 LE words, Montgomery, the
+ * port's (n, 8) u32 words, written in place (the prover's staging rows).
  * v = lo + 2^256*hi mod p; out = v*R = mont(lo,R2) + mont(mont(hi,R2),R2). */
-static inline void store_u16limbs(const u256 *in, uint32_t *limbs) {
-    for (int i = 0; i < 4; i++) {
-        uint64_t v = in->w[i];
-        for (int j = 0; j < 4; j++) {
-            limbs[i * 4 + j] = (uint32_t)(v & 0xFFFF);
-            v >>= 16;
-        }
-    }
-}
-
 void fr_from_uniform_mont(const uint8_t *in, size_t n, const uint64_t *p_words,
                           const uint64_t *r2_words, uint64_t n0inv,
-                          uint32_t *out) {
+                          uint64_t *out) {
     fctx c;
     fctx_init(&c, p_words, r2_words, n0inv);
     for (size_t i = 0; i < n; i++) {
@@ -1551,6 +1542,6 @@ void fr_from_uniform_mont(const uint8_t *in, size_t n, const uint64_t *p_words,
         fe_mul(&c, &hi, &c.r2, &b);        /* hi * R */
         fe_mul(&c, &b, &c.r2, &b);         /* hi * R^2 */
         fe_add(&c, &a, &b, &a);            /* (lo + 2^256 hi) * R mod p */
-        store_u16limbs(&a, out + 16 * i);
+        memcpy(out + 4 * i, a.w, 32);
     }
 }

@@ -78,13 +78,30 @@ def words_to_ints_np(w) -> list[int]:
     return [int.from_bytes(b[32 * i : 32 * i + 32], "little") for i in range(len(b) // 32)]
 
 
+def rows_to_write(out: np.ndarray, rows: int) -> np.ndarray:
+    """`out`, checked to be C-contiguous uint32 (rows, 8) words that a
+    writer can fill in place (the prover's staging rows)."""
+    if out.shape != (rows, NW) or out.dtype != np.uint32 or not out.flags.c_contiguous:
+        raise ValueError(f"rows to write: C-contiguous uint32 ({rows}, {NW}), got "
+                         f"{out.dtype} {out.shape}")
+    return out
+
+
 def to_tensor(words: np.ndarray, device) -> torch.Tensor:
     """uint32 (…, 8) numpy words -> int32 tensor on `device`: a copy from
-    pageable host memory, the span `htod`, its bytes counted (`htod bytes`)."""
+    pageable host memory, the span `htod`, its bytes counted (`htod bytes`).
+    To a CUDA device the words are sent as they lie, with no host copy:
+    the copy returns after it has read them, so the caller may rewrite
+    them then (the prover's staging buffer, `plonk/prover.py`).  To any
+    other device the tensor is a host copy, so that it never aliases
+    `words`."""
+    device = torch.device(device)
     with GLOBAL_METRICS.span("htod"):
         w = np.ascontiguousarray(words, dtype=np.uint32)
         GLOBAL_METRICS.count("htod bytes", w.nbytes)
-        return torch.from_numpy(w.view(np.int32).copy()).to(device)
+        if device.type != "cuda" or not w.flags.writeable:
+            w = w.copy()
+        return torch.from_numpy(w.view(np.int32)).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -120,8 +137,11 @@ class FieldCtx:
             self._nc = (p_words, r2_words, n0inv)
         return self._nc
 
-    def to_mont_np(self, xs) -> np.ndarray:
-        """ints -> (N, 8) uint32 Montgomery words (the span `to_mont`).
+    def to_mont_np(self, xs, out: np.ndarray | None = None) -> np.ndarray:
+        """ints -> (N, 8) uint32 Montgomery words (the span `to_mont`),
+        written into `out` where given (C-contiguous uint32 (N, 8), which is
+        returned): every step below then works in its rows, and no array of
+        N elements is made.
 
         A list or tuple is read in C (`native/pyints.c`): each exact int in
         [0, 2^256) goes into the words as it is, with no Python step.  Every
@@ -136,10 +156,12 @@ class FieldCtx:
             lib = get_lib()
             p = self.p
             n = len(xs)
+            out = np.empty((n, NW), dtype=np.uint32) if out is None else rows_to_write(out, n)
             if lib is None:
                 GLOBAL_METRICS.count("to_mont python", n)
-                return ints_to_words_np([(int(x) << 256) % p for x in xs])
-            words = np.empty((n, 4), dtype=np.uint64)
+                out[...] = ints_to_words_np([(int(x) << 256) % p for x in xs])
+                return out
+            words = out.view(np.uint64)  # (n, 4)
             pyints = get_pyints() if isinstance(xs, (list, tuple)) else None
             if pyints is not None:
                 taken = np.empty(n, dtype=np.uint8)
@@ -154,7 +176,7 @@ class FieldCtx:
             GLOBAL_METRICS.count("to_mont python", len(rest))
             pw, r2w, n0 = self._native_consts()
             lib.to_mont_words(words.ctypes.data, n, pw.ctypes.data, r2w.ctypes.data, n0)
-            return words.view(np.uint32)
+            return out
 
     def from_mont_np(self, a) -> list[int]:
         """(…, 8) uint32 Montgomery words -> ints."""

@@ -41,6 +41,11 @@ pad between A'_l and S'_l, which is the JAX single prover's order.  So the
 same circuit, SRS and seed give the JAX create_proof's bytes, and the same
 builders the JAX create_proofs_batched's.
 
+Every word a run sends to the card in its first four phases (the advice
+and instance columns, the permuted lookup columns, the random polynomial)
+is written once, in place, into the calling thread's staging buffer
+(`staging`), kept across runs, and sent from there with no host copy.
+
 Spans (`utils/timers.py`): a proof is the root span `prove` (a batch:
 `prove_batch`), its phases the spans `advice commit`, `lookup permuted`,
 `grand products` (each from the phase's challenges to its commitments),
@@ -57,6 +62,7 @@ here, `to_mont`, `htod` and `device wait` in `ops/limbs.py`, `fold` in
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -104,17 +110,18 @@ def _rand_fr(rng) -> int:
     return FR.from_uniform_bytes(bytes(rng.integers(0, 256, 64, dtype="uint8")))
 
 
-def _rand_fr_mont_bulk(rng, count: int) -> np.ndarray:
-    """count wide-reduced random Fr as (count, 8) Montgomery words, through
-    the copied C wide reduction (Python fallback); the span `columns`."""
+def _rand_fr_mont_bulk(rng, out: np.ndarray) -> np.ndarray:
+    """len(out) wide-reduced random Fr as Montgomery words, written into the
+    (count, 8) rows `out` through the copied C wide reduction (Python
+    fallback); the span `columns`."""
     from ..native.ec import uniform_to_fr_mont
 
+    count = len(out)
     with GLOBAL_METRICS.span("columns"):
         raw = rng.integers(0, 256, (count, 64), dtype="uint8")
-        out = uniform_to_fr_mont(raw)
-        if out is not None:
-            return L.limbs_to_words_np(out)
-        return CTX.to_mont_np([FR.from_uniform_bytes(bytes(raw[i])) for i in range(count)])
+        if uniform_to_fr_mont(raw, out) is not None:
+            return out
+        return CTX.to_mont_np([FR.from_uniform_bytes(bytes(raw[i])) for i in range(count)], out)
 
 
 def _table_keys(tbl_tags, tbl_vals, usable: int, theta: int):
@@ -154,12 +161,15 @@ def _fvals_mont(keys: np.ndarray, theta: int) -> np.ndarray:
     return CTX.to_mont_np(vals)
 
 
-def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire):
+def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire,
+                      ap: np.ndarray | None = None, sp: np.ndarray | None = None):
     """halo2's lookup permutation (lookup/prover.rs permute_expression_pair):
     A' = A sorted (grouped by value), S' = the matching table value at each
     first occurrence, the remaining table rows filling the rest.  Computed
-    in key space over the table's keys; returns (usable, 8) Montgomery word
-    arrays copied from `fvals`.
+    in key space over the table's keys; returns A' and S', (usable, 8)
+    Montgomery words copied from `fvals`, written into the rows `ap` and
+    `sp` where given (C-contiguous uint32 (usable, 8) each: the staging
+    rows of a proof), each row once.
 
     Two passes.  The keys (`_lookup_keys`): the tag and wire columns read
     together into u32 pair keys, in C (`native/pyints.c:lookup_keys`, the
@@ -170,7 +180,7 @@ def _permuted_columns(tag_col, adv_col, usable: int, tkeys_padded, fvals, wire):
     released; the same counting in numpy without the C library).  Nothing
     is kept across calls."""
     keys = _lookup_keys(tag_col, adv_col, wire)
-    return _permute_by_count(keys, usable, tkeys_padded, fvals, wire)
+    return _permute_by_count(keys, usable, tkeys_padded, fvals, wire, ap, sp)
 
 
 def _lookup_keys(tag_col, adv_col, wire) -> np.ndarray:
@@ -215,14 +225,14 @@ def _lookup_keys(tag_col, adv_col, wire) -> np.ndarray:
     return keys
 
 
-def _permute_by_count(keys, usable: int, tkeys_padded, fvals, wire):
+def _permute_by_count(keys, usable: int, tkeys_padded, fvals, wire, ap=None, sp=None):
     """A' and S' of the keys (the rows past them key 0) against the sorted
     padded table `tkeys_padded` by counting: A' is each table key repeated
     by its count, in the table's order; S' holds each used key at the first
     row of its run in A', and the table's other rows, in order, at the
     others.  Equal table keys (the zero padding) form a group, whose first
     row's `fvals` stand for it.  Raises the lookup failure of the smallest
-    key not in the table."""
+    key not in the table.  Writes into `ap` and `sp` where given."""
     from ..native import get_lib
 
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
@@ -232,10 +242,10 @@ def _permute_by_count(keys, usable: int, tkeys_padded, fvals, wire):
     if rows > usable or table.shape != (usable,) or fvals.shape != (usable, L.NW):
         raise ValueError(f"lookup: {rows} keys, a table of {table.shape} and values of "
                          f"{fvals.shape} for {usable} usable rows (wire {wire})")
+    ap, sp = (np.empty((usable, L.NW), dtype=np.uint32) if o is None
+              else L.rows_to_write(o, usable) for o in (ap, sp))
     lib = get_lib()
     if lib is not None:
-        ap = np.empty((usable, L.NW), dtype=np.uint32)
-        sp = np.empty((usable, L.NW), dtype=np.uint32)
         missing = lib.lookup_permute(keys.ctypes.data, rows, usable, table.ctypes.data,
                                      fvals.ctypes.data, ap.ctypes.data, sp.ctypes.data)
         if missing == -2:
@@ -256,7 +266,7 @@ def _permute_by_count(keys, usable: int, tkeys_padded, fvals, wire):
     if not found.all():
         _not_in_table(int(full[~found].min()), wire)
     count = np.bincount(j, minlength=len(first))
-    ap = fvals[np.repeat(first, count)]
+    np.take(fvals, np.repeat(first, count), axis=0, out=ap)
     used = count > 0
     starts = (np.cumsum(count) - count)[used]
     at_start = np.zeros(usable, dtype=bool)
@@ -266,7 +276,8 @@ def _permute_by_count(keys, usable: int, tkeys_padded, fvals, wire):
     src = np.empty(usable, dtype=np.int64)
     src[starts] = first[used]
     src[~at_start] = first[group[~taken]]
-    return ap, fvals[src]
+    np.take(fvals, src, axis=0, out=sp)
+    return ap, sp
 
 
 def _not_in_table(key: int, wire):
@@ -292,25 +303,24 @@ def _advice_columns(builder: Builder, n: int, usable: int, rng) -> list:
 def _lookup_columns(builder: Builder, n: int, usable: int, theta: int, rng, out: np.ndarray,
                     shared_pads: bool) -> None:
     """The permuted lookup columns A'_a..d then S'_a..d written to `out`,
-    (8, n, 8) Montgomery words, their rows from `usable` on drawn from rng:
-    one pad a lookup for both columns (`shared_pads`, a single proof), or a
-    pad for A'_l then one for S'_l (a batch, JAX batch_prover.py:186).  The
-    table's keys and the columns' writes are the spans `columns`, each
+    (8, n, 8) Montgomery words, each row once, their rows from `usable` on
+    drawn from rng: one pad a lookup for both columns (`shared_pads`, a
+    single proof), or a pad for A'_l then one for S'_l (a batch, JAX
+    batch_prover.py:186).  The table's keys are the span `columns`, each
     permutation `permute`."""
     with GLOBAL_METRICS.span("columns"):
         tbl_tags, tbl_vals = build_table(builder.lookup_widths)
         tkeys_padded, fvals = _table_keys(tbl_tags, tbl_vals, usable, theta)
     for i, l in enumerate(LOOKUPS):
+        a, s = out[i], out[NL + i]
         with GLOBAL_METRICS.span("permute"):
-            ap, sp = _permuted_columns(
-                builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
-                usable, tkeys_padded, fvals, l,
-            )
-        pad = CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)])
-        pad2 = pad if shared_pads else CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)])
-        with GLOBAL_METRICS.span("columns"):
-            out[i, :usable], out[i, usable:] = ap, pad
-            out[NL + i, :usable], out[NL + i, usable:] = sp, pad2
+            _permuted_columns(builder.fixed[f"tag_{l}"], builder.advice[WIRE_COL[l]],
+                              usable, tkeys_padded, fvals, l, a[:usable], s[:usable])
+        CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)], a[usable:])
+        if shared_pads:
+            s[usable:] = a[usable:]
+        else:
+            CTX.to_mont_np([_rand_fr(rng) for _ in range(n - usable)], s[usable:])
 
 
 def _commit(groups: list, rows: list) -> list:
@@ -374,6 +384,35 @@ def group(i: int, lo: int, hi: int, device, pk: ProvingKey, srs, msm: str,
         srs = srs.truncated(domain.k)
         return Group(i, lo, hi, device, pk, srs, srs.msm_tables(msm),
                      transform_plans(domain, device, ntt))
+
+
+_STAGING = threading.local()
+
+
+def staging(B: int, n: int) -> tuple:
+    """The calling thread's host staging buffer, as the views (advice,
+    lookups, random) of one proof run: (B, 6, n, 8), (B, 8, n, 8) and (B, n,
+    8) uint32 words, one after the other.  The host prover work writes every
+    word it sends there, once, and `L.to_tensor` sends from there.  The
+    buffer is one flat array a thread, kept across calls: it grows to the
+    first run that needs more (the counter `staging grow`, its bytes under
+    `staging grow bytes`), is never shrunk, and is otherwise reused
+    (`staging reuse`).  A thread proves one run at a time, and a CUDA copy
+    has read the words when `to_tensor` returns, so the next run may
+    rewrite them."""
+    sizes = (B * (NUM_ADVICE + 1) * n * L.NW, B * 2 * NL * n * L.NW, B * n * L.NW)
+    words = sum(sizes)
+    buf = getattr(_STAGING, "buf", None)
+    if buf is None or buf.size < words:
+        _STAGING.buf = None  # the old buffer goes before the new one is made
+        buf = _STAGING.buf = np.empty(words, dtype=np.uint32)
+        GLOBAL_METRICS.count("staging grow")
+        GLOBAL_METRICS.count("staging grow bytes", buf.nbytes)
+    else:
+        GLOBAL_METRICS.count("staging reuse")
+    a, lk, r = np.split(buf[:words], np.cumsum(sizes[:2]))
+    return (a.reshape(B, NUM_ADVICE + 1, n, L.NW), lk.reshape(B, 2 * NL, n, L.NW),
+            r.reshape(B, n, L.NW))
 
 
 def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
@@ -468,25 +507,20 @@ def prove_instances(pk: ProvingKey, builders, rng, make_groups, shared_pads: boo
             tr.common_scalar(pk.vk.transcript_repr)
             for v in b.instance:
                 tr.common_scalar(v)
-        words = np.empty((B, NUM_ADVICE + 1, n, L.NW), dtype=np.uint32)
+        adv_host, lk_host, rand_host = staging(B, n)
         for i, b in enumerate(builders):
             for c, col in enumerate(_advice_columns(b, n, usable, rng)):
-                w = CTX.to_mont_np(col)
-                with span("columns"):
-                    words[i, c] = w
-        raw = dev(words)
-        del words
+                CTX.to_mont_np(col, adv_host[i, c])
+        raw = dev(adv_host)
         coeff = each(lambda g: _coeff(raw[g.i], g.plans[0]))  # (b, 6, n, 8) a group
         commit([c[:, :NUM_ADVICE].reshape(-1, n, L.NW) for c in coeff], NUM_ADVICE, "advice")
 
     # ---- 2. lookups -------------------------------------------------------
     with span("lookup permuted"):
         thetas = [tr.challenge() for tr in trs]
-        lk_host = np.empty((B, 2 * NL, n, L.NW), dtype=np.uint32)  # A'_a..d, then S'_a..d
-        for i, (b, theta) in enumerate(zip(builders, thetas)):
+        for i, (b, theta) in enumerate(zip(builders, thetas)):  # A'_a..d, then S'_a..d
             _lookup_columns(b, n, usable, theta, rng, lk_host[i], shared_pads)
         lk_raw = dev(lk_host)
-        del lk_host
         lk_coeff = each(lambda g: _coeff(lk_raw[g.i], g.plans[0]))
         ap_coeff, sp_coeff = [c[:, :NL] for c in lk_coeff], [c[:, NL:] for c in lk_coeff]
         # each instance's commitments in the order A'_l, S'_l
@@ -525,7 +559,8 @@ def prove_instances(pk: ProvingKey, builders, rng, make_groups, shared_pads: boo
 
     with span("quotient"):
         # ---- 4. random polys ----------------------------------------------
-        random_coeff = dev(_rand_fr_mont_bulk(rng, B * n).reshape(B, n, L.NW))
+        _rand_fr_mont_bulk(rng, rand_host.reshape(B * n, L.NW))
+        random_coeff = dev(rand_host)
         commit(random_coeff, 1, "random")
 
         # ---- 5. quotient --------------------------------------------------

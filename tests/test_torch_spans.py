@@ -171,13 +171,17 @@ def test_htod_bytes_count_the_inputs(traced):
     """`htod bytes` is the bytes of to_tensor's inputs; it is the one
     counter at the host-device boundary.  Beside it and the launches, only
     to_mont's two counters and the lookup permutation's two, with every
-    element and every row taken by the C readers, and the split quotient's,
-    which a fused proof leaves where it was."""
+    element and every row taken by the C readers, the split quotient's,
+    which a fused proof leaves where it was, and the staging buffer's: one
+    grow (with its bytes) or one reuse a run."""
     _, t = traced
     c = t["counters"]
     assert t["inputs"] and c["#htod bytes"] == sum(t["inputs"])
     assert {k for k in c if not k.startswith(
-        ("#launches/", "#to_mont ", "#permute ", "#split cosets"))} == {"#htod bytes"}
+        ("#launches/", "#to_mont ", "#permute ", "#split cosets", "#staging "))} == \
+        {"#htod bytes"}
+    assert c.get("#staging grow", 0) + c.get("#staging reuse", 0) == 1
+    assert (c.get("#staging grow bytes", 0) > 0) == (c.get("#staging grow", 0) == 1)
     assert c["#to_mont python"] == 0 and c["#to_mont native"] > 0
     assert c["#permute python"] == 0 and c["#permute native"] > 0
     assert c.get("#split cosets", 0) == 0
