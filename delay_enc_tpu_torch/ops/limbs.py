@@ -106,7 +106,9 @@ def to_tensor(words: np.ndarray, device) -> torch.Tensor:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 word tensor -> uint32 numpy words on the host: waits for the
-    work queued on the stream, then copies (the span `device wait`)."""
+    work queued on the stream, then copies (the span `device wait`; one
+    more on the counter `device waits`)."""
+    GLOBAL_METRICS.count("device waits")
     with GLOBAL_METRICS.span("device wait"):
         return t.detach().cpu().contiguous().numpy().view(np.uint32)
 

@@ -19,7 +19,9 @@ over the kernels on the profiler's clock.  Without either, a span costs a
 clock read on each side and an `add`.
 
 Counters (`count`) sit beside the spans: the bytes copied from the host to
-the device (`ops/limbs.py`), the kernels' launches under
+the device and the blocking reads of a result back to the host (`device
+waits`, one a `to_numpy` call, through which every such read of a proof
+goes; `ops/limbs.py`), the kernels' launches under
 `launches/<kernel>` (`ops/_cuda.py`) and the split quotient's cosets
 (`split cosets`, `plonk/kernels.py`).  `snapshot` gives the span totals and
 the counters, each counter under `#<name>`, so that a before/after

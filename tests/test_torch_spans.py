@@ -168,23 +168,58 @@ def test_single_proof_and_batch_of_one_name_the_same_spans(keys):
 
 
 def test_htod_bytes_count_the_inputs(traced):
-    """`htod bytes` is the bytes of to_tensor's inputs; it is the one
-    counter at the host-device boundary.  Beside it and the launches, only
-    to_mont's two counters and the lookup permutation's two, with every
-    element and every row taken by the C readers, the split quotient's,
-    which a fused proof leaves where it was, and the staging buffer's: one
-    grow (with its bytes) or one reuse a run."""
+    """`htod bytes` is the bytes of to_tensor's inputs; it and `device
+    waits` (the reads back, `test_device_waits_count_the_reads_back`) are
+    the counters at the host-device boundary.  Beside them and the
+    launches, only to_mont's two counters and the lookup permutation's
+    two, with every element and every row taken by the C readers, the
+    split quotient's, which a fused proof leaves where it was, and the
+    staging buffer's: one grow (with its bytes) or one reuse a run."""
     _, t = traced
     c = t["counters"]
     assert t["inputs"] and c["#htod bytes"] == sum(t["inputs"])
     assert {k for k in c if not k.startswith(
         ("#launches/", "#to_mont ", "#permute ", "#split cosets", "#staging "))} == \
-        {"#htod bytes"}
+        {"#htod bytes", "#device waits"}
     assert c.get("#staging grow", 0) + c.get("#staging reuse", 0) == 1
     assert (c.get("#staging grow bytes", 0) > 0) == (c.get("#staging grow", 0) == 1)
     assert c["#to_mont python"] == 0 and c["#to_mont native"] > 0
     assert c["#permute python"] == 0 and c["#permute native"] > 0
     assert c.get("#split cosets", 0) == 0
+
+
+# a proof's blocking reads back to the host: the plane sums of its six
+# commitment batches (advice, lookups, grand products, random polynomial,
+# quotient pieces, GWC witnesses) and two reads of field elements (the
+# grand products' totals, the evaluations)
+WAITS = 6 + 2
+
+
+def test_device_waits_count_the_reads_back(keys, monkeypatch):
+    """`device waits` is one a `to_numpy` call, the proving thread's one
+    way to read a result back: WAITS in every k=7 proof, whatever its
+    randomness, and a batch of two on one device reads each result once
+    for both instances, so no more than two serial proofs."""
+    from delay_enc_tpu_torch.plonk import create_proof, create_proofs_batched
+
+    srs, pk, builders = keys
+    calls = []
+    to_numpy = L.to_numpy
+    monkeypatch.setattr(L, "to_numpy", lambda t: calls.append(1) or to_numpy(t))
+
+    def waits(run) -> int:
+        before, n = GLOBAL_METRICS.snapshot().get("#device waits", 0), len(calls)
+        run()
+        got = GLOBAL_METRICS.snapshot()["#device waits"] - before
+        assert got == len(calls) - n
+        return got
+
+    serial = [waits(lambda: create_proof(srs, pk, builders[0], np.random.default_rng(s),
+                                         device="cpu")) for s in (SEED, SEED + 1)]
+    assert serial == [WAITS, WAITS]
+    batch = waits(lambda: create_proofs_batched(srs, pk, builders,
+                                                np.random.default_rng(BATCH_SEED), device="cpu"))
+    assert len(builders) == 2 and batch == WAITS
 
 
 def test_spans_are_profiler_ranges(keys):
