@@ -16,8 +16,9 @@ Phases, one line each (stderr carries detail):
     (points as affine), at the main path's shapes and on carry-heavy
     operands, with both times; field_pow (inv, mont_pow) at 2^16 elements of
     Fr and Fq to five exponents, one launch a call, and batch_inv with
-    zeros inside; then the field_pow path (inv, mont_pow, batch_inv and
-    batch_inv_log through their entry points, launches counted); the
+    zeros inside; field_wide_to_mont at 2^18 rows of 64 bytes; then the
+    field_pow path (inv, mont_pow, batch_inv and batch_inv_log through
+    their entry points, launches counted); the
     multi-stage NTT also at small and odd k,
     at batch 1 and with its fused input and output sides; the scan kernel in
     every form, at ragged lengths, in one row of 2^20, with a zero inside and
@@ -197,7 +198,7 @@ def timed(fn, reps: int) -> float:
 # each CUDA function of csrc/ -> the port's wrappers (ops/_cuda.py kernels) that launch it
 KERNEL_FUNCTIONS = {
     "field_binary_kernel": ("field_mont_mul", "field_add", "field_sub"),
-    "field_pow_kernel": ("field_pow",),
+    "field_pow_kernel": ("field_pow",), "field_wide_to_mont_kernel": ("field_wide_to_mont",),
     "ntt_fused_kernel": ("ntt_fused",), "scan_kernel": ("field_scan",),
     "quotient_kernel": ("quotient_h", "quotient_h_coset"), "fracs_kernel": ("gp_fracs",),
     "open_eval_kernel": ("open_eval",), "open_combine_kernel": ("open_combine",),
@@ -449,6 +450,24 @@ def phase1(rep: Report, dev):
         del got, other
     del big
     phase1_pow(rep, dev, rand_field, carry_heavy)
+
+    # field_wide_to_mont at a k=18 proof's random polynomial, 2^18 rows of
+    # 64 random bytes with all-zero and all-ones rows among them
+    wide = torch.randint(-2**31, 2**31, (1 << 18, 16), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    wide[:5] = 0
+    wide[5:10] = -1
+    got = L.wide_to_mont(L.FR_CTX, wide)
+    t0 = time.time()
+    want = L.wide_to_mont_plain(L.FR_CTX, wide)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    fn = lambda: L.wide_to_mont(L.FR_CTX, wide)
+    rep.add("field_wide_to_mont", err=max_err(got, want), ms=timed(fn, 20), plain_ms=plain_ms,
+            nbytes=96 * (1 << 18), int_ops=(1 << 18) * 2 * MONT_MULS * WIDE,
+            device_ms=device_ms(fn, 20, "field_wide_to_mont_kernel"),
+            note=" (Fr, 2^18 rows of 64 bytes: a k=18 proof's random polynomial)")
+    del wide, got, want
 
     # K-b: (19, 2^19) forward coset transform, (6, 2^16) inverse
     d = Domain(16)
@@ -1961,10 +1980,13 @@ def profile_proof(srs, pk, builder, proof, dev, phase: str, msm: str = "b4",
 
 # K-a launches a proof or a batch, whatever B (one pipeline, plonk/prover.py),
 # since K5, K6 and K7 took the fractions, the quotient and the openings: the
-# canonical form before each of 6 commitment batches, 4 products in the
-# grand products' finish, and one product by the z^-(i+1) for every
-# instance's three GWC divisions; no longer a function of k
-PLANNED_ELEMENTWISE = COMMIT_BATCHES + 4 + 1
+# advice and instance columns' Montgomery form (by R^2), the canonical form
+# before each of 6 commitment batches, 4 products in the grand products'
+# finish, and one product by the z^-(i+1) for every instance's three GWC
+# divisions; no longer a function of k
+PLANNED_ELEMENTWISE = 1 + COMMIT_BATCHES + 4 + 1
+# field_wide_to_mont launches a proof or a batch: the random polynomials
+PLANNED_WIDE = 1
 # field_scan calls, each one launch: the powers of omega, the grand
 # products' prefix, suffix and finishing products, the powers of every
 # point, of every v and of every inverse point, and the GWC suffix sums of
@@ -2031,7 +2053,7 @@ def check_proof_launches(proof_launches: dict, k: int, msm: str = "b4",
         raise AssertionError(f"a proof launched the scan kernel {proof_launches['field_scan']} "
                              f"times, planned {PLANNED_SCANS}")
     for name, want in (("gp_fracs", 1), ("open_eval", 1), ("open_combine", 1),
-                       *quotient.items()):
+                       ("field_wide_to_mont", PLANNED_WIDE), *quotient.items()):
         if proof_launches[name] != want:
             raise AssertionError(f"a proof launched {name} {proof_launches[name]} times, "
                                  f"planned {want}")
@@ -2054,6 +2076,7 @@ def check_batch_launches(launches: dict, k: int) -> None:
     want = {"gp_fracs": 1, "quotient_h": 1, "open_eval": 1, "open_combine": 1,
             "quotient_h_coset": 0, "pair_sel": COMMIT_BATCHES, "plane_sums16": 0,
             "field_scan": PLANNED_SCANS, "field_mont_mul": PLANNED_ELEMENTWISE,
+            "field_wide_to_mont": PLANNED_WIDE,
             "ntt_fused": 4 * len(N.plan(k)) + len(N.plan(k + 3, 1 << k)) + len(N.plan(k + 3)),
             "g1_complete_add": 0, "g1_fixed_base_mul": 0, "ntt_mxu_split": 0,
             "ntt_mxu_product": 0, **{name: 0 for name in NOT_ON_PROOF}}

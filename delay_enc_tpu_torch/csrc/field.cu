@@ -1,5 +1,6 @@
-// K-a: batched elementwise Fr / Fq arithmetic (mont_mul, add, sub), and
-// field_pow: every element raised to one host-known exponent.
+// K-a: batched elementwise Fr / Fq arithmetic (mont_mul, add, sub);
+// field_pow: every element raised to one host-known exponent; and
+// field_wide_to_mont: 512-bit rows into Montgomery form.
 //
 // Replaces delay_enc_tpu/ops/limbs.py mont_mul (:496), add (:397) and
 // sub (:401), which XLA fused into elementwise limb-chain kernels.
@@ -22,6 +23,19 @@
 // Bound: operations.  An Fr inversion is 253 squarings and 126 products,
 // 379 Montgomery products of 128 wide multiplies an element against 64
 // bytes moved; one launch does what ~512 K-a launches would.
+//
+// field_wide_to_mont takes the place of the host's C wide reduction of the
+// prover's random polynomial (delay_enc_tpu/plonk/prover.py:75
+// _rand_fr_mont_bulk, native ecops.c fr_from_uniform_mont): a row of 16
+// words is the 512-bit integer lo + 2^256 hi (lo words 0-7, hi 8-15, any
+// bits), and its Montgomery form is mont_mul(R^2, lo) + mont_mul(R^3, hi)
+// = (lo + 2^256 hi) * R mod p.  mont_mul takes its second operand
+// anywhere below 2^256 when its first is below p, so each half goes second
+// against the constant, neither is reduced first, and every result is
+// fully reduced: the host's words, bit for bit.  R^2 and R^3 come by
+// value in the launch's parameters.  Bound: memory, 64 bytes read and 32
+// written an element against two Montgomery products (256 wide
+// multiplies).
 
 #include <cuda_runtime.h>
 
@@ -83,7 +97,54 @@ __global__ void field_pow_kernel(const uint32_t* __restrict__ a,
   fld::st8(out + (size_t)i * 8, r);
 }
 
+// R^2 and R^3 mod p by value.
+struct Wide {
+  uint32_t r2[fld::NW];
+  uint32_t r3[fld::NW];
+};
+
+template <int F>
+__global__ void field_wide_to_mont_kernel(const uint32_t* __restrict__ a,
+                                          uint32_t* __restrict__ out, uint32_t n,
+                                          Wide c) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t lo[8], hi[8], r2[8], r3[8], x[8], y[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    r2[j] = c.r2[j];
+    r3[j] = c.r3[j];
+  }
+  fld::ld8(lo, a + (size_t)i * 16);
+  fld::ld8(hi, a + (size_t)i * 16 + 8);
+  fld::mont_mul<F>(x, r2, lo);
+  fld::mont_mul<F>(y, r3, hi);
+  fld::add<F>(x, x, y);
+  fld::st8(out + (size_t)i * 8, x);
+}
+
 }  // namespace
+
+// out[i] (8 words) = the Montgomery form of the 512-bit row a[i] (16
+// words); `consts` (host memory, copied into the launch's parameters) holds
+// R^2 mod p, then R^3 mod p, 8 words each.
+extern "C" int field_wide_to_mont(int field, const void* a, void* out, unsigned n,
+                                  const unsigned* consts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  Wide c;
+  for (int j = 0; j < fld::NW; j++) {
+    c.r2[j] = consts[j];
+    c.r3[j] = consts[fld::NW + j];
+  }
+  const int threads = 256;
+  const uint32_t blocks = (n + threads - 1) / threads;
+  const uint32_t* src = static_cast<const uint32_t*>(a);
+  uint32_t* dst = static_cast<uint32_t*>(out);
+  if (field == fld::FR) field_wide_to_mont_kernel<fld::FR><<<blocks, threads, 0, s>>>(src, dst, n, c);
+  else field_wide_to_mont_kernel<fld::FQ><<<blocks, threads, 0, s>>>(src, dst, n, c);
+  return (int)cudaGetLastError();
+}
 
 // out[i] = a[i]^e for the exponent of nbits bits in the 8 words at `exp`
 // (host memory, copied into the launch's parameters).

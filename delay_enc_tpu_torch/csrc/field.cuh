@@ -210,8 +210,8 @@ FDEV void add(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
 }
 
 // a + b left unreduced: for two reduced operands whose sum (below 2p, so
-// below 2^255) only feeds mont_mul, which takes any operands below 2^256
-// with a * b < p * 2^256
+// below 2^255) only feeds mont_mul, which takes a with a + p <= 2^256 and
+// b below 2^256 with a * b < p * 2^256
 FDEV void add_unreduced(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
   r[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
@@ -240,9 +240,12 @@ FDEV void sub(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
 // with m chosen so that e[0] becomes 0.  Dividing by 2^32 then needs no
 // move: the next row is called with the two arrays exchanged.  Its o is
 // this row's e, whose word 0 is zero, whose word 1 belongs under the new
-// e[0], and whose words 2..7 are the new o[0..5].  The value stays below
-// 2^288 (inputs below 2^256 with a * b < p * 2^256), so the chain of o
-// never carries out, and the carry out of e's chain lands in o[7].
+// e[0], and whose words 2..7 are the new o[0..5].  The running value stays
+// below a + p, and below (a + p) * 2^32 <= 2^288 inside a row, for a with
+// a + p <= 2^256 (a reduced one, or a sum of two), so the chain of o never
+// carries out, and the carry out of e's chain lands in o[7].  An a nearer
+// 2^256 overflows it: an operand that may lie anywhere below 2^256 goes in
+// b (the portable body, with a word more, takes either).
 template <int F, bool FIRST>
 FDEV void mont_row(uint32_t e[NW], uint32_t o[NW], const uint32_t a[NW], uint32_t bi) {
   if (FIRST) {
@@ -345,8 +348,8 @@ FDEV void add(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
 }
 
 // a + b left unreduced: for two reduced operands whose sum (below 2p, so
-// below 2^255) only feeds mont_mul, which takes any operands below 2^256
-// with a * b < p * 2^256
+// below 2^255) only feeds mont_mul, which takes a with a + p <= 2^256 and
+// b below 2^256 with a * b < p * 2^256
 FDEV void add_unreduced(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
   uint64_t c = 0;
 #pragma unroll

@@ -1527,7 +1527,7 @@ int g1_decompress_batch_mt(const uint8_t *in, size_t n,
  * draws n=2^k wide-reduced scalars per proof; Python bigint reduction
  * is ~0.2 s at k=16, this is ~15 ms).
  * in: (n, 64) LE uniform bytes; out: (n, 4) u64 LE words, Montgomery, the
- * port's (n, 8) u32 words, written in place (the prover's staging rows).
+ * port's (n, 8) u32 words, written in place (the rows handed in).
  * v = lo + 2^256*hi mod p; out = v*R = mont(lo,R2) + mont(mont(hi,R2),R2). */
 void fr_from_uniform_mont(const uint8_t *in, size_t n, const uint64_t *p_words,
                           const uint64_t *r2_words, uint64_t n0inv,

@@ -4,8 +4,9 @@
  * (cs/builder.py), each one C pass over the list's items in place of a
  * Python step an element:
  *
- * - `ints_to_words`, for `FieldCtx.to_mont_np` (ops/limbs.py): the advice
- *   columns, a proof's pads and blinds, as 256-bit words; the Montgomery
+ * - `ints_to_words`, for `FieldCtx.to_words_np` and `to_mont_np`
+ *   (ops/limbs.py): the advice and instance columns, which the card then
+ *   puts in Montgomery form, and a proof's pads and blinds, whose Montgomery
  *   product (`to_mont_words`, limbops.c) then runs over the words in place.
  * - `lookup_keys`, for `_permuted_columns` (plonk/prover.py): a lookup's tag
  *   column and advice wire, read together into the u32 pair keys
@@ -30,6 +31,31 @@
  * gets taken[i] = 0 and leaves its words unwritten.  Returns the count of
  * items not taken, or -1 with a Python error set when `seq` is neither a
  * list nor a tuple of n items. */
+#if PY_VERSION_HEX >= 0x030C0000 && defined(_PyLong_NON_SIZE_BITS) && PyLong_SHIFT == 30
+/* A non-negative int of at most 256 bits, read from its 30-bit digits
+ * (cpython/longintrepr.h, the layout of 3.12: the digit count above
+ * _PyLong_NON_SIZE_BITS of lv_tag, the sign in its low bits, 2 for a
+ * negative int) into four 64-bit words; 0 for any other int, which the
+ * caller then reads by the general rule.  A few nanoseconds where
+ * _PyLong_AsByteArray, byte by byte, takes tens. */
+static inline int digits_to_words(const PyLongObject *x, uint64_t *w) {
+    const uintptr_t tag = x->long_value.lv_tag;
+    if ((tag & _PyLong_SIGN_MASK) == 2) return 0;
+    const Py_ssize_t nd = (Py_ssize_t)(tag >> _PyLong_NON_SIZE_BITS);
+    const digit *d = x->long_value.ob_digit;
+    /* 8 digits hold 240 bits: a ninth may add 16 more */
+    if (nd > 9 || (nd == 9 && (d[8] >> 16) != 0)) return 0;
+    w[0] = w[1] = w[2] = w[3] = 0;
+    for (Py_ssize_t i = 0; i < nd; i++) {
+        const unsigned bit = 30u * (unsigned)i, k = bit >> 6, s = bit & 63u;
+        w[k] |= (uint64_t)d[i] << s;
+        if (s > 34 && k < 3) w[k + 1] |= (uint64_t)d[i] >> (64 - s);
+    }
+    return 1;
+}
+#define HAVE_DIGITS_TO_WORDS 1
+#endif
+
 Py_ssize_t ints_to_words(PyObject *seq, Py_ssize_t n, uint64_t *out, uint8_t *taken) {
     if (!(PyList_CheckExact(seq) || PyTuple_CheckExact(seq)) || PySequence_Fast_GET_SIZE(seq) != n) {
         PyErr_SetString(PyExc_TypeError, "ints_to_words: expected a list or tuple of n items");
@@ -52,6 +78,12 @@ Py_ssize_t ints_to_words(PyObject *seq, Py_ssize_t n, uint64_t *out, uint8_t *ta
                 taken[i] = 1;
                 continue;
             }
+        }
+#endif
+#ifdef HAVE_DIGITS_TO_WORDS
+        if (ok && digits_to_words((PyLongObject *)x, w)) {
+            taken[i] = 1;
+            continue;
         }
 #endif
         if (ok) {

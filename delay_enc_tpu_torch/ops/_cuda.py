@@ -45,6 +45,7 @@ _Q = ctypes.c_ulonglong
 _SIGNATURES = {
     "field_binary": ("field", [_I, _I, _P, _P, _P, _U, _U, _U, _U, _U, _P]),
     "field_pow": ("field", [_I, _P, _P, _U, _P, _U, _P]),
+    "field_wide_to_mont": ("field", [_I, _P, _P, _U, _P, _P]),
     "ntt_fused": ("ntt", [_P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _U, _U, _U, _U, _P]),
     "field_scan": ("scan", [_I, _I, _P, _P, _P, _U, _U, _U, _P]),
     "field_scan_plan": ("scan", [_U, _U, _U, _P, _P]),

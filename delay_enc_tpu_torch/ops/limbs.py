@@ -11,8 +11,10 @@ bytes read as uint16 (`words_to_limbs_np`, `limbs_to_words_np`).
 `mont_mul`, `add` and `sub` launch kernel K-a (`csrc/field.cu`) on CUDA
 tensors and use their plain PyTorch versions (`*_plain`) on CPU tensors;
 `mont_pow` and `inv` launch `field_pow` (the same source) once, or run
-`mont_pow_plain`, a loop of `mont_mul_plain`.  `batch_inv` is
-`ops/poly.py:batch_inv_log`.
+`mont_pow_plain`, a loop of `mont_mul_plain`.  `wide_to_mont` launches
+`field_wide_to_mont` (the same source), or runs `wide_to_mont_plain`: the
+Montgomery form of 512-bit rows, which the prover sends as drawn.
+`batch_inv` is `ops/poly.py:batch_inv_log`.
 The plain versions compute in 16-bit limbs held in int64, because this
 PyTorch has no uint32 add, subtract, shift or compare; they run on any
 device and are what the kernel is checked against.
@@ -52,6 +54,10 @@ _KERNEL = {OP_MUL: K_MUL, OP_ADD: K_ADD, OP_SUB: K_SUB}
 K_POW = _cuda.kernel("field_pow", "field_pow",
                      _REPLACES + "539 mont_pow, :551 inv (K1 chains; a lax.scan in inv)",
                      "delay_enc_tpu_torch/csrc/field.cu")
+K_WIDE = _cuda.kernel("field_wide_to_mont", "field_wide_to_mont",
+                      "delay_enc_tpu/plonk/prover.py:75 _rand_fr_mont_bulk (the host's C "
+                      "wide reduction)",
+                      "delay_enc_tpu_torch/csrc/field.cu")
 
 
 # ------------------------------------------------------- numpy boundary
@@ -127,6 +133,7 @@ class FieldCtx:
         self.n_prime = (-pow(p, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
         self.r_mod_p = (1 << 256) % p
         self.r2 = self.r_mod_p * self.r_mod_p % p
+        self.r3 = self.r2 * self.r_mod_p % p
         self.p_limbs = tuple((p >> (16 * i)) & MASK for i in range(NLIMB))
         self._dev: dict = {}
 
@@ -145,40 +152,58 @@ class FieldCtx:
         returned): every step below then works in its rows, and no array of
         N elements is made.
 
-        A list or tuple is read in C (`native/pyints.c`): each exact int in
-        [0, 2^256) goes into the words as it is, with no Python step.  Every
-        other element (a negative int, one of 2^256 or more, a bool, a numpy
-        scalar), and every element of any other sequence, becomes
-        int(x) % p in Python.  The C Montgomery product then runs over all
-        the words in place.  The counters `to_mont native` and
-        `to_mont python` count the elements that took each way."""
-        from ..native import get_lib, get_pyints
+        The ints are read as `to_words_np` reads them; the C Montgomery
+        product then runs over all the words in place.  Without the C
+        library every element becomes int(x) * R mod p in Python.  The
+        counters `to_mont native` and `to_mont python` count the elements
+        that took each way."""
+        from ..native import get_lib
 
         with GLOBAL_METRICS.span("to_mont"):
             lib = get_lib()
-            p = self.p
             n = len(xs)
-            out = np.empty((n, NW), dtype=np.uint32) if out is None else rows_to_write(out, n)
             if lib is None:
+                out = np.empty((n, NW), dtype=np.uint32) if out is None else rows_to_write(out, n)
                 GLOBAL_METRICS.count("to_mont python", n)
-                out[...] = ints_to_words_np([(int(x) << 256) % p for x in xs])
+                out[...] = ints_to_words_np([(int(x) << 256) % self.p for x in xs])
                 return out
-            words = out.view(np.uint64)  # (n, 4)
-            pyints = get_pyints() if isinstance(xs, (list, tuple)) else None
-            if pyints is not None:
-                taken = np.empty(n, dtype=np.uint8)
-                missed = pyints.ints_to_words(xs, n, words.ctypes.data, taken.ctypes.data)
-                rest = np.flatnonzero(taken == 0) if missed else ()
-            else:
-                rest = range(n)
-            if len(rest):
-                buf = b"".join((int(xs[i]) % p).to_bytes(32, "little") for i in rest)
-                words[rest] = np.frombuffer(buf, dtype="<u8").reshape(-1, 4)
-            GLOBAL_METRICS.count("to_mont native", n - len(rest))
-            GLOBAL_METRICS.count("to_mont python", len(rest))
+            out = self._read_words(xs, out)
             pw, r2w, n0 = self._native_consts()
-            lib.to_mont_words(words.ctypes.data, n, pw.ctypes.data, r2w.ctypes.data, n0)
+            lib.to_mont_words(out.ctypes.data, n, pw.ctypes.data, r2w.ctypes.data, n0)
             return out
+
+    def to_words_np(self, xs, out: np.ndarray | None = None) -> np.ndarray:
+        """ints -> (N, 8) uint32 words of values congruent to them mod p, not
+        in Montgomery form: `to_mont_np`'s read without its product, for the
+        card to convert (`canonical_to_mont`, which takes words up to 2^256).
+        The span `to_mont`; `out` and the counters as `to_mont_np`'s."""
+        with GLOBAL_METRICS.span("to_mont"):
+            return self._read_words(xs, out)
+
+    def _read_words(self, xs, out: np.ndarray | None) -> np.ndarray:
+        """A list or tuple is read in C (`native/pyints.c`): each exact int
+        in [0, 2^256) goes into the words as it is, with no Python step.
+        Every other element (a negative int, one of 2^256 or more, a bool, a
+        numpy scalar), every element of any other sequence, and every
+        element where the reader is missing, becomes int(x) % p in Python."""
+        from ..native import get_pyints
+
+        n = len(xs)
+        out = np.empty((n, NW), dtype=np.uint32) if out is None else rows_to_write(out, n)
+        words = out.view(np.uint64)  # (n, 4)
+        pyints = get_pyints() if isinstance(xs, (list, tuple)) else None
+        if pyints is not None:
+            taken = np.empty(n, dtype=np.uint8)
+            missed = pyints.ints_to_words(xs, n, words.ctypes.data, taken.ctypes.data)
+            rest = np.flatnonzero(taken == 0) if missed else ()
+        else:
+            rest = range(n)
+        if len(rest):
+            buf = b"".join((int(xs[i]) % self.p).to_bytes(32, "little") for i in rest)
+            words[rest] = np.frombuffer(buf, dtype="<u8").reshape(-1, 4)
+        GLOBAL_METRICS.count("to_mont native", n - len(rest))
+        GLOBAL_METRICS.count("to_mont python", len(rest))
+        return out
 
     def from_mont_np(self, a) -> list[int]:
         """(…, 8) uint32 Montgomery words -> ints."""
@@ -199,11 +224,12 @@ class FieldCtx:
 
     def const(self, name: str, device) -> torch.Tensor:
         """(8,) int32 constant on `device`: "one" (Montgomery 1 = R mod p),
-        "canon_one" (canonical 1), "r2" (R^2 mod p), "zero"."""
+        "canon_one" (canonical 1), "r2" (R^2 mod p), "r3" (R^3 mod p), "zero"."""
         device = torch.device(device)
         key = (name, str(device))
         if key not in self._dev:
-            v = {"one": self.r_mod_p, "canon_one": 1, "r2": self.r2, "zero": 0}[name]
+            v = {"one": self.r_mod_p, "canon_one": 1, "r2": self.r2, "r3": self.r3,
+                 "zero": 0}[name]
             self._dev[key] = to_tensor(ints_to_words_np([v])[0], device)
         return self._dev[key]
 
@@ -309,6 +335,15 @@ def mont_pow_plain(ctx: FieldCtx, a: torch.Tensor, e: int) -> torch.Tensor:
         if bit == "1":
             r = mont_mul_plain(ctx, r, a)
     return r
+
+
+def wide_to_mont_plain(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    """(…, 16) words, a 512-bit lo + 2^256 hi each -> its Montgomery form
+    (lo + 2^256 hi) * R mod p as (…, 8) words: R^2 * lo * R^-1 plus
+    R^3 * hi * R^-1, as the kernel computes it."""
+    lo = mont_mul_plain(ctx, ctx.const("r2", a.device), a[..., :NW])
+    hi = mont_mul_plain(ctx, ctx.const("r3", a.device), a[..., NW:])
+    return add_plain(ctx, lo, hi)
 
 
 _PLAIN = {OP_MUL: mont_mul_plain, OP_ADD: add_plain, OP_SUB: sub_plain}
@@ -466,8 +501,41 @@ def mont_to_canonical(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
 
 
 def canonical_to_mont(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
-    """Canonical words -> Montgomery form (a * R^2 * R^-1)."""
-    return mont_mul(ctx, a, ctx.const("r2", a.device))
+    """Canonical words, any below 2^256 -> Montgomery form (R^2 * a * R^-1):
+    K-a's product takes such a word as its second operand only."""
+    return mont_mul(ctx, ctx.const("r2", a.device), a)
+
+
+@functools.lru_cache(maxsize=4)
+def _wide_consts(ctx: FieldCtx):
+    """R^2 and R^3 mod p as 16 words, for the launch's parameters."""
+    return (ctypes.c_uint * (2 * NW))(
+        *((v >> (32 * j)) & 0xFFFFFFFF for v in (ctx.r2, ctx.r3) for j in range(NW)))
+
+
+def wide_to_mont(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    """int32 (…, 16) words, each row the 512-bit integer lo + 2^256 hi (lo
+    words 0-7, hi words 8-15, any bits) -> int32 (…, 8) Montgomery words of
+    it mod p: the words `native/ec.py:uniform_to_fr_mont` gives for the
+    same 64 bytes.  One launch of `field_wide_to_mont` on a card."""
+    if a.dtype != torch.int32 or a.shape[-1] != 2 * NW:
+        raise ValueError(f"wide operand must be int32 (…, {2 * NW}), got {a.dtype} "
+                         f"{tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return wide_to_mont_plain(ctx, a)
+    _cuda.require_cuda(a)
+    a = a.contiguous()
+    out = torch.empty(a.shape[:-1] + (NW,), dtype=torch.int32, device=a.device)
+    n = out.numel() // NW
+    if n == 0:
+        return out
+    if n >= 1 << 32:
+        raise ValueError("too many elements for one launch")
+    if (a.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError("field operand is not 16-byte aligned")
+    K_WIDE(ctx.fid, a.data_ptr(), out.data_ptr(), n, ctypes.addressof(_wide_consts(ctx)),
+           _cuda.stream())
+    return out
 
 
 def to_device_mont(ctx: FieldCtx, xs, device) -> torch.Tensor:

@@ -41,10 +41,18 @@ pad between A'_l and S'_l, which is the JAX single prover's order.  So the
 same circuit, SRS and seed give the JAX create_proof's bytes, and the same
 builders the JAX create_proofs_batched's.
 
-Every word a run sends to the card in its first four phases (the advice
-and instance columns, the permuted lookup columns, the random polynomial)
-is written once, in place, into the calling thread's staging buffer
-(`staging`), kept across runs, and sent from there with no host copy.
+Every word a run sends to the card in its first two phases (the advice
+and instance columns, the permuted lookup columns) is written once, in
+place, into the calling thread's staging buffer (`staging`), kept across
+runs, and sent from there with no host copy; the random polynomials' draws
+are sent as drawn.  The card computes the Montgomery form of the bulk
+words: the advice and instance columns go up as their canonical words
+(`FieldCtx.to_words_np`) and K-a multiplies them by R^2
+(`L.canonical_to_mont`); the random polynomials go up as their 64-byte
+draws and `L.wide_to_mont` reduces them.  The counter `to_mont device`
+counts those elements, 7 n an instance.  The host keeps `to_mont_np` for
+the small conversions: the lookup pads, the grand products' blinds and
+inverses, and the points.
 
 Spans (`utils/timers.py`): a proof is the root span `prove` (a batch:
 `prove_batch`), its phases the spans `advice commit`, `lookup permuted`,
@@ -110,18 +118,14 @@ def _rand_fr(rng) -> int:
     return FR.from_uniform_bytes(bytes(rng.integers(0, 256, 64, dtype="uint8")))
 
 
-def _rand_fr_mont_bulk(rng, out: np.ndarray) -> np.ndarray:
-    """len(out) wide-reduced random Fr as Montgomery words, written into the
-    (count, 8) rows `out` through the copied C wide reduction (Python
-    fallback); the span `columns`."""
-    from ..native.ec import uniform_to_fr_mont
-
-    count = len(out)
+def _rand_wide_rows(rng, B: int, n: int) -> np.ndarray:
+    """The random polynomials' B * n draws of 64 bytes, as drawn, viewed as
+    (B, n, 16) uint32 words: each row the little-endian 512-bit integer
+    whose reduction mod p is the coefficient (`L.wide_to_mont`, on the
+    card); the span `columns`."""
     with GLOBAL_METRICS.span("columns"):
-        raw = rng.integers(0, 256, (count, 64), dtype="uint8")
-        if uniform_to_fr_mont(raw, out) is not None:
-            return out
-        return CTX.to_mont_np([FR.from_uniform_bytes(bytes(raw[i])) for i in range(count)], out)
+        raw = rng.integers(0, 256, (B * n, 64), dtype="uint8")
+        return raw.view(np.uint32).reshape(B, n, 2 * L.NW)
 
 
 def _table_keys(tbl_tags, tbl_vals, usable: int, theta: int):
@@ -391,16 +395,17 @@ _STAGING = threading.local()
 
 def staging(B: int, n: int) -> tuple:
     """The calling thread's host staging buffer, as the views (advice,
-    lookups, random) of one proof run: (B, 6, n, 8), (B, 8, n, 8) and (B, n,
-    8) uint32 words, one after the other.  The host prover work writes every
-    word it sends there, once, and `L.to_tensor` sends from there.  The
+    lookups) of one proof run: (B, 6, n, 8) canonical words and (B, 8, n, 8)
+    Montgomery words, uint32, one after the other.  The host prover work
+    writes every word of the columns there, once, and `L.to_tensor` sends
+    from there (the random polynomials' draws go up as drawn).  The
     buffer is one flat array a thread, kept across calls: it grows to the
     first run that needs more (the counter `staging grow`, its bytes under
     `staging grow bytes`), is never shrunk, and is otherwise reused
     (`staging reuse`).  A thread proves one run at a time, and a CUDA copy
     has read the words when `to_tensor` returns, so the next run may
     rewrite them."""
-    sizes = (B * (NUM_ADVICE + 1) * n * L.NW, B * 2 * NL * n * L.NW, B * n * L.NW)
+    sizes = (B * (NUM_ADVICE + 1) * n * L.NW, B * 2 * NL * n * L.NW)
     words = sum(sizes)
     buf = getattr(_STAGING, "buf", None)
     if buf is None or buf.size < words:
@@ -410,9 +415,8 @@ def staging(B: int, n: int) -> tuple:
         GLOBAL_METRICS.count("staging grow bytes", buf.nbytes)
     else:
         GLOBAL_METRICS.count("staging reuse")
-    a, lk, r = np.split(buf[:words], np.cumsum(sizes[:2]))
-    return (a.reshape(B, NUM_ADVICE + 1, n, L.NW), lk.reshape(B, 2 * NL, n, L.NW),
-            r.reshape(B, n, L.NW))
+    a, lk = np.split(buf[:words], sizes[:1])
+    return a.reshape(B, NUM_ADVICE + 1, n, L.NW), lk.reshape(B, 2 * NL, n, L.NW)
 
 
 def create_proof(srs, pk: ProvingKey, builder: Builder, rng=None, device="cuda",
@@ -507,11 +511,14 @@ def prove_instances(pk: ProvingKey, builders, rng, make_groups, shared_pads: boo
             tr.common_scalar(pk.vk.transcript_repr)
             for v in b.instance:
                 tr.common_scalar(v)
-        adv_host, lk_host, rand_host = staging(B, n)
+        adv_host, lk_host = staging(B, n)
         for i, b in enumerate(builders):
             for c, col in enumerate(_advice_columns(b, n, usable, rng)):
-                CTX.to_mont_np(col, adv_host[i, c])
-        raw = dev(adv_host)
+                CTX.to_words_np(col, adv_host[i, c])
+        canonical = dev(adv_host)
+        raw = each(lambda g: L.canonical_to_mont(CTX, canonical[g.i]))  # Montgomery words
+        GLOBAL_METRICS.count("to_mont device", adv_host.size // L.NW)
+        del canonical
         coeff = each(lambda g: _coeff(raw[g.i], g.plans[0]))  # (b, 6, n, 8) a group
         commit([c[:, :NUM_ADVICE].reshape(-1, n, L.NW) for c in coeff], NUM_ADVICE, "advice")
 
@@ -559,8 +566,10 @@ def prove_instances(pk: ProvingKey, builders, rng, make_groups, shared_pads: boo
 
     with span("quotient"):
         # ---- 4. random polys ----------------------------------------------
-        _rand_fr_mont_bulk(rng, rand_host.reshape(B * n, L.NW))
-        random_coeff = dev(rand_host)
+        wide = dev(_rand_wide_rows(rng, B, n))
+        random_coeff = each(lambda g: L.wide_to_mont(CTX, wide[g.i]))
+        GLOBAL_METRICS.count("to_mont device", B * n)
+        del wide
         commit(random_coeff, 1, "random")
 
         # ---- 5. quotient --------------------------------------------------

@@ -167,3 +167,23 @@ def test_header_compiles_without_cuda(tmp_path):
         subprocess.run([cxx, "-std=c++17", "-Wall", "-Werror", "-Wno-unknown-pragmas",
                         f"-I{CSRC}", *flags, "-c", "-o", str(tmp_path / "only_header.o"),
                         str(src)], check=True, capture_output=True)
+
+
+@pytest.mark.parametrize("fid,field", [(0, FR), (1, FQ)], ids=["fr", "fq"])
+def test_mont_mul_takes_a_second_operand_anywhere_below_2_256(harness, fid, field):
+    """A reduced first operand (R^2, R^3, random ones) against a second
+    anywhere below 2^256, [2^256 - p, 2^256) among them: the conversions of
+    canonical words and of 64-byte draws (`canonical_to_mont`,
+    `field_wide_to_mont`) rely on it, in both bodies."""
+    p = field.p
+    rng = np.random.default_rng(10 + fid)
+    firsts = [R * R % p, R ** 3 % p, p - 1, 1] + [field.random(rng) for _ in range(4)]
+    seconds = [0, 1, p - 1, p, 2 * p, R - p - 1, R - p, R - p + 1, R - 1] + \
+        [int.from_bytes(rng.bytes(32), "little") for _ in range(400)] + \
+        [R - 1 - int.from_bytes(rng.bytes(30), "little") for _ in range(200)]
+    lines, want = [], []
+    for a in firsts:
+        for b in seconds:
+            lines.append(f"0 {fid} " + " ".join(map(str, _w(a) + _w(b))))
+            want.append(a * b * pow(R, -1, p) % p)
+    assert [_unw(r) for r in harness(lines)] == want

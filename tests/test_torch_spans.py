@@ -188,6 +188,60 @@ def test_htod_bytes_count_the_inputs(traced):
     assert c.get("#split cosets", 0) == 0
 
 
+def test_to_mont_device_counts_seven_n_an_instance(keys, traced):
+    """`to_mont device` counts the elements whose Montgomery form the card
+    computed: 5 advice columns, the instance column and the random
+    polynomial, 7 n an instance, B 7 n for a batch of B."""
+    _, t = traced
+    n = keys[1].vk.domain.n
+    assert t["counters"]["#to_mont device"] == 7 * n * len(t["out"])
+
+
+class _Calls:
+    """A C library whose named functions record their element counts."""
+
+    def __init__(self, lib, names):
+        self.lib, self.calls = lib, {name: [] for name in names}
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name not in self.calls:
+            return fn
+        return lambda *args: self.calls[name].append(args[1]) or fn(*args)
+
+
+@pytest.mark.parametrize("kind", sorted(ROOTS))
+def test_no_host_montgomery_product_over_the_bulk_words(keys, kind, monkeypatch):
+    """On a proof's path the host's Montgomery product (`to_mont_words`)
+    runs only over the small conversions, each call under n - usable rows
+    an instance and column, and the host's wide reduction
+    (`fr_from_uniform_mont`) never; the bytes stay the goldens'."""
+    from delay_enc_tpu_torch import native
+    from delay_enc_tpu_torch.native import ec
+    from delay_enc_tpu_torch.plonk import create_proof, create_proofs_batched
+
+    srs, pk, builders = keys
+    lib, eclib = _Calls(native.get_lib(), ["to_mont_words"]), \
+        _Calls(ec.get_eclib(), ["fr_from_uniform_mont"])
+    monkeypatch.setattr(native, "get_lib", lambda: lib)
+    monkeypatch.setattr(ec, "get_eclib", lambda: eclib)
+    if kind == "single":
+        out = [create_proof(srs, pk, builders[0], np.random.default_rng(SEED), device="cpu")]
+        with np.load(GOLDEN) as z:
+            want = [z["proof"].tobytes()]
+    else:
+        out = create_proofs_batched(srs, pk, builders, np.random.default_rng(BATCH_SEED),
+                                    device="cpu")
+        with np.load(BATCH_GOLDEN) as z:
+            want = [p.tobytes() for p in z["proofs"]]
+    assert out == want
+    d = pk.vk.domain
+    small = d.n - d.usable_rows
+    assert eclib.calls["fr_from_uniform_mont"] == []
+    assert lib.calls["to_mont_words"] and \
+        max(lib.calls["to_mont_words"]) <= len(out) * 5 * small
+
+
 # a proof's blocking reads back to the host: the plane sums of its six
 # commitment batches (advice, lookups, grand products, random polynomial,
 # quotient pieces, GWC witnesses) and two reads of field elements (the

@@ -1,10 +1,11 @@
 """The prover's host staging buffer (`plonk/prover.py:staging`): each writer
 of a proof's host words gives in the rows it is handed the words it gives
-as an array (`FieldCtx.to_mont_np(out=)`, `_permuted_columns(ap=, sp=)`,
-`_rand_fr_mont_bulk`), on the C paths and without the C libraries; the
-buffer grows once a thread and shape and is reused after; two threads hold
-two buffers; `to_tensor` to the CPU never aliases its source; and the
-proofs keep the golden bytes."""
+as an array (`FieldCtx.to_mont_np(out=)`, `_permuted_columns(ap=, sp=)`),
+on the C paths and without the C libraries; the random polynomials' rows
+are their draws as drawn (`_rand_wide_rows`); the buffer grows once a
+thread and shape and is reused after; two threads hold two buffers;
+`to_tensor` to the CPU never aliases its source; and the proofs keep the
+golden bytes."""
 
 import os
 import sys
@@ -148,20 +149,27 @@ def test_permuted_columns_into_rows_refuse_alike(case, absent, monkeypatch):
 
 @pytest.mark.parametrize("absent", ["none", "ecops"])
 def test_random_polynomial_into_rows(absent, monkeypatch):
-    """`_rand_fr_mont_bulk` writes into the rows the words of the wide
+    """`_rand_wide_rows` gives the draws of 64 bytes as they lie, with no
+    copy, as (B, n, 16) words, and leaves the generator where the draw
+    does; through the wide reduction they are the words of the host's wide
     reduction of the same draws, with the C library and in Python."""
     from delay_enc_tpu_torch.native import ec
 
     if absent == "ecops":
         monkeypatch.setattr(ec, "get_eclib", lambda: None)
-    count = 300
-    raw = np.random.default_rng(5).integers(0, 256, (count, 64), dtype="uint8")
-    want = TL.FR_CTX.to_mont_np([FR.from_uniform_bytes(bytes(raw[i])) for i in range(count)])
-    buf = np.full((count + 2, TL.NW), SENTINEL, dtype=np.uint32)
-    got = TP._rand_fr_mont_bulk(np.random.default_rng(5), buf[1 : 1 + count])
-    assert got.base is buf
-    assert np.array_equal(buf[1 : 1 + count], want)
-    assert (buf[0] == SENTINEL).all() and (buf[-1] == SENTINEL).all()
+    B, n = 3, 100
+    rng, ref = np.random.default_rng(5), np.random.default_rng(5)
+    raw = ref.integers(0, 256, (B * n, 64), dtype="uint8")
+    want = ec.uniform_to_fr_mont(raw)
+    if want is None:
+        want = TL.FR_CTX.to_mont_np([FR.from_uniform_bytes(bytes(r)) for r in raw])
+    got = TP._rand_wide_rows(rng, B, n)
+    assert got.dtype == np.uint32 and got.shape == (B, n, 2 * TL.NW)
+    assert got.flags.c_contiguous and got.base is not None
+    assert np.array_equal(got.reshape(B * n, 2 * TL.NW).view(np.uint8), raw)
+    assert rng.integers(0, 1 << 62) == ref.integers(0, 1 << 62)
+    mont = TL.wide_to_mont(TL.FR_CTX, TL.to_tensor(got, "cpu"))
+    assert np.array_equal(TL.to_numpy(mont).reshape(B * n, TL.NW), want)
 
 
 @pytest.mark.parametrize("shape", ["vector", "rows", "stack"])
@@ -191,7 +199,7 @@ STAGING = ("staging grow", "staging grow bytes", "staging reuse")
 
 
 def _words(B, n):
-    return B * (6 + 8 + 1) * n * TL.NW
+    return B * (6 + 8) * n * TL.NW
 
 
 @pytest.mark.parametrize("runs, counts", [
@@ -203,14 +211,14 @@ def _words(B, n):
 def test_staging_grows_to_the_largest_run_and_is_reused(runs, counts):
     """A thread's buffer grows only when a run needs more than it holds,
     to that run's size, and is reused by every run it holds; the views
-    tile its front in the order advice, lookups, random."""
+    tile its front in the order advice, lookups."""
     def go():
         sizes = []
         for B, n in runs:
-            a, lk, r = TP.staging(B, n)
-            assert (a.shape, lk.shape, r.shape) == ((B, 6, n, 8), (B, 8, n, 8), (B, n, 8))
+            a, lk = TP.staging(B, n)
+            assert (a.shape, lk.shape) == ((B, 6, n, 8), (B, 8, n, 8))
             assert a.ctypes.data + a.nbytes == lk.ctypes.data
-            assert lk.ctypes.data + lk.nbytes == r.ctypes.data
+            assert lk.ctypes.data + lk.nbytes == a.ctypes.data + 4 * _words(B, n)
             sizes.append(a.base.size)
         return sizes
 
@@ -234,9 +242,9 @@ def test_two_threads_hold_two_buffers():
     seen = {}
 
     def go(name):
-        a, _, _ = TP.staging(1, 64)
+        a, _ = TP.staging(1, 64)
         ready.wait()
-        a2, _, _ = TP.staging(1, 64)
+        a2, _ = TP.staging(1, 64)
         seen[name] = (a.ctypes.data, a2.ctypes.data)
         ready.wait()
 
